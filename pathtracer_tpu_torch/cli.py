@@ -1,0 +1,146 @@
+"""Command-line interface of the PyTorch/CUDA port.
+
+    python -m pathtracer_tpu_torch.cli render <scene.txt> [options]
+    python -m pathtracer_tpu_torch.cli info   <scene.txt>
+
+The flags are the JAX CLI's (`python -m pathtracer_tpu.cli`), plus
+`--device` (default `cuda`).  Asking for CUDA where there is none is an
+error: the port never moves to the CPU on its own (`--device cpu`, or the
+JAX CLI's `--cpu`, asks for the CPU).  Flags whose feature is not ported
+yet (`--devices N>1`, `--regen K>1`, `--checkpoint`, `--resume`) exit with
+an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+
+def _add_common(p: argparse.ArgumentParser):
+    p.add_argument("scene", help="scene .txt file (reference format)")
+    p.add_argument("--mode", choices=["bsdf", "direct", "mis"], default="bsdf",
+                   help="integrator")
+    p.add_argument("--spp", type=int, default=None, help="iterations (default: scene ITERATIONS)")
+    p.add_argument("--depth", type=int, default=None, help="max bounces (default: scene DEPTH)")
+    p.add_argument("--res", type=str, default=None, help="WxH override, e.g. 800x800")
+    p.add_argument("--device", default="cuda", help="torch device: cuda (default), cuda:N or cpu")
+    p.add_argument("--cpu", action="store_true", help="same as --device cpu")
+    p.add_argument("--no-tonemap", action="store_true", help="skip ACES+gamma on save")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--devices", type=int, default=None, help="not ported yet (must be 1)")
+    p.add_argument("--regen", type=int, default=0, metavar="K", help="not ported yet (must be <= 1)")
+
+
+def _parse_mode(s: str):
+    from pathtracer_tpu.utils.config import SampleMode
+
+    return {"bsdf": SampleMode.BSDF, "direct": SampleMode.DIRECT_LI, "mis": SampleMode.MIS}[s]
+
+
+def _parse_res(s):
+    if s is None:
+        return None
+    try:
+        w, h = s.lower().split("x")
+        return (int(w), int(h))
+    except ValueError:
+        raise SystemExit(f"error: --res expects WxH (e.g. 800x800), got {s!r}")
+
+
+def cmd_render(args) -> int:
+    from pathtracer_tpu.utils.config import RenderOptions
+    from pathtracer_tpu_torch.integrator.render import Renderer
+
+    if args.checkpoint or args.resume:
+        raise NotImplementedError("checkpoint/resume is not ported yet (ROADMAP Queue 1 item 15)")
+    opts = RenderOptions(
+        sample_mode=_parse_mode(args.mode), tonemapping=not args.no_tonemap,
+        ray_regen=max(args.regen, 0),
+    )
+    r = Renderer(args.scene, opts=opts, resolution=_parse_res(args.res),
+                 trace_depth=args.depth, devices=args.devices, device=args.device)
+    print(f"device: {r.device} ({_device_name(r.device)})", file=sys.stderr)
+    r.set_seed(args.seed)
+    total = args.spp if args.spp is not None else r.static.iterations
+    out = Path(args.out) if args.out else Path(f"{r.static.image_name}.png")
+    chunk = max(1, min(args.save_every or total, total))
+    t0 = time.perf_counter()
+    while r.iteration < total:
+        stats = r.step(min(chunk, total - r.iteration))
+        print(f"[{r.iteration}/{total}] {stats.mrays_per_sec:8.2f} Mrays/s  "
+              f"{time.perf_counter() - t0:7.1f}s elapsed", flush=True)
+        if args.save_every:
+            r.save_png(out)
+    r.save_png(out)
+    if args.hdr:
+        r.save_hdr(out.with_suffix(".hdr"))
+    print(f"saved {out} ({r.iteration} spp)")
+    return 0
+
+
+def _device_name(dev) -> str:
+    import torch
+
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def cmd_info(args) -> int:
+    from pathtracer_tpu.scene.parser import load_scene
+    from pathtracer_tpu_torch.scene.flatscene import build_flat_scene
+
+    scene = load_scene(args.scene)
+    _, static = build_flat_scene(scene)
+    info = {
+        "scene": str(scene.path),
+        "resolution": list(scene.camera.resolution),
+        "iterations": static.iterations,
+        "trace_depth": static.trace_depth,
+        "geoms": static.num_geoms,
+        "triangles": static.num_tris,
+        "bvh_nodes": static.num_bvh_nodes,
+        "bvh_trees": static.num_bvh_trees,
+        "wide_nodes": static.wide_nodes,
+        "wide_depth": static.wide_depth,
+        "materials": static.num_materials,
+        "lights": static.num_lights,
+        "textures": len(scene.textures),
+        "env_map": static.env_map_id >= 0,
+        "image_name": static.image_name,
+    }
+    print(json.dumps(info, indent=2))
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="pathtracer_tpu_torch", description=__doc__)
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    pr = sub.add_parser("render", help="render a scene to PNG")
+    _add_common(pr)
+    pr.add_argument("-o", "--out", default=None, help="output PNG path")
+    pr.add_argument("--hdr", action="store_true", help="also write Radiance .hdr")
+    pr.add_argument("--save-every", type=int, default=None, help="progressive save interval (spp)")
+    pr.add_argument("--checkpoint", default=None, help="not ported yet")
+    pr.add_argument("--resume", default=None, help="not ported yet")
+    pr.set_defaults(fn=cmd_render)
+
+    pi = sub.add_parser("info", help="print scene statistics as JSON")
+    pi.add_argument("scene")
+    pi.set_defaults(fn=cmd_info)
+
+    args = parser.parse_args(argv)
+    if getattr(args, "cpu", False):
+        args.device = "cpu"
+    try:
+        return args.fn(args)
+    except (FileNotFoundError, ValueError, RuntimeError, NotImplementedError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,229 @@
+// Wide (8-ary) BVH traversal kernels for Hopper (sm_90a): closest hit (K1)
+// and shadow any-hit (K2).  One thread per ray, a private stack in local
+// memory, tables read straight from global memory (a resident mesh of ~10k
+// triangles is well under 1 MB of tables, so they stay in L2).
+//
+// Tables (scene/flatscene.py build_wide_tables, identical to the JAX
+// package's):
+//   wf  (M*48,) f32  node m child c AABB at [m*48 + c*6 : +6] = bmin, bmax;
+//                    NaN marks an empty slot
+//   wi  (M*24,) i32  node m [link x8 | start x8 | end x8]; link >= 0 is an
+//                    internal wide node, else [start, end) is a leaf cut
+//   wp  (M*8,)  i32  per-octant near->far child order, 3 bits per rank
+//   tri (T*12,) f32  EDGE-form rows [v0, e1 = v1 - v0, e2 = v2 - v0, pad]
+//
+// Built with -fmad=false and without fast math, so every operation rounds
+// like the plain PyTorch versions in ops/traverse_cuda.py, which walk the
+// same per-ray order; kernel and plain version then agree exactly.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define STACK 64     // traversal stack; the wrapper checks 7*wide_depth+1 <= STACK
+#define THREADS 128  // rays per block
+
+namespace {
+
+// NaN-propagating min/max, as jnp.minimum/maximum and torch.minimum/maximum.
+// fminf/fmaxf DROP NaN and would accept the empty (NaN) child slots.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
+}
+
+// Slab test of one child box; returns hit and writes t_enter.  As in the
+// Pallas kernel's _aabb_packet (pathtracer_tpu/ops/traverse_pallas.py:45): a
+// zero direction component with the origin exactly on a bound gives
+// 0 * inf = NaN and rejects the box (ROADMAP Queue 3 records this choice).
+__device__ __forceinline__ bool slab(const float* __restrict__ b,
+                                     float ox, float oy, float oz,
+                                     float idx, float idy, float idz,
+                                     float* t_enter) {
+  float lo_x = (b[0] - ox) * idx, hi_x = (b[3] - ox) * idx;
+  float lo_y = (b[1] - oy) * idy, hi_y = (b[4] - oy) * idy;
+  float lo_z = (b[2] - oz) * idz, hi_z = (b[5] - oz) * idz;
+  float te = nan_max(nan_max(nan_min(lo_x, hi_x), nan_min(lo_y, hi_y)), nan_min(lo_z, hi_z));
+  float tx = nan_min(nan_min(nan_max(lo_x, hi_x), nan_max(lo_y, hi_y)), nan_max(lo_z, hi_z));
+  *t_enter = te;
+  return (te <= tx) && (tx > 0.0f);
+}
+
+// Möller-Trumbore on one edge-form row; operation order as _moller_trumbore
+// (traverse_pallas.py:80).  Returns hit; writes t, u, v.
+__device__ __forceinline__ bool moller_trumbore(const float* __restrict__ r,
+                                                float ox, float oy, float oz,
+                                                float dx, float dy, float dz,
+                                                float* t, float* u, float* v) {
+  float e1x = r[3], e1y = r[4], e1z = r[5];
+  float e2x = r[6], e2y = r[7], e2z = r[8];
+  float px = dy * e2z - dz * e2y;
+  float py = dz * e2x - dx * e2z;
+  float pz = dx * e2y - dy * e2x;
+  float det = e1x * px + e1y * py + e1z * pz;
+  float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+  float tx = ox - r[0], ty = oy - r[1], tz = oz - r[2];
+  float uu = (tx * px + ty * py + tz * pz) * inv_det;
+  float qx = ty * e1z - tz * e1y;
+  float qy = tz * e1x - tx * e1z;
+  float qz = tx * e1y - ty * e1x;
+  float vv = (dx * qx + dy * qy + dz * qz) * inv_det;
+  float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  *t = tt;
+  *u = uu;
+  *v = vv;
+  return (det != 0.0f) && (tt >= 0.0f) && (uu >= 0.0f) && (vv >= 0.0f) &&
+         (1.0f - uu - vv >= 0.0f);
+}
+
+// K1: closest hit.  Replaces closest_hit_wbvh_pallas /
+// _make_wide_closest_kernel (pathtracer_tpu/ops/traverse_pallas.py:418,139).
+// Each pop tests the node's 8 children in the ray's own octant order, far to
+// near: a passing leaf child runs Möller-Trumbore over its cut at once, a
+// passing internal child is pushed, so the nearest child is popped first.  A
+// hit replaces the current one only if strictly closer (tt < best_t).  Lanes
+// with t_init < 0 (the -FLT_MAX dead sentinel) never enter.
+// What bounds it on this card: every pop is a chain of dependent global
+// loads (perm, then 8 boxes, then links and triangle rows) and the rays of a
+// warp walk different nodes, so the warp diverges.  This design answers
+// neither yet: warp-cooperative traversal, packet schemes and node layouts
+// for coalesced loads are for later work.
+__global__ void __launch_bounds__(THREADS)
+closest_hit_wbvh_kernel(const float* __restrict__ wf, const int* __restrict__ wi,
+                        const int* __restrict__ wp, const float* __restrict__ tri,
+                        const float* __restrict__ o, const float* __restrict__ d,
+                        const float* __restrict__ t_init,
+                        float* __restrict__ t_out, int* __restrict__ tri_out,
+                        float* __restrict__ u_out, float* __restrict__ v_out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+  const float idx = 1.0f / dx, idy = 1.0f / dy, idz = 1.0f / dz;
+  float best_t = t_init[i], best_u = 0.0f, best_v = 0.0f;
+  int best_tri = -1;
+  if (best_t >= 0.0f) {
+    const int oct = (dx > 0.0f ? 1 : 0) | (dy > 0.0f ? 2 : 0) | (dz > 0.0f ? 4 : 0);
+    int stack[STACK];
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0) {
+      const int node = stack[--sp];
+      const int perm = wp[node * 8 + oct];
+      const float* nf = wf + node * 48;
+      const int* ni = wi + node * 24;
+      for (int rank = 7; rank >= 0; --rank) {
+        const int slot = (perm >> (3 * rank)) & 7;
+        float t_enter;
+        if (!slab(nf + slot * 6, ox, oy, oz, idx, idy, idz, &t_enter) || !(t_enter <= best_t))
+          continue;
+        const int link = ni[slot];
+        if (link >= 0) {
+          stack[sp++] = link;
+          continue;
+        }
+        const int end = ni[16 + slot];
+        for (int k = ni[8 + slot]; k < end; ++k) {
+          float tt, tu, tv;
+          if (moller_trumbore(tri + 12 * k, ox, oy, oz, dx, dy, dz, &tt, &tu, &tv) && tt < best_t) {
+            best_t = tt;
+            best_tri = k;
+            best_u = tu;
+            best_v = tv;
+          }
+        }
+      }
+    }
+  }
+  t_out[i] = best_t;
+  tri_out[i] = best_tri;
+  u_out[i] = best_u;
+  v_out[i] = best_v;
+}
+
+// K2: shadow any-hit.  Replaces occlusion_wbvh_pallas /
+// _make_wide_occlusion_kernel (pathtracer_tpu/ops/traverse_pallas.py:1529,297).
+// Blocked iff some triangle in a box the ray reaches within min_t has
+// t < min_t - 1e-5 and |t - min_t| > 1e-4.  The box test caps at min_t (not
+// at a running best), so the visited set does not depend on order: children
+// go in slot order and the ray stops at its first blocker.  occluded0 lanes
+// stay blocked; lanes with min_t < 0 (the -FLT_MAX sentinel) never block.
+// Bounds and open questions as K1.
+__global__ void __launch_bounds__(THREADS)
+occlusion_wbvh_kernel(const float* __restrict__ wf, const int* __restrict__ wi,
+                      const float* __restrict__ tri,
+                      const float* __restrict__ o, const float* __restrict__ d,
+                      const float* __restrict__ min_t,
+                      const uint8_t* __restrict__ occluded0,
+                      uint8_t* __restrict__ occ_out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bool occ = occluded0[i] != 0;
+  const float mt = min_t[i];
+  if (!occ && mt >= 0.0f) {
+    const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+    const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+    const float idx = 1.0f / dx, idy = 1.0f / dy, idz = 1.0f / dz;
+    const float t_far = mt - 1e-5f;
+    int stack[STACK];
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0 && !occ) {
+      const int node = stack[--sp];
+      const float* nf = wf + node * 48;
+      const int* ni = wi + node * 24;
+      for (int slot = 0; slot < 8 && !occ; ++slot) {
+        float t_enter;
+        if (!slab(nf + slot * 6, ox, oy, oz, idx, idy, idz, &t_enter) || !(t_enter <= mt))
+          continue;
+        const int link = ni[slot];
+        if (link >= 0) {
+          stack[sp++] = link;
+          continue;
+        }
+        const int end = ni[16 + slot];
+        for (int k = ni[8 + slot]; k < end; ++k) {
+          float tt, tu, tv;
+          if (moller_trumbore(tri + 12 * k, ox, oy, oz, dx, dy, dz, &tt, &tu, &tv) &&
+              t_far > tt && fabsf(tt - mt) > 1e-4f) {
+            occ = true;
+            break;
+          }
+        }
+      }
+    }
+  }
+  occ_out[i] = occ ? 1 : 0;
+}
+
+inline dim3 grid_for(int n) { return dim3((unsigned)((n + THREADS - 1) / THREADS)); }
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes).  Each launches on `stream`,
+// does not synchronise, and returns cudaGetLastError().
+
+extern "C" int pt_closest_hit_wbvh(const float* wf, const int* wi, const int* wp,
+                                   const float* tri, const float* o, const float* d,
+                                   const float* t_init, float* t_out, int* tri_out,
+                                   float* u_out, float* v_out, int n, void* stream) {
+  if (n > 0)
+    closest_hit_wbvh_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+        wf, wi, wp, tri, o, d, t_init, t_out, tri_out, u_out, v_out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pt_occlusion_wbvh(const float* wf, const int* wi, const float* tri,
+                                 const float* o, const float* d, const float* min_t,
+                                 const uint8_t* occluded0, uint8_t* occ_out, int n,
+                                 void* stream) {
+  if (n > 0)
+    occlusion_wbvh_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+        wf, wi, tri, o, d, min_t, occluded0, occ_out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* pt_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

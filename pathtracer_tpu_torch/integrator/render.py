@@ -1,0 +1,214 @@
+"""Progressive renderer: accumulation loop, tonemapped save.
+
+Port of `pathtracer_tpu/integrator/render.py`.  The image accumulates
+radiance sums across iterations; display and save divide by the iteration
+count, then apply ACES + gamma 1/2.2 and the save-time X mirror.
+
+Options the port does not honour yet raise `NotImplementedError`:
+`ray_regen > 1`, `devices > 1`, `env_importance`, `show_normal` and
+`use_bvh=False`.  These options only change scheduling on the TPU, not the
+image, so they are accepted and ignored: `compaction`, `pool_shrink`,
+`shadow_sort`, `shrink_levels`, `shrink_half`, `sort_every`, `packet_*`,
+`iters_per_dispatch`, `interpret` and `pallas_traversal`.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pathtracer_tpu.scene.camera import RenderCamera, derive_camera
+from pathtracer_tpu.scene.parser import SceneData, load_scene
+from pathtracer_tpu.utils.config import RenderOptions
+from pathtracer_tpu.utils.image_io import write_hdr, write_png
+from pathtracer_tpu_torch.integrator.wavefront import CameraArrays, render_iteration
+from pathtracer_tpu_torch.ops import math as m
+from pathtracer_tpu_torch.scene.flatscene import build_flat_scene
+from pathtracer_tpu_torch.utils import rng
+
+
+# copied from pathtracer_tpu/integrator/render.py:37 swizzle_map
+def swizzle_map(width: int, height: int, block: int = 32) -> np.ndarray:
+    """Lane -> pixel permutation grouping pixels into `block`^2 tiles."""
+    idx = np.arange(width * height, dtype=np.int64)
+    x = idx % width
+    y = idx // width
+    blocks_x = (width + block - 1) // block
+    key = ((y // block) * blocks_x + (x // block)) * (block * block) + (
+        y % block
+    ) * block + (x % block)
+    return np.argsort(key, kind="stable")
+
+
+@dataclass
+class RenderStats:
+    iterations_done: int = 0
+    rays_traced: int = 0
+    wall_seconds: float = 0.0
+    compile_seconds: float = 0.0  # first iteration: kernel build + warm-up, not booked
+    per_iter_seconds: list = field(default_factory=list)
+
+    @property
+    def mrays_per_sec(self) -> float:
+        t = self.wall_seconds
+        return (self.rays_traced / t / 1e6) if t > 0 else 0.0
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; a CUDA request without CUDA raises (the
+    port never moves to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def _check_options(opts: RenderOptions, devices) -> None:
+    unsupported = {
+        "ray_regen > 1 (ROADMAP Queue 1 item 14)": int(opts.ray_regen) > 1,
+        "devices > 1 (ROADMAP Queue 1 item 15)": devices is not None and int(devices) > 1,
+        "env_importance (ROADMAP Queue 1 item 12)": bool(opts.env_importance),
+        "show_normal": bool(opts.show_normal),
+        "use_bvh=False": not opts.use_bvh,
+    }
+    for what, asked in unsupported.items():
+        if asked:
+            raise NotImplementedError(f"the port does not support {what} yet")
+
+
+class Renderer:
+    """Scene tables, camera and accumulation state for one scene on one device."""
+
+    def __init__(
+        self,
+        scene: SceneData | str | Path,
+        opts: RenderOptions | None = None,
+        resolution: tuple[int, int] | None = None,
+        trace_depth: int | None = None,
+        devices: int | None = None,
+        device="cuda",
+    ):
+        self.opts = opts or RenderOptions()
+        _check_options(self.opts, devices)
+        self.device = resolve_device(device)
+        if not isinstance(scene, SceneData):
+            scene = load_scene(scene)
+        self.scene = scene
+        if resolution is not None:
+            scene.camera.resolution = resolution
+        if trace_depth is not None:
+            scene.trace_depth = trace_depth
+        self.flat, self.static = build_flat_scene(scene, opts=self.opts, device=self.device)
+        self.width, self.height = scene.camera.resolution
+        self.camera: RenderCamera = derive_camera(scene.camera)
+        # spatial swizzle (triangle scenes): lane l renders pixel
+        # pixel_order[l] but draws its random numbers from counter l, so it
+        # must match the JAX package for the same pixels to get the same
+        # samples; the image is unswizzled at readout
+        self.pixel_order = None
+        self.pixel_xy = None
+        if self.opts.swizzle and self.static.num_tris > 0:
+            self.pixel_order = swizzle_map(self.width, self.height)
+            self.pixel_xy = tuple(
+                torch.from_numpy(a.astype(np.float32)).to(self.device)
+                for a in (self.pixel_order % self.width, self.pixel_order // self.width)
+            )
+        self.seed = 0
+        self.key = rng.base_key(0)
+        self.traced_depth = 0
+        self.stats = RenderStats()
+        self.reset()
+
+    def set_seed(self, seed: int):
+        self.seed = int(seed)
+        self.key = rng.base_key(self.seed)
+
+    def reset(self):
+        """Restart accumulation."""
+        self.img = torch.zeros((self.width * self.height, 3), device=self.device)
+        self.iteration = 0
+
+    def _cam_arrays(self) -> CameraArrays:
+        return CameraArrays(*(torch.from_numpy(a).to(self.device) for a in self.camera.as_arrays()))
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _run_iteration(self, cam):
+        contrib, rays, laps = render_iteration(
+            self.flat, self.static, self.opts, cam, self.key, self.iteration + 1,
+            pixel_xy=self.pixel_xy,
+        )
+        self.img = self.img + contrib
+        self.iteration += 1
+        self.traced_depth = laps
+        return rays
+
+    def step(self, num_iterations: int = 1) -> RenderStats:
+        """Render `num_iterations` samples per pixel.  As in the JAX package,
+        the very first iteration is a warm-up (here: kernel build and CUDA
+        start-up): its time goes to compile_seconds and its rays are not
+        booked."""
+        cam = self._cam_arrays()
+        if self.iteration == 0 and self.stats.compile_seconds == 0.0 and num_iterations > 0:
+            t0 = time.perf_counter()
+            self._run_iteration(cam)
+            self._sync()
+            self.stats.iterations_done += 1
+            self.stats.compile_seconds = time.perf_counter() - t0
+            num_iterations -= 1
+
+        t0 = time.perf_counter()
+        rays = torch.zeros((), dtype=torch.int64, device=self.device)
+        for _ in range(num_iterations):
+            rays = rays + self._run_iteration(cam)
+        rays_traced = int(rays)  # waits for the device
+        self._sync()
+        dt = time.perf_counter() - t0
+        booked = max(num_iterations, 0)
+        self.stats.iterations_done += booked
+        self.stats.rays_traced += rays_traced
+        self.stats.wall_seconds += dt
+        if booked > 0:
+            self.stats.per_iter_seconds.append(dt / booked)
+        return self.stats
+
+    # -- output -------------------------------------------------------------
+    def _unswizzle(self, img_lane: np.ndarray) -> np.ndarray:
+        if self.pixel_order is None:
+            return img_lane
+        out = np.empty_like(img_lane)
+        out[self.pixel_order] = img_lane
+        return out
+
+    def hdr_sum(self) -> np.ndarray:
+        """The accumulated radiance SUM as (H, W, 3), in pixel order."""
+        return self._unswizzle(self.img.cpu().numpy()).reshape(self.height, self.width, 3)
+
+    def ldr_image(self) -> np.ndarray:
+        """Tonemapped (H, W, 3) float in [0,1], without the save-time mirror."""
+        avg = self.img / max(self.iteration, 1)
+        if self.opts.tonemapping:
+            ldr = m.gamma_correction(m.aces_film(avg))
+        else:
+            ldr = torch.clamp(avg, 0.0, 1.0)
+        return self._unswizzle(ldr.cpu().numpy()).reshape(self.height, self.width, 3)
+
+    def save_png(self, path: str | Path, mirror_x: bool = True):
+        img = self.ldr_image()
+        if mirror_x:
+            img = img[:, ::-1]
+        write_png(path, img)
+
+    def save_hdr(self, path: str | Path, mirror_x: bool = True):
+        avg = self.hdr_sum() / max(self.iteration, 1)
+        if mirror_x:
+            avg = avg[:, ::-1]
+        write_hdr(path, avg)

@@ -1,0 +1,220 @@
+"""Wavefront path-tracing integrator (BSDF / direct-light / MIS).
+
+Port of the classic fixed-pool iteration of
+`pathtracer_tpu/integrator/wavefront.py`: a pool of W*H lanes, one per pixel,
+advanced one bounce at a time by a Python loop over depth that stops as soon
+as no lane is alive.  Dead lanes are masked, not compacted.  Radiance
+accumulates on the lane (`contrib`) and folds into the image once per
+iteration.
+
+Physics conventions, as the JAX package:
+- camera AA jitter (r - 0.5) and the pixel -> direction mapping;
+- ray-offset epsilons: dielectric 1e-3 * (sign-aligned normal), others
+  1e-4 * new_dir;
+- a path that exhausts its depth contributes nothing more;
+- NaN/Inf are scrubbed before every accumulation;
+- MIS: prev_pdf carries the BSDF pdf (-1 for delta), light hits are weighted
+  by powerHeuristic(prev_pdf, lightPDF), the NEE term by
+  powerHeuristic(lightPdf, bsdfPdf);
+- rays are counted as the reference emits them: every live ray, plus one
+  shadow ray per NEE-eligible lane even where NEE is statically zero.
+
+Left out, because they only reorder lanes: the per-bounce sort, the pool
+shrink ladder and the shadow sort (ROADMAP Queue 1 item 10).  The RNG keys on
+the lane's pixel and contributions ride the lane, so the output is the same.
+Also left out: the ray-regeneration pool, env maps and the normal-map view.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from pathtracer_tpu.scene.parser import DIELECTRIC, LIGHT, SPHERE
+from pathtracer_tpu.utils.config import RenderOptions, SampleMode
+from pathtracer_tpu_torch.ops import math as m
+from pathtracer_tpu_torch.ops.lights import light_pdf, light_sample
+from pathtracer_tpu_torch.ops.materials import (
+    bsdf_eval,
+    material_by_geom,
+    pdf_eval,
+    scatter_sample,
+)
+from pathtracer_tpu_torch.ops.traverse import closest_hit
+from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
+from pathtracer_tpu_torch.utils import rng
+
+
+class CameraArrays(NamedTuple):
+    position: torch.Tensor      # (3,)
+    view: torch.Tensor          # (3,)
+    up: torch.Tensor            # (3,)
+    right: torch.Tensor         # (3,)
+    pixel_length: torch.Tensor  # (2,)
+
+
+def camera_rays(cam: CameraArrays, width: int, height: int, key, iteration, pixel_xy=None):
+    """Per-pixel AA-jittered primary rays for the whole frame.
+
+    Lane l draws its jitter from counter l (its pixel index in the JAX
+    package's numbering) and renders pixel `pixel_xy[l]` when the spatial
+    swizzle is on (else pixel l).
+    """
+    n = width * height
+    dev = cam.position.device
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    if pixel_xy is not None:
+        x, y = pixel_xy
+    else:
+        x = (idx % width).to(torch.float32)
+        y = (idx // width).to(torch.float32)
+    r = rng.pixel_uniforms(key, iteration, 0, rng.STAGE_CAMERA, idx, 2)
+    px = x + (r[:, 0] - 0.5) - width * 0.5
+    py = y + (r[:, 1] - 0.5) - height * 0.5
+    d = m.normalize(
+        cam.view[None, :]
+        - cam.right[None, :] * (cam.pixel_length[0] * px)[:, None]
+        - cam.up[None, :] * (cam.pixel_length[1] * py)[:, None]
+    )
+    o = cam.position.expand(n, 3).contiguous()
+    return o, d
+
+
+def nee_live(static: SceneStatic) -> bool:
+    """Can NEE contribute at all?  Only triangle and sphere lights have a
+    sampling branch; a scene lit by cubes alone skips the NEE work (its
+    shadow rays are still counted)."""
+    return (
+        static.num_lights > len(static.analytic_lights)
+        or any(g == SPHERE for (_, _, g) in static.analytic_lights)
+    )
+
+
+class _Pool(NamedTuple):
+    o: torch.Tensor
+    d: torch.Tensor
+    color: torch.Tensor
+    contrib: torch.Tensor
+    prev_pdf: torch.Tensor
+    alive: torch.Tensor
+
+
+def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
+           iteration: int, depth: int, s: _Pool) -> tuple[_Pool, torch.Tensor]:
+    """One intersect + shade pass over the pool; returns (pool, rays emitted)."""
+    present = static.material_types
+    alive = s.alive
+    pixel_idx = torch.arange(alive.shape[0], dtype=torch.int32, device=alive.device)
+    contrib = s.contrib
+    hit = closest_hit(flat, static, s.o, s.d, alive=alive)
+    rays = alive.sum()
+
+    alive = alive & (hit.geom >= 0)
+    params = material_by_geom(flat, hit.geom)
+    # normal maps are textures (not ported): the shading normal is the hit's
+    nrm = m.normalize(hit.normal)
+    is_light = params.type == LIGHT
+    is_delta = params.type == DIELECTRIC
+
+    sc_rand = rng.pixel_uniforms(key, iteration, depth, rng.STAGE_SCATTER, pixel_idx, 3)
+    srec = scatter_sample(params, nrm, s.d, sc_rand, present=present)
+    pdf_ok = srec.pdf != 0.0
+
+    if mode == SampleMode.DIRECT_LI:
+        add_light = alive & is_light
+        contrib = contrib + torch.where(
+            add_light[..., None], m.process_nan(s.color * params.emit), 0.0
+        )
+        nee_on = alive & ~is_light & ~is_delta
+        rays = rays + nee_on.sum()
+        if nee_live(static):
+            li_rand = rng.pixel_uniforms(key, iteration, depth, rng.STAGE_LIGHT, pixel_idx, 3)
+            lrec = light_sample(flat, static, hit.point, li_rand, enabled=nee_on)
+            wi = m.normalize(lrec.pos - hit.point)
+            bsdf = bsdf_eval(params, nrm, s.d, wi, present=present)
+            nee = (
+                s.color * bsdf * lrec.emit
+                * (torch.clamp(m.dot(wi, nrm), min=0.0) / lrec.pdf)[..., None]
+            )
+            add_nee = alive & ~is_light & (lrec.pdf > 0.0)
+            contrib = contrib + torch.where(add_nee[..., None], m.process_nan(nee), 0.0)
+        return s._replace(contrib=contrib, alive=torch.zeros_like(alive)), rays
+
+    # light hit term
+    light_color = s.color * srec.bsdf / torch.clamp(srec.pdf, min=1e-38)[..., None]
+    if mode == SampleMode.MIS:
+        lp = light_pdf(flat, static, s.o, hit.point, nrm, hit.tri, hit.geom)
+        weight = torch.where(s.prev_pdf > 0.0, m.power_heuristic(s.prev_pdf, lp), 1.0)
+        light_color = light_color * weight[..., None]
+    add_light = alive & pdf_ok & is_light
+    contrib = contrib + torch.where(add_light[..., None], m.process_nan(light_color), 0.0)
+
+    cont = alive & pdf_ok & ~is_light
+
+    # NEE term (MIS only, non-delta)
+    if mode == SampleMode.MIS:
+        rays = rays + (cont & ~is_delta).sum()
+        if nee_live(static):
+            li_rand = rng.pixel_uniforms(key, iteration, depth, rng.STAGE_LIGHT, pixel_idx, 3)
+            lrec = light_sample(flat, static, hit.point, li_rand, enabled=cont & ~is_delta)
+            wi = m.normalize(lrec.pos - hit.point)
+            b_pdf = pdf_eval(params, nrm, s.d, wi, present=present)
+            li_bsdf = bsdf_eval(params, nrm, s.d, wi, present=present)
+            w = m.power_heuristic(lrec.pdf, b_pdf)
+            nee = (
+                w[..., None] * s.color * lrec.emit * li_bsdf
+                * (torch.clamp(m.dot(wi, nrm), min=0.0) / lrec.pdf)[..., None]
+            )
+            add_nee = cont & ~is_delta
+            contrib = contrib + torch.where(add_nee[..., None], m.process_nan(nee), 0.0)
+
+    # continuation
+    offset_dir = torch.where((m.dot(srec.dir, nrm) > 0.0)[..., None], nrm, -nrm)
+    new_o = hit.point + torch.where(is_delta[..., None], 1e-3 * offset_dir, 1e-4 * srec.dir)
+    throughput = srec.bsdf * (
+        torch.abs(m.dot(srec.dir, nrm)) / torch.clamp(srec.pdf, min=1e-38)
+    )[..., None]
+    cm = cont[..., None]
+    prev_pdf = s.prev_pdf
+    if mode == SampleMode.MIS:
+        prev_pdf = torch.where(cont, torch.where(is_delta, -1.0, srec.pdf), prev_pdf)
+    return _Pool(
+        o=torch.where(cm, new_o, s.o),
+        d=torch.where(cm, srec.dir, s.d),
+        color=torch.where(cm, s.color * throughput, s.color),
+        contrib=contrib,
+        prev_pdf=prev_pdf,
+        alive=cont & (depth + 1 < static.trace_depth),
+    ), rays
+
+
+def render_iteration(flat: FlatScene, static: SceneStatic, opts: RenderOptions,
+                     cam: CameraArrays, key, iteration: int, pixel_xy=None):
+    """One sample per pixel.  Returns (contrib (W*H, 3) in lane order,
+    rays emitted (int64 tensor), bounce laps run)."""
+    if static.trace_depth > rng.MAX_DEPTH:
+        raise ValueError(
+            f"trace depth {static.trace_depth} does not fit the RNG counter's "
+            f"8 depth bits (max {rng.MAX_DEPTH})"
+        )
+    w, h = static.width, static.height
+    n = w * h
+    dev = flat.device
+    o, d = camera_rays(cam, w, h, key, iteration, pixel_xy=pixel_xy)
+    pool = _Pool(
+        o=o, d=d,
+        color=torch.ones((n, 3), device=dev),
+        contrib=torch.zeros((n, 3), device=dev),
+        prev_pdf=torch.full((n,), -1.0, device=dev),
+        alive=torch.ones((n,), dtype=torch.bool, device=dev),
+    )
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    laps = 0
+    for depth in range(static.trace_depth + 1):
+        if not bool(pool.alive.any()):
+            break
+        pool, r = bounce(flat, static, opts.sample_mode, key, iteration, depth, pool)
+        rays = rays + r
+        laps += 1
+    return pool.contrib, rays, laps

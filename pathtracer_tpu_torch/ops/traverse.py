@@ -1,0 +1,233 @@
+"""Batched scene queries: closest hit and occlusion (any hit).
+
+Port of `pathtracer_tpu/ops/traverse.py`.  Analytic geoms (spheres and cubes)
+are swept on (N,) component columns exactly as the JAX package does; the
+triangle part always goes through the wide-BVH kernels of
+`ops/traverse_cuda.py` (K1 closest hit, K2 shadow any-hit), which take the
+same tables, rays and sentinels as the Pallas kernels they replace.  The port
+has no MTBVH lockstep walk and no brute-force sweep (`use_bvh=False`).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from pathtracer_tpu.scene.parser import CUBE, SPHERE
+from pathtracer_tpu_torch.ops.intersect import (
+    mat_rows,
+    normalize_cols,
+    ray_aabb,
+    xform_point_cols,
+    xform_vector_cols,
+)
+from pathtracer_tpu_torch.ops.traverse_cuda import (
+    closest_hit_wbvh,
+    occlusion_wbvh,
+)
+from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
+
+FLT_MAX = 3.402823466e38
+# Dead or unreachable lanes carry this t: node visits need
+# `t_enter <= t`, and -FLT_MAX is below every finite t_enter.
+DEAD_T = -FLT_MAX
+
+
+class Hit(NamedTuple):
+    t: torch.Tensor          # (N,) world distance; FLT_MAX = miss
+    geom: torch.Tensor       # (N,) int32 geom index, -1 = miss
+    tri: torch.Tensor        # (N,) int32 triangle index, -1 = analytic geom
+    point: torch.Tensor      # (N, 3)
+    normal: torch.Tensor     # (N, 3) geometric/interpolated normal
+    uv: torch.Tensor         # (N, 2)
+    tangent: torch.Tensor    # (N, 3)
+    bitangent: torch.Tensor  # (N, 3)
+
+
+def _geom_t_soa(flat: FlatScene, gi: int, gtype: int, ox, oy, oz, dx, dy, dz):
+    """Column-form analytic test for one geom.
+
+    Returns (valid, t_world, (px,py,pz) object hit, (wx,wy,wz) world hit,
+    (nx,ny,nz) OBJECT normal) as (N,) columns, with the formulas of
+    intersect.ray_sphere / ray_cube (pull-back and world-t quirk included).
+    """
+    inv = mat_rows(flat.geom_inv[gi])
+    tr = mat_rows(flat.geom_transform[gi])
+    rox, roy, roz = xform_point_cols(inv, ox, oy, oz)
+    rdx, rdy, rdz = normalize_cols(*xform_vector_cols(inv, dx, dy, dz))
+    if gtype == SPHERE:
+        vdd = rox * rdx + roy * rdy + roz * rdz
+        rad = vdd * vdd - ((rox * rox + roy * roy + roz * roz) - 0.25)
+        root = torch.sqrt(torch.clamp(rad, min=0.0))
+        t1, t2 = -vdd + root, -vdd - root
+        valid = (rad >= 0.0) & ~((t1 < 0.0) & (t2 < 0.0))
+        t_obj = torch.where((t1 > 0.0) & (t2 > 0.0),
+                            torch.minimum(t1, t2), torch.maximum(t1, t2))
+    else:
+        i1x, i2x = (-0.5 - rox) / rdx, (0.5 - rox) / rdx
+        i1y, i2y = (-0.5 - roy) / rdy, (0.5 - roy) / rdy
+        i1z, i2z = (-0.5 - roz) / rdz, (0.5 - roz) / rdz
+        gx = torch.minimum(i1x, i2x)
+        gy = torch.minimum(i1y, i2y)
+        gz = torch.minimum(i1z, i2z)
+        gx = torch.where(gx > 0.0, gx, -1e38)
+        gy = torch.where(gy > 0.0, gy, -1e38)
+        gz = torch.where(gz > 0.0, gz, -1e38)
+        tmin = torch.maximum(gx, torch.maximum(gy, gz))
+        tmax = torch.minimum(torch.maximum(i1x, i2x),
+                             torch.minimum(torch.maximum(i1y, i2y),
+                                           torch.maximum(i1z, i2z)))
+        valid = (tmax >= tmin) & (tmax > 0.0)
+        t_obj = torch.where(tmin <= 0.0, tmax, tmin)
+    px = rox + (t_obj - 1e-4) * rdx
+    py = roy + (t_obj - 1e-4) * rdy
+    pz = roz + (t_obj - 1e-4) * rdz
+    wx, wy, wz = xform_point_cols(tr, px, py, pz)
+    ex, ey, ez = wx - ox, wy - oy, wz - oz
+    t = torch.sqrt(torch.clamp(ex * ex + ey * ey + ez * ez, min=0.0))
+    if gtype == SPHERE:
+        nx, ny, nz = px, py, pz
+    else:
+        # slab-entry axis basis * sign; argmax/argmin ties go to the FIRST axis
+        sx = torch.where(i2x < i1x, 1.0, -1.0)
+        sy = torch.where(i2y < i1y, 1.0, -1.0)
+        sz = torch.where(i2z < i1z, 1.0, -1.0)
+        inside = tmin <= 0.0
+        tbx = torch.maximum(i1x, i2x)
+        tby = torch.maximum(i1y, i2y)
+        amin_x = gx >= tmin
+        amin_y = ~amin_x & (gy >= tmin)
+        amax_x = tbx <= tmax
+        amax_y = ~amax_x & (tby <= tmax)
+        ax_x = torch.where(inside, amax_x, amin_x)
+        ax_y = torch.where(inside, amax_y, amin_y)
+        sign = torch.where(ax_x, sx, torch.where(ax_y, sy, sz))
+        nx = torch.where(ax_x, sign, 0.0)
+        ny = torch.where(ax_y, sign, 0.0)
+        nz = torch.where(ax_x | ax_y, 0.0, sign)
+    return valid, t, (px, py, pz), (wx, wy, wz), (nx, ny, nz)
+
+
+def _geoms_closest(flat: FlatScene, static: SceneStatic, o, d):
+    """Closest analytic geom per ray: (t, geom, world point, world normal)."""
+    N = o.shape[0]
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    zero = torch.zeros((N,), dtype=torch.float32, device=o.device)
+    t_min = torch.full((N,), FLT_MAX, dtype=torch.float32, device=o.device)
+    geom = torch.full((N,), -1, dtype=torch.int32, device=o.device)
+    wx_w = wy_w = wz_w = zero
+    nxc = nyc = nzc = zero
+
+    sweep = [(gi, gt) for gi, gt in enumerate(static.geom_types) if gt in (SPHERE, CUBE)]
+    for gi, gtype in sweep:
+        valid, t, _, (wx, wy, wz), (nx, ny, nz) = _geom_t_soa(
+            flat, gi, gtype, ox, oy, oz, dx, dy, dz
+        )
+        better = valid & (t > 0.0) & (t < t_min)
+        t_min = torch.where(better, t, t_min)
+        geom = torch.where(better, gi, geom)
+        wx_w = torch.where(better, wx, wx_w)
+        wy_w = torch.where(better, wy, wy_w)
+        wz_w = torch.where(better, wz, wz_w)
+        nxc = torch.where(better, nx, nxc)
+        nyc = torch.where(better, ny, nyc)
+        nzc = torch.where(better, nz, nzc)
+
+    if not sweep:
+        z3 = torch.zeros((N, 3), dtype=torch.float32, device=o.device)
+        return t_min, geom, z3, z3.clone()
+
+    # the winner's world normal: ONE normalize(invt @ n_obj), with the
+    # winner's invt entries gathered per ray (the values equal the winner's
+    # matrix exactly, so this matches transforming per geom)
+    invt = flat.geom_invt[geom.clamp(min=0).long()]  # (N, 4, 4)
+    m3 = tuple(tuple(invt[:, i, j] for j in range(3)) for i in range(3))
+    nwx, nwy, nwz = normalize_cols(*xform_vector_cols(m3, nxc, nyc, nzc))
+    found = geom >= 0
+    point = torch.stack(
+        [torch.where(found, wx_w, 0.0), torch.where(found, wy_w, 0.0),
+         torch.where(found, wz_w, 0.0)], dim=1,
+    )
+    normal = torch.stack(
+        [torch.where(found, nwx, 0.0), torch.where(found, nwy, 0.0),
+         torch.where(found, nwz, 0.0)], dim=1,
+    )
+    return t_min, geom, point, normal
+
+
+def _root_box_cull(static: SceneStatic, o, d, t_cap):
+    """Lanes whose ray cannot reach the triangle root box within `t_cap`
+    get DEAD_T, so the kernels skip them (the JAX pre-test at
+    ops/traverse.py:377-383)."""
+    rb = torch.tensor(static.tri_root_box, dtype=torch.float32, device=o.device)
+    rb_hit, rb_enter = ray_aabb(rb[0:3], rb[3:6], o, d)
+    reachable = rb_hit & (rb_enter <= t_cap)
+    return torch.where(reachable, t_cap, DEAD_T)
+
+
+def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None) -> Hit:
+    """Full-scene closest hit (analytic geoms + triangles)."""
+    N = o.shape[0]
+    dev = o.device
+    t_min, geom, point, normal = _geoms_closest(flat, static, o, d)
+    tri = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    uv = torch.zeros((N, 2), dtype=torch.float32, device=dev)
+    tangent = torch.zeros((N, 3), dtype=torch.float32, device=dev)
+    bitangent = torch.zeros((N, 3), dtype=torch.float32, device=dev)
+    if static.num_tris == 0:
+        return Hit(t_min, geom, tri, point, normal, uv, tangent, bitangent)
+
+    t_init = t_min if alive is None else torch.where(alive, t_min, DEAD_T)
+    t_init = _root_box_cull(static, o, d, t_init)
+    t_tri, tri, u, v = closest_hit_wbvh(
+        flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk, o, d, t_init,
+        wide_depth=static.wide_depth,
+    )
+    t_min = torch.where(tri >= 0, t_tri, t_min)
+
+    # barycentric hit attributes
+    got_tri = tri >= 0
+    trow = flat.tri_data[tri.clamp(min=0).long()]
+    w0 = (1.0 - u - v)[..., None]
+    uw, vw = u[..., None], v[..., None]
+    p_tri = w0 * trow[:, 0:3] + uw * trow[:, 3:6] + vw * trow[:, 6:9]
+    n_tri = w0 * trow[:, 9:12] + uw * trow[:, 12:15] + vw * trow[:, 15:18]
+    uv_tri = w0 * trow[:, 18:20] + uw * trow[:, 20:22] + vw * trow[:, 22:24]
+    gm = got_tri[..., None]
+    point = torch.where(gm, p_tri, point)
+    normal = torch.where(gm, n_tri, normal)
+    uv = torch.where(gm, torch.clamp(uv_tri, 0.0, 1.0), uv)
+    tangent = torch.where(gm, trow[:, 24:27], tangent)
+    bitangent = torch.where(gm, trow[:, 27:30], bitangent)
+    geom = torch.where(got_tri, trow[:, 30].to(torch.int32), geom)
+    return Hit(t_min, geom, tri, point, normal, uv, tangent, bitangent)
+
+
+def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=None):
+    """Is the segment ori -> des blocked?  Analytic geoms with the window
+    (t < minT-1e-5 && |t-minT| > 1e-2), then triangles through K2 with
+    (t < minT-1e-5 && |t-minT| > 1e-4)."""
+    N = ori.shape[0]
+    e = des - ori
+    min_t = torch.sqrt(torch.clamp(e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2], min=0.0))
+    occluded = torch.zeros((N,), dtype=torch.bool, device=ori.device)
+
+    ox, oy, oz = ori[:, 0], ori[:, 1], ori[:, 2]
+    dx, dy, dz = dir[:, 0], dir[:, 1], dir[:, 2]
+    for gi, gtype in enumerate(static.geom_types):
+        if gtype not in (SPHERE, CUBE):
+            continue
+        valid, t, _, _, _ = _geom_t_soa(flat, gi, gtype, ox, oy, oz, dx, dy, dz)
+        blocked = valid & (t > 0.0) & (min_t - 1e-5 > t) & (torch.abs(t - min_t) > 1e-2)
+        occluded = occluded | blocked
+
+    if static.num_tris == 0:
+        return occluded
+    min_t_eff = min_t if enabled is None else torch.where(enabled, min_t, DEAD_T)
+    min_t_eff = _root_box_cull(static, ori, dir, min_t_eff)
+    return occlusion_wbvh(
+        flat.bvh_wf, flat.bvh_wi, flat.tri_pk, ori, dir, min_t_eff, occluded,
+        wide_depth=static.wide_depth,
+    )

@@ -1,0 +1,138 @@
+"""The slice end to end: the port's Renderer against the JAX package's on the
+CPU, plus import hygiene and the no-fallback rule.
+
+The scene is the glass-torus Cornell box with a 24x12-segment torus (576
+triangles, enough to keep the JAX package's per-bounce sort on), rendered at
+64x64, depth 4, 2 spp, seed 0.  The JAX side runs its XLA walk; the port its
+plain traversal.  At least 99.9% of the pixels of the accumulated HDR sum
+must agree within rtol=1e-4, atol=1e-5: a last-bit difference can flip a
+Fresnel or edge branch and send one path elsewhere, so a few outliers are
+allowed and printed.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pathtracer_tpu.integrator.render import Renderer as JaxRenderer
+from pathtracer_tpu.utils.config import RenderOptions, SampleMode
+from pathtracer_tpu_torch.integrator.render import Renderer
+from tools.make_torus_obj import write_torus_obj
+
+ROOT = Path(__file__).resolve().parent.parent
+RTOL, ATOL, MIN_FRAC = 1e-4, 1e-5, 0.999
+
+
+def small_torus_scene(tmp_path) -> Path:
+    """scenes/glasstorus.txt with a 24x12-segment (576-triangle) torus."""
+    write_torus_obj(tmp_path / "torus576.obj", 24, 12)
+    text = (ROOT / "scenes" / "glasstorus.txt").read_text()
+    path = tmp_path / "glasstorus_small.txt"
+    path.write_text(text.replace("assets/torus10k.obj", str(tmp_path / "torus576.obj")))
+    return path
+
+
+@pytest.fixture(scope="module")
+def scene(tmp_path_factory):
+    return small_torus_scene(tmp_path_factory.mktemp("slice"))
+
+
+@pytest.mark.parametrize("mode", [SampleMode.BSDF, SampleMode.DIRECT_LI, SampleMode.MIS])
+def test_slice_matches_jax(scene, mode):
+    opts = RenderOptions(sample_mode=mode)
+    ref = JaxRenderer(scene, opts=opts, resolution=(64, 64), trace_depth=4)
+    ref.set_seed(0)
+    ref_stats = ref.step(2)
+    port = Renderer(scene, opts=opts, resolution=(64, 64), trace_depth=4, device="cpu")
+    port.set_seed(0)
+    stats = port.step(2)
+
+    want = ref._unswizzle(np.asarray(ref.img)).reshape(64, 64, 3)
+    got = port.hdr_sum()
+    ok = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(-1)
+    print(f"{mode.name}: {int((~ok).sum())} of {ok.size} pixels outside tolerance")
+    assert ok.mean() >= MIN_FRAC
+    assert want.mean() > 0
+    assert port.iteration == ref.iteration == 2
+    if mode == SampleMode.DIRECT_LI:
+        assert stats.rays_traced == ref_stats.rays_traced
+    else:
+        assert abs(stats.rays_traced - ref_stats.rays_traced) <= 1e-3 * ref_stats.rays_traced
+    np.testing.assert_allclose(port.ldr_image(), ref.ldr_image(), atol=1e-3)
+
+
+def test_save_png_and_hdr(scene, tmp_path):
+    r = Renderer(scene, opts=RenderOptions(sample_mode=SampleMode.MIS),
+                 resolution=(16, 16), trace_depth=2, device="cpu")
+    r.step(1)
+    r.save_png(tmp_path / "a.png")
+    r.save_hdr(tmp_path / "a.hdr")
+    assert (tmp_path / "a.png").stat().st_size > 0 and (tmp_path / "a.hdr").stat().st_size > 0
+
+
+PORT_MODULES = [
+    "pathtracer_tpu_torch",
+    "pathtracer_tpu_torch.cli",
+    "pathtracer_tpu_torch.integrator.render",
+    "pathtracer_tpu_torch.integrator.wavefront",
+    "pathtracer_tpu_torch.ops._build",
+    "pathtracer_tpu_torch.ops.intersect",
+    "pathtracer_tpu_torch.ops.lights",
+    "pathtracer_tpu_torch.ops.materials",
+    "pathtracer_tpu_torch.ops.math",
+    "pathtracer_tpu_torch.ops.traverse",
+    "pathtracer_tpu_torch.ops.traverse_cuda",
+    "pathtracer_tpu_torch.scene.flatscene",
+    "pathtracer_tpu_torch.utils.rng",
+]
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"for name in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_no_hidden_cpu_fallback(scene, monkeypatch):
+    """Without CUDA, asking for it raises; nothing carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the rule is checked where it does not")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Renderer(scene, device="cuda")
+    from pathtracer_tpu_torch import cli
+
+    assert cli.main(["render", str(scene), "--res", "8x8", "--spp", "1"]) == 2
+    # a missing nvcc is an error on first use, never a silent plain version
+    from pathtracer_tpu_torch.ops import _build
+
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setattr(_build, "BUILD_DIR", Path("/nonexistent/_build"))
+    monkeypatch.setattr(_build, "_lib", None)
+    if _build.find_nvcc() is None:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.load_library()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("ray_regen", 4), ("env_importance", True), ("show_normal", True), ("use_bvh", False),
+])
+def test_unported_options_raise(scene, field, value):
+    with pytest.raises(NotImplementedError):
+        Renderer(scene, opts=RenderOptions(**{field: value}), device="cpu")
+
+
+def test_multi_device_raises(scene):
+    with pytest.raises(NotImplementedError):
+        Renderer(scene, devices=2, device="cpu")
