@@ -36,7 +36,7 @@ def _add_common(p: argparse.ArgumentParser):
 
 
 def _parse_mode(s: str):
-    from pathtracer_tpu.utils.config import SampleMode
+    from pathtracer_tpu_torch.utils.config import SampleMode
 
     return {"bsdf": SampleMode.BSDF, "direct": SampleMode.DIRECT_LI, "mis": SampleMode.MIS}[s]
 
@@ -52,7 +52,7 @@ def _parse_res(s):
 
 
 def cmd_render(args) -> int:
-    from pathtracer_tpu.utils.config import RenderOptions
+    from pathtracer_tpu_torch.utils.config import RenderOptions
     from pathtracer_tpu_torch.integrator.render import Renderer
 
     if args.checkpoint or args.resume:
@@ -89,8 +89,9 @@ def _device_name(dev) -> str:
 
 
 def cmd_info(args) -> int:
-    from pathtracer_tpu.scene.parser import load_scene
+    from pathtracer_tpu_torch.ops.traverse import packet_mode
     from pathtracer_tpu_torch.scene.flatscene import build_flat_scene
+    from pathtracer_tpu_torch.scene.parser import load_scene
 
     scene = load_scene(args.scene)
     _, static = build_flat_scene(scene)
@@ -105,6 +106,12 @@ def cmd_info(args) -> int:
         "bvh_trees": static.num_bvh_trees,
         "wide_nodes": static.wide_nodes,
         "wide_depth": static.wide_depth,
+        # which kernels walk the mesh: "resident" (K1/K2) or "stream" (K3/K4)
+        "traversal": packet_mode(static) if static.num_tris else None,
+        "stream_top_nodes": static.stream_top,
+        "stream_blocks": static.stream_subs,
+        "stream_block_nodes": static.stream_sub_nodes,
+        "stream_block_tris": static.stream_sub_tris,
         "materials": static.num_materials,
         "lights": static.num_lights,
         "textures": len(scene.textures),

@@ -1,0 +1,317 @@
+// Two-level (streaming) wide-BVH traversal kernels for Hopper (sm_90a):
+// closest hit (K3) and shadow any-hit (K4), for meshes past the resident
+// budget.  One thread per ray, as K1/K2 (wbvh_traverse.cu).
+//
+// Tables (scene/flatscene.py build_stream_tables, identical to the JAX
+// package's; accel/bvh.py partition_stream splits the wide tree):
+//   topf (T*48,)        f32  top node child AABBs, as K1's wf
+//   topl (T*8,)         i32  child link: >= 0 top node, -1 empty, -(2+s) block s
+//   topp (T*8,)         i32  per-octant near->far child order, as K1's wp
+//   subf (n_sub*S*48,)  f32  block s node m child AABBs at [(s*S + m)*48 ...]
+//   subi (n_sub*S*24,)  i32  block node [local link x8 | start x8 | end x8];
+//                            [start, end) indexes the block's triangles
+//   subp (n_sub*S*8,)   i32  block node child order
+//   subt (n_sub*Tmax*9,) f32 block triangle rows [v0, e1, e2] (stride 9)
+//   base (n_sub,)       i32  global id of block s's first triangle
+//
+// The TPU kernels stream each block into on-chip memory through a DMA ring.
+// Here the tables simply stay in device memory (22 MB for 160k triangles,
+// inside the 50 MB L2), and a ray walks them in place: no ring, no packet
+// queue, no block sort.
+//
+// The walk is K1's over two levels.  The top tree is the wide tree's upper
+// part and each block is a relabelled subtree, so a depth-first walk that
+// enters a block when it pops the block's entry, and walks the block to its
+// end before popping the top stack again, visits the same boxes and
+// triangles in the same order as K1 on the wide tables.  One loop serves
+// both levels (one node per iteration, block stack first), so the threads of
+// a warp re-converge after every node whichever level each is on.
+//
+// A leaf cut that hangs off a top node is stored as a one-node block (slot 0
+// the leaf, slot 1 empty).  K1 tests such a cut as soon as its box passes,
+// and so do K3/K4 (chosen so that K3 returns K1's result lane for lane,
+// exact-t ties included).
+//
+// Built with -fmad=false and without fast math, as K1/K2; the plain PyTorch
+// versions in ops/traverse_stream_cuda.py walk the same per-ray order.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "traverse_common.cuh"
+
+#define TOP_STACK 64  // the wrapper checks 7*top_depth+1 <= TOP_STACK
+#define SUB_STACK 64  // and 7*sub_depth+1 <= SUB_STACK
+#define THREADS 128   // rays per block
+
+namespace {
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, idx, idy, idz;
+};
+
+struct Closest {
+  float t, u, v;
+  int tri;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
+                                        const float* __restrict__ d, int i) {
+  Ray r;
+  r.ox = o[3 * i], r.oy = o[3 * i + 1], r.oz = o[3 * i + 2];
+  r.dx = d[3 * i], r.dy = d[3 * i + 1], r.dz = d[3 * i + 2];
+  r.idx = 1.0f / r.dx, r.idy = 1.0f / r.dy, r.idz = 1.0f / r.dz;
+  return r;
+}
+
+__device__ __forceinline__ bool child_box(const float* __restrict__ nf, int slot,
+                                          const Ray& r, float cap) {
+  float t_enter;
+  return slab(nf + slot * 6, r.ox, r.oy, r.oz, r.idx, r.idy, r.idz, &t_enter) &&
+         t_enter <= cap;
+}
+
+// Block s's node rows (boxes, ints) and triangle rows.
+struct Block {
+  const float* f;
+  const int* i;
+  const float* t;
+};
+
+__device__ __forceinline__ Block block(const float* __restrict__ subf,
+                                       const int* __restrict__ subi,
+                                       const float* __restrict__ subt, int s, int S, int Tmax) {
+  return {subf + (size_t)s * S * 48, subi + (size_t)s * S * 24, subt + (size_t)s * Tmax * 9};
+}
+
+// A block that wraps one leaf cut: its root has nothing in slot 1 (a real
+// wide node has at least two children).
+__device__ __forceinline__ bool wrapped_leaf(const int* __restrict__ root) {
+  return root[1] < 0 && root[16 + 1] <= root[8 + 1];
+}
+
+// Closest hit over block triangles [start, end), ids rebased by gbase; in cut
+// order, a hit wins only if strictly closer.
+__device__ __forceinline__ void leaf_closest(const float* __restrict__ rows, int start,
+                                             int end, int gbase, const Ray& r,
+                                             Closest& best) {
+  for (int k = start; k < end; ++k) {
+    float tt, tu, tv;
+    if (moller_trumbore(rows + 9 * k, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, &tt, &tu, &tv) &&
+        tt < best.t) {
+      best.t = tt;
+      best.tri = gbase + k;
+      best.u = tu;
+      best.v = tv;
+    }
+  }
+}
+
+// K2's blocking window over block triangles [start, end).
+__device__ __forceinline__ bool leaf_blocks(const float* __restrict__ rows, int start,
+                                            int end, const Ray& r, float mt) {
+  const float t_far = mt - 1e-5f;
+  for (int k = start; k < end; ++k) {
+    float tt, tu, tv;
+    if (moller_trumbore(rows + 9 * k, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, &tt, &tu, &tv) &&
+        t_far > tt && fabsf(tt - mt) > 1e-4f)
+      return true;
+  }
+  return false;
+}
+
+// K3: closest hit.  Replaces closest_hit_stream_pallas /
+// _make_stream_closest_kernel / _sub_walk_closest
+// (pathtracer_tpu/ops/traverse_pallas.py:871,633,549).  Starts from
+// t = t_init, tri = -1, u = v = 0; lanes with t_init < 0 never enter.
+// What bounds it on this card: latency, not bytes or operations (on the
+// 160k-triangle torus its roofline bound is about 1% of its time).  Every pop
+// is a chain of dependent loads (perm, boxes, links, triangle rows) from L2
+// or device memory, and the rays of a warp diverge over different nodes and
+// blocks.  It takes 1.7-1.8x K1's time on the same rays and mesh (PERF.md);
+// staging a block in shared memory, or the block-outer schedule of K5, is
+// later work.
+__global__ void __launch_bounds__(THREADS)
+closest_hit_stream_kernel(const float* __restrict__ topf, const int* __restrict__ topl,
+                          const int* __restrict__ topp, const float* __restrict__ subf,
+                          const int* __restrict__ subi, const int* __restrict__ subp,
+                          const float* __restrict__ subt, const int* __restrict__ base,
+                          const float* __restrict__ o, const float* __restrict__ d,
+                          const float* __restrict__ t_init,
+                          float* __restrict__ t_out, int* __restrict__ tri_out,
+                          float* __restrict__ u_out, float* __restrict__ v_out,
+                          int n, int S, int Tmax) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(o, d, i);
+  Closest best = {t_init[i], 0.0f, 0.0f, -1};
+  if (best.t >= 0.0f) {
+    const int oct = (r.dx > 0.0f ? 1 : 0) | (r.dy > 0.0f ? 2 : 0) | (r.dz > 0.0f ? 4 : 0);
+    int tstack[TOP_STACK];
+    int bstack[SUB_STACK];
+    int tsp = 0, bsp = 0;
+    tstack[tsp++] = 0;
+    Block b = {};
+    const int* bp = nullptr;  // the block's child orders
+    int gbase = 0;            // and the global id of its first triangle
+    while (tsp > 0 || bsp > 0) {
+      // one node per iteration, from the block stack while it holds any,
+      // else from the top stack; a block entry -(2+s) starts block s at its
+      // root.  Depth first either way, so the order is K1's.
+      int node;
+      bool in_block = bsp > 0;
+      if (in_block) {
+        node = bstack[--bsp];
+      } else {
+        node = tstack[--tsp];
+        if (node < 0) {
+          const int s = -(node + 2);
+          b = block(subf, subi, subt, s, S, Tmax);
+          bp = subp + (size_t)s * S * 8;
+          gbase = base[s];
+          node = 0;
+          in_block = true;
+        }
+      }
+      if (in_block) {
+        const int perm = bp[node * 8 + oct];
+        const float* nf = b.f + node * 48;
+        const int* ni = b.i + node * 24;
+        for (int rank = 7; rank >= 0; --rank) {
+          const int slot = (perm >> (3 * rank)) & 7;
+          if (!child_box(nf, slot, r, best.t)) continue;
+          const int link = ni[slot];
+          if (link >= 0)
+            bstack[bsp++] = link;
+          else
+            leaf_closest(b.t, ni[8 + slot], ni[16 + slot], gbase, r, best);
+        }
+        continue;
+      }
+      const int perm = topp[node * 8 + oct];
+      const float* nf = topf + node * 48;
+      for (int rank = 7; rank >= 0; --rank) {
+        const int slot = (perm >> (3 * rank)) & 7;
+        if (!child_box(nf, slot, r, best.t)) continue;
+        const int link = topl[node * 8 + slot];
+        if (link == -1) continue;  // empty (its NaN box never passes)
+        if (link >= 0) {
+          tstack[tsp++] = link;
+          continue;
+        }
+        const int s = -(link + 2);
+        const int* root = subi + (size_t)s * S * 24;
+        if (wrapped_leaf(root))
+          leaf_closest(subt + (size_t)s * Tmax * 9, root[8], root[16], base[s], r, best);
+        else
+          tstack[tsp++] = link;
+      }
+    }
+  }
+  t_out[i] = best.t;
+  tri_out[i] = best.tri;
+  u_out[i] = best.u;
+  v_out[i] = best.v;
+}
+
+// K4: shadow any-hit.  Replaces occlusion_stream_pallas /
+// _make_stream_occlusion_kernel (pathtracer_tpu/ops/traverse_pallas.py:1448,
+// 1221).  K2's semantics: boxes are tested against min_t, children in slot
+// order, a lane stops at its first blocker (t < min_t - 1e-5 and
+// |t - min_t| > 1e-4); occluded0 lanes stay blocked and lanes with min_t < 0
+// (the -FLT_MAX sentinel) never block.  Bounds as K3.
+__global__ void __launch_bounds__(THREADS)
+occlusion_stream_kernel(const float* __restrict__ topf, const int* __restrict__ topl,
+                        const float* __restrict__ subf, const int* __restrict__ subi,
+                        const float* __restrict__ subt,
+                        const float* __restrict__ o, const float* __restrict__ d,
+                        const float* __restrict__ min_t,
+                        const uint8_t* __restrict__ occluded0,
+                        uint8_t* __restrict__ occ_out, int n, int S, int Tmax) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bool occ = occluded0[i] != 0;
+  const float mt = min_t[i];
+  if (!occ && mt >= 0.0f) {
+    const Ray r = load_ray(o, d, i);
+    int tstack[TOP_STACK];
+    int bstack[SUB_STACK];
+    int tsp = 0, bsp = 0;
+    tstack[tsp++] = 0;
+    Block b = {};
+    while ((tsp > 0 || bsp > 0) && !occ) {
+      int node;
+      bool in_block = bsp > 0;
+      if (in_block) {
+        node = bstack[--bsp];
+      } else {
+        node = tstack[--tsp];
+        if (node < 0) {
+          b = block(subf, subi, subt, -(node + 2), S, Tmax);
+          node = 0;
+          in_block = true;
+        }
+      }
+      if (in_block) {
+        const float* nf = b.f + node * 48;
+        const int* ni = b.i + node * 24;
+        for (int slot = 0; slot < 8 && !occ; ++slot) {
+          if (!child_box(nf, slot, r, mt)) continue;
+          const int link = ni[slot];
+          if (link >= 0)
+            bstack[bsp++] = link;
+          else
+            occ = leaf_blocks(b.t, ni[8 + slot], ni[16 + slot], r, mt);
+        }
+        continue;
+      }
+      const float* nf = topf + node * 48;
+      for (int slot = 0; slot < 8 && !occ; ++slot) {
+        if (!child_box(nf, slot, r, mt)) continue;
+        const int link = topl[node * 8 + slot];
+        if (link == -1) continue;
+        if (link >= 0) {
+          tstack[tsp++] = link;
+          continue;
+        }
+        const int s = -(link + 2);
+        const int* root = subi + (size_t)s * S * 24;
+        if (wrapped_leaf(root))
+          occ = leaf_blocks(subt + (size_t)s * Tmax * 9, root[8], root[16], r, mt);
+        else
+          tstack[tsp++] = link;
+      }
+    }
+  }
+  occ_out[i] = occ ? 1 : 0;
+}
+
+inline dim3 grid_for(int n) { return dim3((unsigned)((n + THREADS - 1) / THREADS)); }
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes).  Each launches on `stream`,
+// does not synchronise, and returns cudaGetLastError().
+
+extern "C" int pt_closest_hit_stream(const float* topf, const int* topl, const int* topp,
+                                     const float* subf, const int* subi, const int* subp,
+                                     const float* subt, const int* base, const float* o,
+                                     const float* d, const float* t_init, float* t_out,
+                                     int* tri_out, float* u_out, float* v_out, int n, int S,
+                                     int Tmax, void* stream) {
+  if (n > 0)
+    closest_hit_stream_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+        topf, topl, topp, subf, subi, subp, subt, base, o, d, t_init, t_out, tri_out, u_out,
+        v_out, n, S, Tmax);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pt_occlusion_stream(const float* topf, const int* topl, const float* subf,
+                                   const int* subi, const float* subt, const float* o,
+                                   const float* d, const float* min_t, const uint8_t* occluded0,
+                                   uint8_t* occ_out, int n, int S, int Tmax, void* stream) {
+  if (n > 0)
+    occlusion_stream_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+        topf, topl, subf, subi, subt, o, d, min_t, occluded0, occ_out, n, S, Tmax);
+  return (int)cudaGetLastError();
+}

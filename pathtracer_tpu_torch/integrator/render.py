@@ -21,10 +21,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pathtracer_tpu.scene.camera import RenderCamera, derive_camera
-from pathtracer_tpu.scene.parser import SceneData, load_scene
-from pathtracer_tpu.utils.config import RenderOptions
-from pathtracer_tpu.utils.image_io import write_hdr, write_png
+from pathtracer_tpu_torch.scene.camera import RenderCamera, derive_camera
+from pathtracer_tpu_torch.scene.parser import SceneData, load_scene
+from pathtracer_tpu_torch.utils.config import RenderOptions
+from pathtracer_tpu_torch.utils.image_io import write_hdr, write_png
 from pathtracer_tpu_torch.integrator.wavefront import CameraArrays, render_iteration
 from pathtracer_tpu_torch.ops import math as m
 from pathtracer_tpu_torch.scene.flatscene import build_flat_scene

@@ -31,8 +31,8 @@ from typing import NamedTuple
 
 import torch
 
-from pathtracer_tpu.scene.parser import DIELECTRIC, LIGHT, SPHERE
-from pathtracer_tpu.utils.config import RenderOptions, SampleMode
+from pathtracer_tpu_torch.scene.parser import DIELECTRIC, LIGHT, SPHERE
+from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 from pathtracer_tpu_torch.ops import math as m
 from pathtracer_tpu_torch.ops.lights import light_pdf, light_sample
 from pathtracer_tpu_torch.ops.materials import (

@@ -1,37 +1,54 @@
 """Build and load the port's CUDA kernels (`csrc/*.cu`).
 
-On first use, nvcc compiles every source under `csrc/` into one shared
-library with a plain C interface, `_build/libpt_kernels.so` inside the
-package, and ctypes loads it.  The library is rebuilt when a source is newer
-than it.  Nothing is compiled or loaded at import, so the module imports on a
-machine without CUDA; there, the first call that needs the library raises
-with the reason (nvcc missing, or nvcc's stderr).
+On first use, nvcc compiles each source under `csrc/` into its own shared
+library with a plain C interface, `_build/lib<source>.so` inside the
+package, all sources at once in parallel, and ctypes loads them.  A library
+is rebuilt when its source or a header under `csrc/` is newer than it.
+Nothing is compiled or loaded at import, so the module imports on a machine
+without CUDA; there, the first call that needs the kernels raises with the
+reason (nvcc missing, or nvcc's stderr).
 
 Flags: `sm_90a` (Hopper), `-O3`, and `-fmad=false` without fast math, so a
 kernel rounds operation for operation like its plain PyTorch version and an
-IEEE division by zero gives +-inf.
+IEEE division by zero gives +-inf.  `-Xptxas=-v` makes ptxas report each
+kernel's registers, stack frame and spills; `ptxas_report()` returns them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-LIB_NAME = "libpt_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argtypes: c_void_p for every pointer and the stream
+ARGTYPES = {
+    "pt_closest_hit_wbvh": [_P] * 11 + [_I, _P],
+    "pt_occlusion_wbvh": [_P] * 8 + [_I, _P],
+    "pt_closest_hit_stream": [_P] * 15 + [_I, _I, _I, _P],
+    "pt_occlusion_stream": [_P] * 10 + [_I, _I, _I, _P],
+}
+
+KERNELS = (
+    "closest_hit_wbvh_kernel", "occlusion_wbvh_kernel",
+    "closest_hit_stream_kernel", "occlusion_stream_kernel",
 )
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: SimpleNamespace | None = None
+_ptxas_log: dict[str, str] = {}
 
 
 def find_nvcc() -> str | None:
@@ -49,14 +66,20 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _stale(lib: Path) -> bool:
+def _lib_path(src: Path) -> Path:
+    return BUILD_DIR / f"lib{src.stem}.so"
+
+
+def _stale(src: Path) -> bool:
+    lib = _lib_path(src)
     if not lib.exists():
         return True
-    newest = max(p.stat().st_mtime for p in CSRC.glob("*.cu*"))
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
     return lib.stat().st_mtime < newest
 
 
-def _compile(lib: Path) -> None:
+def _compile(srcs: list[Path]) -> None:
+    """One nvcc per source, all started together."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -65,35 +88,73 @@ def _compile(lib: Path) -> None:
             "PyTorch versions on a CUDA tensor"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+    jobs = []
+    for src in srcs:
+        lib = _lib_path(src)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((src, lib, tmp, cmd, proc))
+    failures = []
+    for src, lib, tmp, cmd, proc in jobs:
+        out, err = proc.communicate()
+        _ptxas_log[src.name] = out + err
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        else:
+            os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+    if failures:
+        raise RuntimeError("\n".join(failures))
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built if missing or stale, with argtypes set."""
+def load_library() -> SimpleNamespace:
+    """The kernels' C entry points, built if missing or stale, with argtypes
+    set; one attribute per entry point, plus `pt_error_string`."""
     global _lib
     with _lock:
         if _lib is None:
-            lib_path = BUILD_DIR / LIB_NAME
-            if _stale(lib_path):
-                _compile(lib_path)
-            lib = ctypes.CDLL(str(lib_path))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.pt_closest_hit_wbvh.argtypes = [p] * 11 + [i, p]
-            lib.pt_closest_hit_wbvh.restype = i
-            lib.pt_occlusion_wbvh.argtypes = [p] * 8 + [i, p]
-            lib.pt_occlusion_wbvh.restype = i
-            lib.pt_error_string.argtypes = [i]
-            lib.pt_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            srcs = _sources()
+            stale = [s for s in srcs if _stale(s)]
+            if stale:
+                _compile(stale)
+            fns = {}
+            for src in srcs:
+                dll = ctypes.CDLL(str(_lib_path(src)))
+                for name, argtypes in ARGTYPES.items():
+                    if hasattr(dll, name):
+                        fn = getattr(dll, name)
+                        fn.argtypes, fn.restype = argtypes, _I
+                        fns[name] = fn
+                if hasattr(dll, "pt_error_string"):
+                    fn = dll.pt_error_string
+                    fn.argtypes, fn.restype = [_I], ctypes.c_char_p
+                    fns["pt_error_string"] = fn
+            missing = sorted((set(ARGTYPES) | {"pt_error_string"}) - set(fns))
+            if missing:
+                raise RuntimeError(f"kernel libraries lack entry points {missing}")
+            _lib = SimpleNamespace(**fns)
         return _lib
+
+
+def ptxas_report() -> dict[str, dict[str, int]]:
+    """Registers, stack frame and spill bytes of each kernel that this
+    process compiled (empty when the libraries were already built)."""
+    report: dict[str, dict[str, int]] = {}
+    for text in _ptxas_log.values():
+        fn = None
+        for line in text.splitlines():
+            if m := re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line):
+                fn = next((k for k in KERNELS if k in m.group(1)), None)
+            elif fn and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line
+            )):
+                report.setdefault(fn, {}).update(
+                    stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                    spill_load_bytes=int(m.group(3)))
+            elif fn and (m := re.search(r"Used (\d+) registers", line)):
+                report.setdefault(fn, {})["registers"] = int(m.group(1))
+    return report
 
 
 def check(rc: int, what: str) -> None:

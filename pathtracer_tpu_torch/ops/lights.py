@@ -21,8 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pathtracer_tpu.scene.parser import LIGHT, SPHERE
-from pathtracer_tpu.utils.config import TWO_PI
+from pathtracer_tpu_torch.scene.parser import LIGHT, SPHERE
+from pathtracer_tpu_torch.utils.config import TWO_PI
 from pathtracer_tpu_torch.ops import math as m
 from pathtracer_tpu_torch.ops.intersect import xform_point
 from pathtracer_tpu_torch.ops.traverse import occlusion_test

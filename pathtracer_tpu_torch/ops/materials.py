@@ -23,13 +23,13 @@ from typing import NamedTuple
 
 import torch
 
-from pathtracer_tpu.scene.parser import (
+from pathtracer_tpu_torch.scene.parser import (
     DIELECTRIC,
     LAMBERTIAN,
     METALLIC_WORKFLOW,
     MICROFACET,
 )
-from pathtracer_tpu.utils.config import INV_PI
+from pathtracer_tpu_torch.utils.config import INV_PI
 from pathtracer_tpu_torch.ops import math as m
 from pathtracer_tpu_torch.scene.flatscene import FlatScene
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from pathtracer_tpu.utils.config import PI, TWO_PI
+from pathtracer_tpu_torch.utils.config import PI, TWO_PI
 
 # ---------------------------------------------------------------------------
 # small helpers

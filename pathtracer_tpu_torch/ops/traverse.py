@@ -2,10 +2,12 @@
 
 Port of `pathtracer_tpu/ops/traverse.py`.  Analytic geoms (spheres and cubes)
 are swept on (N,) component columns exactly as the JAX package does; the
-triangle part always goes through the wide-BVH kernels of
-`ops/traverse_cuda.py` (K1 closest hit, K2 shadow any-hit), which take the
-same tables, rays and sentinels as the Pallas kernels they replace.  The port
-has no MTBVH lockstep walk and no brute-force sweep (`use_bvh=False`).
+triangle part goes, by `packet_mode`, through the resident wide-BVH kernels
+of `ops/traverse_cuda.py` (K1 closest hit, K2 shadow any-hit) or the
+two-level streaming kernels of `ops/traverse_stream_cuda.py` (K3, K4), which
+take the same tables, rays and sentinels as the Pallas kernels they replace.
+The port has no MTBVH lockstep walk and no brute-force sweep
+(`use_bvh=False`).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from pathtracer_tpu.scene.parser import CUBE, SPHERE
+from pathtracer_tpu_torch.scene.parser import CUBE, SPHERE
 from pathtracer_tpu_torch.ops.intersect import (
     mat_rows,
     normalize_cols,
@@ -25,6 +27,10 @@ from pathtracer_tpu_torch.ops.intersect import (
 from pathtracer_tpu_torch.ops.traverse_cuda import (
     closest_hit_wbvh,
     occlusion_wbvh,
+)
+from pathtracer_tpu_torch.ops.traverse_stream_cuda import (
+    closest_hit_stream,
+    occlusion_stream,
 )
 from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
 
@@ -157,6 +163,20 @@ def _geoms_closest(flat: FlatScene, static: SceneStatic, o, d):
     return t_min, geom, point, normal
 
 
+def packet_mode(static: SceneStatic) -> str:
+    """Which kernels walk the scene's triangles: "stream" (K3/K4) when the
+    tables were built with the streaming split, else "resident" (K1/K2).
+    `build_flat_scene` already applied the JAX package's rule
+    (`pathtracer_tpu/ops/traverse.py:308`): it splits only a mesh past the
+    resident budget, and raises for one that fits neither."""
+    return "stream" if static.stream_subs else "resident"
+
+
+def _stream_args(static: SceneStatic) -> dict:
+    return dict(sub_nodes=static.stream_sub_nodes, sub_tris=static.stream_sub_tris,
+                top_depth=static.stream_top_depth, sub_depth=static.stream_sub_depth)
+
+
 def _root_box_cull(static: SceneStatic, o, d, t_cap):
     """Lanes whose ray cannot reach the triangle root box within `t_cap`
     get DEAD_T, so the kernels skip them (the JAX pre-test at
@@ -181,10 +201,17 @@ def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None) -> Hit:
 
     t_init = t_min if alive is None else torch.where(alive, t_min, DEAD_T)
     t_init = _root_box_cull(static, o, d, t_init)
-    t_tri, tri, u, v = closest_hit_wbvh(
-        flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk, o, d, t_init,
-        wide_depth=static.wide_depth,
-    )
+    if packet_mode(static) == "stream":
+        t_tri, tri, u, v = closest_hit_stream(
+            flat.str_topf, flat.str_topl, flat.str_topp, flat.str_subf, flat.str_subi,
+            flat.str_subp, flat.str_subt, flat.str_base, o, d, t_init,
+            **_stream_args(static),
+        )
+    else:
+        t_tri, tri, u, v = closest_hit_wbvh(
+            flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk, o, d, t_init,
+            wide_depth=static.wide_depth,
+        )
     t_min = torch.where(tri >= 0, t_tri, t_min)
 
     # barycentric hit attributes
@@ -207,8 +234,8 @@ def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None) -> Hit:
 
 def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=None):
     """Is the segment ori -> des blocked?  Analytic geoms with the window
-    (t < minT-1e-5 && |t-minT| > 1e-2), then triangles through K2 with
-    (t < minT-1e-5 && |t-minT| > 1e-4)."""
+    (t < minT-1e-5 && |t-minT| > 1e-2), then triangles through K2 (K4 for a
+    streamed mesh) with (t < minT-1e-5 && |t-minT| > 1e-4)."""
     N = ori.shape[0]
     e = des - ori
     min_t = torch.sqrt(torch.clamp(e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2], min=0.0))
@@ -227,6 +254,11 @@ def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=
         return occluded
     min_t_eff = min_t if enabled is None else torch.where(enabled, min_t, DEAD_T)
     min_t_eff = _root_box_cull(static, ori, dir, min_t_eff)
+    if packet_mode(static) == "stream":
+        return occlusion_stream(
+            flat.str_topf, flat.str_topl, flat.str_subf, flat.str_subi, flat.str_subt,
+            flat.str_base, ori, dir, min_t_eff, occluded, **_stream_args(static),
+        )
     return occlusion_wbvh(
         flat.bvh_wf, flat.bvh_wi, flat.tri_pk, ori, dir, min_t_eff, occluded,
         wide_depth=static.wide_depth,

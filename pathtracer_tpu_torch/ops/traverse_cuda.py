@@ -110,8 +110,9 @@ class _Walk:
     """Per-ray state of a lockstep walk: the rays, their stacks, and the
     active subset popped this step."""
 
-    def __init__(self, wf, wi, tri12, o, d, live):
+    def __init__(self, wf, wi, tri12, o, d, live, counts=None):
         n = o.shape[0]
+        self.counts = counts
         self.boxes = wf.view(-1, 8, 6)
         self.links = wi.view(-1, 3, 8)
         self.tri = tri12.view(-1, 12)
@@ -129,6 +130,8 @@ class _Walk:
         act = torch.nonzero(self.sp > 0).squeeze(1)
         if act.numel() == 0:
             return None
+        if self.counts is not None:
+            self.counts["box"] += 8 * act.numel()
         sp = self.sp[act] - 1
         node = self.stack[act, sp].long()
         o, d, inv = self.o[act], self.d[act], self.inv[act]
@@ -146,24 +149,29 @@ class _Walk:
         self.stack[act, sp] = link
         return sp + take.to(torch.int64)
 
-    def leaf_rows(self, li, start):
-        """Triangle ids (L, leaf_k) and rows (L, leaf_k, 12) of the cuts
-        starting at `start`, for the leaf lanes `li`."""
+    def leaf_rows(self, li, start, end):
+        """Triangle ids (L, leaf_k), rows (L, leaf_k, 12) and validity of the
+        cuts [start, end), for the leaf lanes `li`."""
         ks = torch.arange(self.leaf_k, device=start.device)
         tid = start[li, None] + ks
         rows = self.tri[tid.clamp(max=self.tri.shape[0] - 1).long()]
-        return tid, rows
+        valid = tid < end[li, None]
+        if self.counts is not None:
+            self.counts["tri"] += int(valid.sum())
+        return tid, rows, valid
 
     def ray_cols(self, li):
         ox, oy, oz, dx, dy, dz = self.ray
         return tuple(c[li, None] for c in (ox, oy, oz, dx, dy, dz))
 
 
-def closest_hit_wbvh_plain(wf, wi, wp, tri12, o, d, t_init):
-    """Plain PyTorch K1 (any device): returns (t, tri, u, v)."""
+def closest_hit_wbvh_plain(wf, wi, wp, tri12, o, d, t_init, counts: dict | None = None):
+    """Plain PyTorch K1 (any device): returns (t, tri, u, v).  `counts`, if
+    given, accumulates the box tests ("box", 8 per pop) and triangle tests
+    ("tri") of the walk."""
     n = o.shape[0]
     dev = o.device
-    w = _Walk(wf, wi, tri12, o, d, t_init >= 0.0)
+    w = _Walk(wf, wi, tri12, o, d, t_init >= 0.0, counts)
     perms = wp.view(-1, 8)
     octant = ((d[:, 0] > 0).long() + 2 * (d[:, 1] > 0).long() + 4 * (d[:, 2] > 0).long())
     best_t = t_init.clone()
@@ -182,9 +190,9 @@ def closest_hit_wbvh_plain(wf, wi, wp, tri12, o, d, t_init):
             li = torch.nonzero(take & (link < 0)).squeeze(1)
             if li.numel() == 0:
                 continue
-            tid, rows = w.leaf_rows(li, start)
+            tid, rows, valid = w.leaf_rows(li, start, end)
             th, tt, tu, tv = _moller_trumbore(rows, *w.ray_cols(li))
-            th = th & (tid < end[li, None])
+            th = th & valid
             lt, ltri, lu, lv = bt[li], btri[li], bu[li], bv[li]
             for k in range(w.leaf_k):  # in cut order, strictly closer wins
                 upd = th[:, k] & (tt[:, k] < lt)
@@ -198,10 +206,10 @@ def closest_hit_wbvh_plain(wf, wi, wp, tri12, o, d, t_init):
     return best_t, best_tri, best_u, best_v
 
 
-def occlusion_wbvh_plain(wf, wi, tri12, o, d, min_t, occluded0):
+def occlusion_wbvh_plain(wf, wi, tri12, o, d, min_t, occluded0, counts: dict | None = None):
     """Plain PyTorch K2 (any device): returns (N,) bool."""
     occ = occluded0.clone()
-    w = _Walk(wf, wi, tri12, o, d, ~occluded0 & (min_t >= 0.0))
+    w = _Walk(wf, wi, tri12, o, d, ~occluded0 & (min_t >= 0.0), counts)
     t_far = min_t - 1e-5
     while (popped := w.pop()) is not None:
         act, node, sp = popped
@@ -214,10 +222,10 @@ def occlusion_wbvh_plain(wf, wi, tri12, o, d, min_t, occluded0):
             li = torch.nonzero(take & (link < 0)).squeeze(1)
             if li.numel() == 0:
                 continue
-            tid, rows = w.leaf_rows(li, start)
+            tid, rows, valid = w.leaf_rows(li, start, end)
             th, tt, _, _ = _moller_trumbore(rows, *w.ray_cols(li))
             hits = (
-                th & (tid < end[li, None]) & (tf[li, None] > tt)
+                th & valid & (tf[li, None] > tt)
                 & (torch.abs(tt - mt[li, None]) > 1e-4)
             )
             blocked[li] = blocked[li] | hits.any(dim=1)

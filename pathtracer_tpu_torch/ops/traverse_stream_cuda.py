@@ -1,0 +1,330 @@
+"""Two-level (streaming) traversal kernels K3 (closest hit) and K4 (shadow
+any-hit), for meshes past the resident budget.
+
+Port of the streaming Pallas kernels of `pathtracer_tpu/ops/traverse_pallas.py`:
+`closest_hit_stream_pallas` (K3) and `occlusion_stream_pallas` (K4).  The CUDA
+kernels live in `csrc/stream_traverse.cu`; this module holds, for each:
+
+- the wrapper (`closest_hit_stream`, `occlusion_stream`): on a CPU tensor it
+  runs the plain PyTorch version; on a CUDA tensor it launches the kernel
+  (building it on first use) or raises.  It never falls back.
+- the plain PyTorch version (`*_plain`): a lockstep, masked walk of the same
+  two-level tables, with a top stack and a block stack per ray and the
+  kernel's per-ray visit order, so kernel and plain version agree exactly.
+- a launch counter (`closest_launches`, `occlusion_launches`), bumped once
+  per kernel launch and nowhere else.
+
+The walk is K1/K2's (`ops/traverse_cuda.py`), nested: the top tree is the
+wide tree's upper part, a child link -(2+s) enters block s, which is walked
+to its end with block-local node and triangle indices (triangle ids rebased
+by `base[s]`).  A leaf cut hanging off a top node is a one-node block and is
+tested at once, as K1 tests it, so K3 returns K1's result lane for lane.
+Sentinels as K1/K2: lanes with t_init < 0 never enter K3; K4 keeps
+`occluded0` lanes blocked and never blocks a lane with min_t < 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pathtracer_tpu_torch.ops import _build
+from pathtracer_tpu_torch.ops.traverse_cuda import (
+    _check_cuda_args,
+    _moller_trumbore,
+    _rays,
+    _slab,
+)
+
+STACK = 64  # each of the top and block stacks (csrc/stream_traverse.cu TOP_STACK, SUB_STACK)
+
+closest_launches = 0
+occlusion_launches = 0
+
+
+def reset_launch_counts() -> None:
+    global closest_launches, occlusion_launches
+    closest_launches = 0
+    occlusion_launches = 0
+
+
+def _check_depths(top_depth: int, sub_depth: int) -> None:
+    for what, depth in (("top tree", top_depth), ("deepest block", sub_depth)):
+        if 7 * int(depth) + 1 > STACK:
+            raise ValueError(
+                f"streaming {what} depth {depth} needs a stack of {7 * depth + 1} "
+                f"entries; the kernels have {STACK}"
+            )
+
+
+def _check_tables(topf, topl, topp, subf, subi, subp, subt, base, sub_nodes, sub_tris):
+    n_top, n_sub = topl.numel() // 8, base.numel()
+    want = dict(
+        topf=n_top * 48, topl=n_top * 8, topp=n_top * 8,
+        subf=n_sub * sub_nodes * 48, subi=n_sub * sub_nodes * 24,
+        subp=n_sub * sub_nodes * 8, subt=n_sub * sub_tris * 9,
+    )
+    got = dict(topf=topf, topl=topl, topp=topp, subf=subf, subi=subi, subp=subp, subt=subt)
+    for name, size in want.items():
+        if got[name] is not None and got[name].numel() != size:
+            raise ValueError(
+                f"{name} has {got[name].numel()} entries; {n_top} top nodes and "
+                f"{n_sub} blocks of {sub_nodes} nodes / {sub_tris} triangles need {size}"
+            )
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+
+
+class _StreamWalk:
+    """Per-ray state of a lockstep two-level walk: a top stack (top nodes and
+    block entries -(2+s)), a block stack of block-local nodes, and the block
+    each ray is inside.  A ray pops from its block stack while it is not
+    empty, else from its top stack."""
+
+    def __init__(self, topf, topl, subf, subi, subt, base, o, d, live, sub_nodes, sub_tris,
+                 counts):
+        n = o.shape[0]
+        dev = o.device
+        self.S, self.Tmax = sub_nodes, sub_tris
+        self.top_boxes = topf.view(-1, 8, 6)
+        self.top_links = topl.view(-1, 8)
+        self.sub_boxes = subf.view(-1, 8, 6)  # row s*S + local node
+        self.sub_links = subi.view(-1, 3, 8)
+        self.sub_tri = subt.view(-1, 9)  # row s*Tmax + local triangle
+        self.base = base.long()
+        roots = self.sub_links[::sub_nodes]  # (n_sub, 3, 8)
+        # a one-node block wrapping a leaf cut: nothing in its root's slot 1
+        self.wrapped = (roots[:, 0, 1] < 0) & (roots[:, 2, 1] <= roots[:, 1, 1])
+        self.leaf_k = max(int((self.sub_links[:, 2] - self.sub_links[:, 1]).max()), 1)
+        self.o, self.d = o, d
+        self.inv = 1.0 / d
+        # one spare column each: a push stores unconditionally at the live top
+        self.tstack = torch.zeros((n, STACK + 1), dtype=torch.int32, device=dev)
+        self.tsp = live.to(torch.int64)  # top node 0 is pushed for live lanes
+        self.bstack = torch.zeros((n, STACK + 1), dtype=torch.int32, device=dev)
+        self.bsp = torch.zeros((n,), dtype=torch.int64, device=dev)
+        self.blk = torch.zeros((n,), dtype=torch.int64, device=dev)
+        self.counts = counts
+
+    def pop(self):
+        """Pop one entry per active lane.  Lanes that pop a block entry step
+        into the block (its root goes on the block stack).  Returns
+        ((top lanes, top node), (block lanes, block node row)) or None."""
+        in_blk = self.bsp > 0
+        bl = torch.nonzero(in_blk).squeeze(1)
+        tl = torch.nonzero(~in_blk & (self.tsp > 0)).squeeze(1)
+        if bl.numel() == 0 and tl.numel() == 0:
+            return None
+        tsp = self.tsp[tl] - 1
+        entry = self.tstack[tl, tsp].long()
+        self.tsp[tl] = tsp
+        enter = entry < 0
+        el = tl[enter]
+        self.blk[el] = -(entry[enter] + 2)
+        self.bstack[el, 0] = 0
+        self.bsp[el] = 1
+        tl, tnode = tl[~enter], entry[~enter]
+        bsp = self.bsp[bl] - 1
+        brow = self.blk[bl] * self.S + self.bstack[bl, bsp].long()
+        self.bsp[bl] = bsp
+        if self.counts is not None:
+            self.counts["box"] += 8 * (tl.numel() + bl.numel())
+        return (tl, tnode), (bl, brow)
+
+    def push(self, top: bool, lanes, link, take):
+        stack, sp = (self.tstack, self.tsp) if top else (self.bstack, self.bsp)
+        stack[lanes, sp[lanes]] = link
+        sp[lanes] += take.to(torch.int64)
+
+    def ray_inv(self, lanes):
+        o, inv = self.o[lanes], self.inv[lanes]
+        return o[:, 0], o[:, 1], o[:, 2], inv[:, 0], inv[:, 1], inv[:, 2]
+
+    def ray_cols(self, lanes):
+        o, d = self.o[lanes], self.d[lanes]
+        return tuple(c[:, None] for c in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]))
+
+    def leaf(self, lanes, s, start, end):
+        """Möller-Trumbore of `lanes` against block triangles [start, end) of
+        blocks `s`: (hit, t, u, v, global id), each (L, leaf_k), in cut order."""
+        loc = start[:, None] + torch.arange(self.leaf_k, device=start.device)
+        valid = loc < end[:, None]
+        rows = self.sub_tri[s[:, None] * self.Tmax + loc.clamp(max=self.Tmax - 1)]
+        hit, t, u, v = _moller_trumbore(rows, *self.ray_cols(lanes))
+        if self.counts is not None:
+            self.counts["tri"] += int(valid.sum())
+        return hit & valid, t, u, v, self.base[s][:, None] + loc
+
+    def children(self, top: bool, lanes, node, slot, cap):
+        """Slab test of child `slot` of each popped node against `cap`.
+        Returns (take, link, push, leaf block, leaf start, leaf end): `push`
+        marks children that go on the lane's stack; a taken child that is
+        not pushed is a leaf cut, tested now."""
+        if top:
+            hit, te = _slab(self.top_boxes[node, slot], *self.ray_inv(lanes))
+            link = self.top_links[node, slot]
+            s = (-(link + 2)).clamp(min=0).long()
+            wrap = (link < -1) & self.wrapped[s]
+            push = (link >= 0) | ((link < -1) & ~wrap)
+            leaf = wrap
+            start = torch.zeros_like(s)
+            end = self.sub_links[s * self.S, 2, 0].long()
+        else:
+            hit, te = _slab(self.sub_boxes[node, slot], *self.ray_inv(lanes))
+            link = self.sub_links[node, 0, slot]
+            push = link >= 0
+            leaf = ~push
+            s = self.blk[lanes]
+            start = self.sub_links[node, 1, slot].long()
+            end = self.sub_links[node, 2, slot].long()
+        take = hit & (te <= cap)
+        return take, link, take & push, take & leaf, s, start, end
+
+
+def closest_hit_stream_plain(topf, topl, topp, subf, subi, subp, subt, base, o, d, t_init,
+                             *, sub_nodes: int, sub_tris: int, counts: dict | None = None):
+    """Plain PyTorch K3 (any device): returns (t, tri, u, v).  `counts`, if
+    given, accumulates the box tests ("box", 8 per pop) and triangle tests
+    ("tri") of the walk."""
+    n = o.shape[0]
+    dev = o.device
+    w = _StreamWalk(topf, topl, subf, subi, subt, base, o, d, t_init >= 0.0,
+                    sub_nodes, sub_tris, counts)
+    perms = {True: topp.view(-1, 8), False: subp.view(-1, 8)}
+    octant = (d[:, 0] > 0).long() + 2 * (d[:, 1] > 0).long() + 4 * (d[:, 2] > 0).long()
+    best_t = t_init.clone()
+    best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    best_v = torch.zeros((n,), dtype=torch.float32, device=dev)
+    while (popped := w.pop()) is not None:
+        for top, (lanes, node) in zip((True, False), popped):
+            if lanes.numel() == 0:
+                continue
+            perm = perms[top][node, octant[lanes]]
+            for rank in range(7, -1, -1):  # far -> near: the nearest child is pushed last
+                slot = ((perm >> (3 * rank)) & 7).long()
+                take, link, push, leaf, s, start, end = w.children(
+                    top, lanes, node, slot, best_t[lanes])
+                w.push(top, lanes, link, push)
+                lm = torch.nonzero(leaf).squeeze(1)
+                if lm.numel() == 0:
+                    continue
+                li = lanes[lm]
+                th, tt, tu, tv, gid = w.leaf(li, s[lm], start[lm], end[lm])
+                lt, ltri, lu, lv = best_t[li], best_tri[li], best_u[li], best_v[li]
+                for k in range(w.leaf_k):  # in cut order, strictly closer wins
+                    upd = th[:, k] & (tt[:, k] < lt)
+                    lt = torch.where(upd, tt[:, k], lt)
+                    ltri = torch.where(upd, gid[:, k].to(torch.int32), ltri)
+                    lu = torch.where(upd, tu[:, k], lu)
+                    lv = torch.where(upd, tv[:, k], lv)
+                best_t[li], best_tri[li], best_u[li], best_v[li] = lt, ltri, lu, lv
+    return best_t, best_tri, best_u, best_v
+
+
+def occlusion_stream_plain(topf, topl, subf, subi, subt, base, o, d, min_t, occluded0,
+                           *, sub_nodes: int, sub_tris: int, counts: dict | None = None):
+    """Plain PyTorch K4 (any device): returns (N,) bool."""
+    occ = occluded0.clone()
+    w = _StreamWalk(topf, topl, subf, subi, subt, base, o, d, ~occluded0 & (min_t >= 0.0),
+                    sub_nodes, sub_tris, counts)
+    t_far = min_t - 1e-5
+    while (popped := w.pop()) is not None:
+        for top, (lanes, node) in zip((True, False), popped):
+            if lanes.numel() == 0:
+                continue
+            for slot in range(8):  # any-hit: order-free
+                slot_t = torch.full_like(node, slot)
+                take, link, push, leaf, s, start, end = w.children(
+                    top, lanes, node, slot_t, min_t[lanes])
+                blocked = occ[lanes]
+                w.push(top, lanes, link, push & ~blocked)
+                lm = torch.nonzero(leaf & ~blocked).squeeze(1)
+                if lm.numel() == 0:
+                    continue
+                li = lanes[lm]
+                th, tt, _, _, _ = w.leaf(li, s[lm], start[lm], end[lm])
+                hits = th & (t_far[li, None] > tt) & (torch.abs(tt - min_t[li, None]) > 1e-4)
+                occ[li] = occ[li] | hits.any(dim=1)
+        # a blocked ray stops
+        w.tsp = torch.where(occ, 0, w.tsp)
+        w.bsp = torch.where(occ, 0, w.bsp)
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+
+
+def closest_hit_stream(topf, topl, topp, subf, subi, subp, subt, base, o, d, t_init, *,
+                       sub_nodes: int, sub_tris: int, top_depth: int, sub_depth: int):
+    """K3: closest hit of N rays against the two-level streaming tables.
+
+    Returns (t, tri, u, v); tri is -1 where nothing beat t_init.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    global closest_launches
+    _check_depths(top_depth, sub_depth)
+    _check_tables(topf, topl, topp, subf, subi, subp, subt, base, sub_nodes, sub_tris)
+    _rays(o, d)
+    if o.device.type == "cpu":
+        return closest_hit_stream_plain(topf, topl, topp, subf, subi, subp, subt, base, o, d,
+                                        t_init, sub_nodes=sub_nodes, sub_tris=sub_tris)
+    if o.device.type != "cuda":
+        raise ValueError(f"closest_hit_stream runs on cpu or cuda tensors, not {o.device}")
+    f32, i32 = torch.float32, torch.int32
+    _check_cuda_args(
+        dict(topf=topf, topl=topl, topp=topp, subf=subf, subi=subi, subp=subp, subt=subt,
+             base=base, o=o, d=d, t_init=t_init),
+        dict(topf=f32, topl=i32, topp=i32, subf=f32, subi=i32, subp=i32, subt=f32,
+             base=i32, o=f32, d=f32, t_init=f32),
+    )
+    lib = _build.load_library()
+    n = o.shape[0]
+    t = torch.empty((n,), dtype=f32, device=o.device)
+    tri = torch.empty((n,), dtype=i32, device=o.device)
+    u = torch.empty((n,), dtype=f32, device=o.device)
+    v = torch.empty((n,), dtype=f32, device=o.device)
+    rc = lib.pt_closest_hit_stream(
+        topf.data_ptr(), topl.data_ptr(), topp.data_ptr(), subf.data_ptr(),
+        subi.data_ptr(), subp.data_ptr(), subt.data_ptr(), base.data_ptr(),
+        o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
+        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n, sub_nodes, sub_tris,
+        torch.cuda.current_stream(o.device).cuda_stream,
+    )
+    _build.check(rc, "closest_hit_stream launch")
+    closest_launches += 1
+    return t, tri, u, v
+
+
+def occlusion_stream(topf, topl, subf, subi, subt, base, o, d, min_t, occluded0, *,
+                     sub_nodes: int, sub_tris: int, top_depth: int, sub_depth: int):
+    """K4: shadow any-hit against the two-level streaming tables; (N,) bool."""
+    global occlusion_launches
+    _check_depths(top_depth, sub_depth)
+    _check_tables(topf, topl, None, subf, subi, None, subt, base, sub_nodes, sub_tris)
+    _rays(o, d)
+    if o.device.type == "cpu":
+        return occlusion_stream_plain(topf, topl, subf, subi, subt, base, o, d, min_t,
+                                      occluded0, sub_nodes=sub_nodes, sub_tris=sub_tris)
+    if o.device.type != "cuda":
+        raise ValueError(f"occlusion_stream runs on cpu or cuda tensors, not {o.device}")
+    f32, i32 = torch.float32, torch.int32
+    _check_cuda_args(
+        dict(topf=topf, topl=topl, subf=subf, subi=subi, subt=subt, o=o, d=d, min_t=min_t,
+             occluded0=occluded0),
+        dict(topf=f32, topl=i32, subf=f32, subi=i32, subt=f32, o=f32, d=f32, min_t=f32,
+             occluded0=torch.bool),
+    )
+    lib = _build.load_library()
+    n = o.shape[0]
+    occ = torch.empty((n,), dtype=torch.bool, device=o.device)
+    rc = lib.pt_occlusion_stream(
+        topf.data_ptr(), topl.data_ptr(), subf.data_ptr(), subi.data_ptr(), subt.data_ptr(),
+        o.data_ptr(), d.data_ptr(), min_t.data_ptr(), occluded0.data_ptr(), occ.data_ptr(),
+        n, sub_nodes, sub_tris, torch.cuda.current_stream(o.device).cuda_stream,
+    )
+    _build.check(rc, "occlusion_stream launch")
+    occlusion_launches += 1
+    return occ

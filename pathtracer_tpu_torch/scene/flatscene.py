@@ -1,27 +1,35 @@
 """FlatScene: the device-resident scene tables as tensors.
 
 Port of `pathtracer_tpu/scene/flatscene.py`.  The tables are built with the
-same numpy code as the JAX package (the numpy-only pieces are copied here,
-each marked with its origin, because that module imports JAX), so the two
-packages hold equal tables for the same scene: identical BVH tables are what
-make triangle-id parity exact.  The fields carry the JAX names.
+same numpy code as the JAX package (each function names its counterpart), so
+the two packages hold equal tables for the same scene: identical BVH tables
+are what make triangle-id parity exact.  The fields carry the JAX names.
+
+A mesh within `resident_tables_fit` is walked through the wide tables
+(`bvh_w*`, `tri_pk`; kernels K1/K2); a larger one through the two-level
+streaming tables (`str_*`, `build_stream_tables`; kernels K3/K4).
 
 Not yet ported (each raises `NotImplementedError`): texture atlases and
-normal maps (ROADMAP Queue 1 item 11), environment maps (item 12) and the
-two-level streaming tables for meshes past `resident_tables_fit` (item 13).
-Their fields hold the JAX package's one-row placeholder tables.
+normal maps (ROADMAP Queue 1 item 11) and environment maps (item 12).  Their
+fields hold the JAX package's one-row placeholder tables.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, fields
 from typing import Mapping
 
 import numpy as np
 import torch
 
-from pathtracer_tpu.accel.bvh import FlatBVH, build_bvh, collapse_wide
-from pathtracer_tpu.scene.parser import LIGHT, OBJ, SceneData
+from pathtracer_tpu_torch.accel.bvh import (
+    FlatBVH,
+    build_bvh,
+    collapse_wide,
+    partition_stream,
+)
+from pathtracer_tpu_torch.scene.parser import LIGHT, OBJ, SceneData
 
 TRI_ROW = 32  # packed triangle row width
 WIDE_LEAF_K = 8  # triangles per wide-BVH leaf cut
@@ -29,6 +37,12 @@ STREAM_SUB_NODES = 512
 STREAM_SUB_TRIS = 4096
 RESIDENT_SMEM_BUDGET = 900_000
 RESIDENT_TRI_VMEM_BUDGET = 8_000_000
+# The JAX package sizes its blocks for the TPU kernels' on-chip memory
+# (`pathtracer_tpu/scene/flatscene.py:356`, `ops/traverse_pallas.py:535`).
+# The port keeps the same numbers so that both packages pick the same block
+# split; they mean nothing on the card, where the tables sit in device memory.
+STREAM_SMEM_BUDGET = 900_000
+STREAM_BUFS = 2
 
 
 @dataclass
@@ -48,14 +62,14 @@ class FlatScene:
     bvh_wi: torch.Tensor           # (M*24,) i32: node m [link x8 | start x8 | end x8]
     bvh_wp: torch.Tensor           # (M*8,) i32: per-octant child order, 3 bits per rank
     tri_pk: torch.Tensor           # (T, 12) f32 EDGE form: v0, e1=v1-v0, e2=v2-v0, pad
-    str_topf: torch.Tensor         # streaming tables: placeholders (not ported)
-    str_topl: torch.Tensor
-    str_topp: torch.Tensor
-    str_subf: torch.Tensor
-    str_subi: torch.Tensor
-    str_subp: torch.Tensor
-    str_subt: torch.Tensor
-    str_base: torch.Tensor
+    str_topf: torch.Tensor         # (T*48,) f32: top node child AABBs, as bvh_wf
+    str_topl: torch.Tensor         # (T*8,) i32: >= 0 top node, -1 empty, -(2+s) block s
+    str_topp: torch.Tensor         # (T*8,) i32: per-octant child order, as bvh_wp
+    str_subf: torch.Tensor         # (n_sub*S*48,) f32: block node child AABBs
+    str_subi: torch.Tensor         # (n_sub*S*24,) i32: [local link x8 | start x8 | end x8]
+    str_subp: torch.Tensor         # (n_sub*S*8,) i32: per-octant child order
+    str_subt: torch.Tensor         # (n_sub*Tmax*9,) f32: v0, e1, e2 of block-local triangles
+    str_base: torch.Tensor         # (n_sub,) i32: global id of each block's first triangle
     mat_f32: torch.Tensor          # (8, M): albedo(3) roughness metallic ior pad(2)
     mat_i32: torch.Tensor          # (8, M): type atex mtex rtex ntex pad(3)
     atlas: torch.Tensor            # texture tables: placeholders (not ported)
@@ -108,6 +122,10 @@ class SceneStatic:
     trace_depth: int
     iterations: int
     image_name: str
+    # the port's own: depths of the streaming walk (stream_depths), which the
+    # K3/K4 wrappers hold against their stacks
+    stream_top_depth: int = 0
+    stream_sub_depth: int = 0
 
 
 # copied from pathtracer_tpu/scene/flatscene.py:156 _pack_triangles
@@ -226,11 +244,12 @@ def build_wide_tables(bvh: FlatBVH, leaf_k: int | None = None):
 
 
 # copied from pathtracer_tpu/scene/flatscene.py:359 resident_tables_fit
-# (without its PT_FORCE_STREAM override: the port has no streaming path)
 def resident_tables_fit(num_wide_nodes: int, num_tris: int) -> bool:
     """Does the scene fit the JAX package's resident-kernel budgets?  The
     port keeps the same gate, so both packages take the resident kernels
-    for the same scenes."""
+    for the same scenes.  PT_FORCE_STREAM=1 forces the streaming path."""
+    if os.environ.get("PT_FORCE_STREAM"):
+        return False
     smem = (48 + 24 + 8 + 9) * num_wide_nodes * 4 + 256
     return (
         smem <= RESIDENT_SMEM_BUDGET
@@ -238,19 +257,101 @@ def resident_tables_fit(num_wide_nodes: int, num_tris: int) -> bool:
     )
 
 
+# copied from pathtracer_tpu/scene/flatscene.py:372 build_stream_tables
+def build_stream_tables(bvh: FlatBVH, tri_pk: np.ndarray,
+                        num_wide_nodes: int, leaf_k: int,
+                        wide=None):
+    """Two-level streaming tables (accel/bvh.py partition_stream) for
+    meshes past the resident budget; dummy (zero-block) tables when the
+    resident kernels suffice.
+
+    Returns (topf, topl, topp, subf, subi, subp, subt, tri_base,
+    num_top, num_sub, sub_nodes, sub_tris); num_sub == 0 means 'not
+    streaming'."""
+    nt = tri_pk.shape[0]
+    dummy = (
+        np.zeros(48, np.float32), np.full(8, -1, np.int32),
+        np.zeros(8, np.int32),
+        np.zeros(STREAM_SUB_NODES * 48, np.float32),
+        np.zeros(STREAM_SUB_NODES * 24, np.int32),
+        np.zeros(STREAM_SUB_NODES * 8, np.int32),
+        np.zeros(STREAM_SUB_TRIS * 9, np.float32),
+        np.zeros(1, np.int32), 0, 0, 0, 0,
+    )
+    if nt == 0 or resident_tables_fit(num_wide_nodes, nt):
+        return dummy
+    if wide is None or wide.num_nodes != num_wide_nodes:
+        wide = collapse_wide(bvh, leaf_k)
+    # the largest blocks whose (TPU) footprint fits STREAM_SMEM_BUDGET,
+    # halving as the JAX package does, so both packages split alike
+    s = None
+    for div in (1, 2, 4):
+        cand = partition_stream(
+            wide, STREAM_SUB_NODES // div, STREAM_SUB_TRIS // div
+        )
+        T, n_sub, S = cand.num_top, cand.num_sub, cand.sub_nodes
+        B = STREAM_BUFS
+        smem = (
+            T * (48 + 8 + 8) + B * S * (48 + 24 + 8) + B * cand.sub_tris * 9
+            + T + 3 * n_sub + S + S * 8 + 256
+        ) * 4
+        if smem <= STREAM_SMEM_BUDGET:
+            s = cand
+            break
+    if s is None:
+        return dummy
+    T, n_sub = s.num_top, s.num_sub
+    topf = np.concatenate([s.top_bmin, s.top_bmax], axis=2).reshape(-1)
+    topl = s.top_link.reshape(-1).astype(np.int32)
+    topp = s.top_perm.reshape(-1).astype(np.int32)
+    subf = np.concatenate([s.sub_bmin, s.sub_bmax], axis=3).reshape(-1)
+    subi = np.concatenate(
+        [s.sub_link, s.sub_start, s.sub_end], axis=2
+    ).reshape(-1).astype(np.int32)
+    subp = s.sub_perm.reshape(-1).astype(np.int32)
+    # only the 9 floats Möller-Trumbore reads (v0, e1, e2), stride 9
+    subt = np.zeros((n_sub, s.sub_tris, 9), np.float32)
+    for si in range(n_sub):
+        b, c = int(s.tri_base[si]), int(s.tri_count[si])
+        subt[si, :c] = tri_pk[b : b + c, 0:9]
+    subt = subt.reshape(-1)
+    return (
+        topf.astype(np.float32), topl, topp,
+        subf.astype(np.float32), subi, subp, subt,
+        s.tri_base.astype(np.int32), T, n_sub, s.sub_nodes, s.sub_tris,
+    )
+
+
+def _tree_depth(links: np.ndarray) -> np.ndarray:
+    """Depth of the deepest node reachable from node 0 of each tree in
+    `links` (B, nodes, 8), following links >= 0; returns (B,)."""
+    b_n, n_nodes, _ = links.shape
+    depth = np.full((b_n, n_nodes), -1, np.int64)
+    depth[:, 0] = 0
+    level = 0
+    while True:
+        ch = np.where((depth == level)[:, :, None], links, -1)
+        b, _, _ = np.nonzero(ch >= 0)
+        if b.size == 0:
+            return depth.max(axis=1)
+        depth[b, ch[ch >= 0]] = level + 1
+        level += 1
+
+
+def stream_depths(topl: np.ndarray, subi: np.ndarray, sub_nodes: int) -> tuple[int, int]:
+    """(top_depth, sub_depth) of the streaming tables.  The top walk pushes
+    top nodes and block entries, one level below the deepest top node, so
+    its stack holds at most 7*top_depth+1 entries; a block walk's stack at
+    most 7*sub_depth+1 (sub_depth: the deepest block-local node)."""
+    top = _tree_depth(topl.reshape(1, -1, 8))
+    sub = _tree_depth(subi.reshape(-1, sub_nodes, 3, 8)[:, :, 0, :])
+    return int(top.max()) + 1, int(sub.max())
+
+
 def _placeholder_tables() -> dict[str, np.ndarray]:
     """The JAX package's one-row tables for the slices the port lacks:
-    streaming split (flatscene.py:383-391), textures (:225-231) and the
-    environment CDF (:269-276)."""
+    textures (flatscene.py:225-231) and the environment CDF (:269-276)."""
     return {
-        "str_topf": np.zeros(48, np.float32),
-        "str_topl": np.full(8, -1, np.int32),
-        "str_topp": np.zeros(8, np.int32),
-        "str_subf": np.zeros(STREAM_SUB_NODES * 48, np.float32),
-        "str_subi": np.zeros(STREAM_SUB_NODES * 24, np.int32),
-        "str_subp": np.zeros(STREAM_SUB_NODES * 8, np.int32),
-        "str_subt": np.zeros(STREAM_SUB_TRIS * 9, np.float32),
-        "str_base": np.zeros(1, np.int32),
         "atlas": np.zeros((3, 1), np.float32),
         "atlas_u32": np.zeros((1,), np.uint32),
         "tex_table": np.zeros((1, 4), np.int32),
@@ -369,15 +470,10 @@ def build_flat_scene(
         bvh_i32[:, 2] = bvh.hit
         bvh_i32[:, 3] = bvh.miss
     wide_k = max(WIDE_LEAF_K, max_prim)
-    bvh_wf, bvh_wi, bvh_wp, wide_depth, wide_nodes, tri_root_box, _ = (
+    bvh_wf, bvh_wi, bvh_wp, wide_depth, wide_nodes, tri_root_box, wide = (
         build_wide_tables(bvh, leaf_k=wide_k)
     )
     num_tris = int(bvh.order.shape[0])
-    if num_tris and not resident_tables_fit(wide_nodes, num_tris):
-        raise NotImplementedError(
-            f"a mesh of {num_tris} triangles is past the resident budget; the "
-            "streaming kernels K3/K4 come with ROADMAP Queue 1 item 13"
-        )
     # EDGE-FORM rows [v0, e1=v1-v0, e2=v2-v0, pad] for the traversal kernels
     tri_pk = np.zeros((tri_data.shape[0], 12), np.float32)
     tri_pk[:, 0:3] = tri_data[:, 0:3]
@@ -387,6 +483,20 @@ def build_flat_scene(
     tri_pk[:, 6:9] = (
         tri_data[:, 6:9].astype(np.float32) - tri_data[:, 0:3].astype(np.float32)
     )
+    # streaming split for meshes past the resident budget (K3/K4)
+    (str_topf, str_topl, str_topp, str_subf, str_subi, str_subp, str_subt,
+     str_base, stream_top, stream_subs, stream_sub_nodes, stream_sub_tris
+     ) = build_stream_tables(bvh, tri_pk, wide_nodes, leaf_k=wide_k, wide=wide)
+    top_depth = sub_depth = 0
+    if num_tris and not resident_tables_fit(wide_nodes, num_tris):
+        if stream_subs == 0:
+            # the JAX package falls back to its XLA walk here, which the
+            # port does not have
+            raise NotImplementedError(
+                f"a mesh of {num_tris} triangles fits neither the resident "
+                "tables nor the streaming split"
+            )
+        top_depth, sub_depth = stream_depths(str_topl, str_subi, stream_sub_nodes)
 
     placeholders = _placeholder_tables()
     arrays = dict(
@@ -394,6 +504,9 @@ def build_flat_scene(
         geom_inv=inv, geom_invt=invt, tri_data=tri_data, tri_geom=tri_geom,
         bvh_f32=bvh_f32, bvh_i32=bvh_i32, bvh_wf=bvh_wf, bvh_wi=bvh_wi,
         bvh_wp=bvh_wp, tri_pk=tri_pk,
+        str_topf=str_topf, str_topl=str_topl, str_topp=str_topp,
+        str_subf=str_subf, str_subi=str_subi, str_subp=str_subp,
+        str_subt=str_subt, str_base=str_base,
         mat_f32=mat_f32.T.copy(), mat_i32=mat_i32.T.copy(),
         light_geom=light_geom, light_tri=light_tri, light_type=light_type,
         **placeholders,
@@ -421,10 +534,10 @@ def build_flat_scene(
             for li in range(len(lg))
             if lt[li] < 0
         ),
-        stream_top=0,
-        stream_subs=0,
-        stream_sub_nodes=0,
-        stream_sub_tris=0,
+        stream_top=stream_top,
+        stream_subs=stream_subs,
+        stream_sub_nodes=stream_sub_nodes,
+        stream_sub_tris=stream_sub_tris,
         wide_depth=wide_depth,
         wide_nodes=wide_nodes,
         wide_leaf_k=wide_k,
@@ -447,5 +560,7 @@ def build_flat_scene(
         trace_depth=scene.trace_depth,
         iterations=scene.iterations,
         image_name=scene.image_name,
+        stream_top_depth=top_depth,
+        stream_sub_depth=sub_depth,
     )
     return flat_from_arrays(arrays, device), static

@@ -9,9 +9,10 @@ import torch
 
 import pathtracer_tpu_torch.scene.flatscene as tfs
 from pathtracer_tpu.scene.flatscene import build_flat_scene as jax_build
-from pathtracer_tpu.scene.parser import load_scene
-from pathtracer_tpu.utils.image_io import write_hdr, write_png
+from pathtracer_tpu.scene.parser import load_scene as jax_load
 from pathtracer_tpu_torch.ops.traverse_cuda import STACK
+from pathtracer_tpu_torch.scene.parser import load_scene
+from pathtracer_tpu_torch.utils.image_io import write_hdr, write_png
 from tests.test_integrator import write_scene
 from tests.test_traverse import tri_soup_scene
 
@@ -31,8 +32,12 @@ def _jax_arrays(flat):
     return {k: np.asarray(v) for k, v in flat._asdict().items()}
 
 
+# SceneStatic fields that only the port has (the streaming walk's depths)
+PORT_STATIC = {"stream_top_depth", "stream_sub_depth"}
+
+
 def test_tables_equal(scene_path):
-    jflat, jstatic = jax_build(load_scene(scene_path))
+    jflat, jstatic = jax_build(jax_load(scene_path))
     tflat, tstatic = tfs.build_flat_scene(load_scene(scene_path), device="cpu")
     want = _jax_arrays(jflat)
     assert set(want) == {f.name for f in dataclasses.fields(tfs.FlatScene)}
@@ -40,11 +45,14 @@ def test_tables_equal(scene_path):
         b = getattr(tflat, name).numpy()
         assert b.dtype == a.dtype and b.shape == a.shape, name
         assert np.array_equal(a, b, equal_nan=True), name
-    assert dataclasses.asdict(tstatic) == dataclasses.asdict(jstatic)
+    got = dataclasses.asdict(tstatic)
+    assert set(got) - set(dataclasses.asdict(jstatic)) == PORT_STATIC
+    assert {k: v for k, v in got.items() if k not in PORT_STATIC} == dataclasses.asdict(jstatic)
+    assert tstatic.stream_top_depth == tstatic.stream_sub_depth == 0  # resident scenes
 
 
 def test_flat_from_arrays_round_trip(tmp_path):
-    jflat, _ = jax_build(load_scene(_soup(tmp_path)))
+    jflat, _ = jax_build(jax_load(_soup(tmp_path)))
     arrays = _jax_arrays(jflat)
     flat = tfs.flat_from_arrays(arrays, "cpu")
     for name, a in arrays.items():
@@ -125,6 +133,12 @@ def test_env_scene_not_ported(tmp_path):
 
 
 def test_mesh_past_resident_budget_not_ported(tmp_path, monkeypatch):
+    """Past the resident budget a mesh takes the streaming tables; only a
+    mesh that fits neither them nor the stream split is refused (the JAX
+    package's XLA-walk fallback is not ported)."""
     monkeypatch.setattr(tfs, "RESIDENT_SMEM_BUDGET", 0)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    _, static = tfs.build_flat_scene(load_scene(_soup(tmp_path)))
+    assert static.stream_subs > 0 and static.stream_top > 0
+    monkeypatch.setattr(tfs, "STREAM_SMEM_BUDGET", 0)
+    with pytest.raises(NotImplementedError, match="fits neither"):
         tfs.build_flat_scene(load_scene(_soup(tmp_path)))

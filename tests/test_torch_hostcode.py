@@ -1,0 +1,201 @@
+"""The port's own copies of the JAX package's numpy-only host modules (config,
+image I/O, OBJ loader, scene parser, camera, BVH build and its native
+builder) against the originals, on the CPU: identical inputs must give equal
+results, arrays element for element and files byte for byte."""
+
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from pathtracer_tpu.accel import bvh as jbvh
+from pathtracer_tpu.scene import camera as jcam
+from pathtracer_tpu.scene import obj_loader as jobj
+from pathtracer_tpu.scene import parser as jparser
+from pathtracer_tpu.utils import config as jconfig
+from pathtracer_tpu.utils import image_io as jio
+from pathtracer_tpu_torch.accel import bvh as tbvh
+from pathtracer_tpu_torch.accel import native as tnative
+from pathtracer_tpu_torch.scene import camera as tcam
+from pathtracer_tpu_torch.scene import obj_loader as tobj
+from pathtracer_tpu_torch.scene import parser as tparser
+from pathtracer_tpu_torch.utils import config as tconfig
+from pathtracer_tpu_torch.utils import image_io as tio
+from tests.test_integrator import write_scene
+from tests.test_torch_render import small_torus_scene
+from tests.test_traverse import tri_soup_scene
+from tools.make_torus_obj import ensure_torus_obj
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def assert_same(a, b, where="value"):
+    """Deep equality across the two packages: dataclasses field by field,
+    containers item by item, arrays with np.array_equal (dtype included)."""
+    if dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__, where
+        names = [f.name for f in dataclasses.fields(a)]
+        assert names == [f.name for f in dataclasses.fields(b)], where
+        for n in names:
+            assert_same(getattr(a, n), getattr(b, n), f"{where}.{n}")
+    elif isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray) and a.dtype == b.dtype, where
+        assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), where
+    elif isinstance(a, dict):
+        assert list(a) == list(b), where
+        for k in a:
+            assert_same(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{where}[{i}]")
+    else:
+        assert a == b, where
+
+
+def textured_scene(tmp_path) -> Path:
+    jio.write_png(tmp_path / "tex.png", np.linspace(0, 1, 48, dtype=np.float32).reshape(4, 4, 3))
+    return write_scene(tmp_path, f"""
+        MATERIAL tex
+        TYPE\tLambertian
+        ALBEDO      {tmp_path / 'tex.png'}
+        METALLIC    0
+        ROUGHNESS   0
+        IOR         0
+
+        CAMERA
+        RES         8 6
+        FOVY        45
+        ITERATIONS  1
+        DEPTH       2
+        FILE        tex
+        EYE         0 0 5
+        LOOKAT      0 0 0
+        UP          0 1 0
+
+        OBJECT ball
+        sphere
+        material tex
+        TRANS       0 0 0
+        ROTAT       0 30 0
+        SCALE       1 2 1
+        """)
+
+
+@pytest.fixture(params=["glasstorus", "torus576", "textured"])
+def scene_path(request, tmp_path):
+    if request.param == "glasstorus":
+        return ROOT / "scenes" / "glasstorus.txt"
+    if request.param == "torus576":
+        return small_torus_scene(tmp_path)
+    return textured_scene(tmp_path)
+
+
+def test_parsers_agree(scene_path):
+    assert_same(tparser.load_scene(scene_path), jparser.load_scene(scene_path), "scene")
+
+
+def test_obj_loader_agrees(tmp_path):
+    scene = small_torus_scene(tmp_path)
+    obj = next(scene.parent.glob("*.obj"))
+    assert_same(tobj.load_obj(obj), jobj.load_obj(obj), "mesh")
+
+
+def test_camera_agrees(scene_path):
+    desc = jparser.load_scene(scene_path).camera
+    got = tcam.derive_camera(tparser.load_scene(scene_path).camera)
+    want = jcam.derive_camera(desc)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for a, b in zip(got.as_arrays(), want.as_arrays()):
+        assert_same(a, b, "camera array")
+    orbit = dict(theta=20.0, phi=-75.0, position=(1.0, 2.0, 3.0))
+    assert dataclasses.asdict(tcam.derive_camera(desc, **orbit)) == dataclasses.asdict(
+        jcam.derive_camera(desc, **orbit))
+
+
+def _soup_tris(tmp_path, n=300, seed=5):
+    scene = jparser.load_scene(tri_soup_scene(tmp_path, n=n, seed=seed))
+    return next(iter(scene.meshes.values()))["positions"].astype(np.float32)
+
+
+@pytest.mark.parametrize("use_sah,mtbvh", [(True, True), (True, False), (False, True)])
+def test_bvh_and_wide_agree(tmp_path, use_sah, mtbvh):
+    tris = _soup_tris(tmp_path)
+    got = tbvh.build_bvh(tris, use_sah=use_sah, mtbvh=mtbvh)
+    want = jbvh.build_bvh(tris, use_sah=use_sah, mtbvh=mtbvh)
+    assert_same(got, want, "bvh")
+    assert_same(tbvh.collapse_wide(got, 8), jbvh.collapse_wide(want, 8), "wide")
+
+
+def test_native_builder_builds_outside_the_source_tree(tmp_path):
+    pkg = ROOT / "pathtracer_tpu_torch"
+    assert tnative._LIB.parent == pkg / "_build"
+    tris = _soup_tris(tmp_path, n=120, seed=2)
+    native = tbvh.build_bvh(tris, use_native=True)
+    assert_same(native, jbvh.build_bvh(tris, use_native=True), "bvh")
+    if tnative.available():
+        assert tnative._LIB.exists()
+    assert not list((pkg / "accel" / "native").glob("*.so"))
+
+
+@pytest.mark.parametrize("sub_nodes,sub_tris", [(8, 48), (16, 64), (512, 4096)])
+def test_partition_stream_agrees(tmp_path, sub_nodes, sub_tris):
+    tris = _soup_tris(tmp_path)
+    w = tbvh.collapse_wide(tbvh.build_bvh(tris), 8)
+    got = tbvh.partition_stream(w, sub_nodes, sub_tris)
+    want = jbvh.partition_stream(jbvh.collapse_wide(jbvh.build_bvh(tris), 8), sub_nodes, sub_tris)
+    assert_same(got, want, "stream")
+    assert tbvh.validate_stream_bvh(got, w, tris.shape[0]) == []
+    assert tbvh.validate_wide_bvh(w, tris.shape[0]) == []
+
+
+def test_image_io_writes_equal_bytes(tmp_path):
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 4, size=(7, 9, 3)).astype(np.float32)
+    for fmt, (tw, jw, read) in {
+        "png": (tio.write_png, jio.write_png, tio.read_png),
+        "hdr": (tio.write_hdr, jio.write_hdr, tio.read_hdr),
+    }.items():
+        tw(tmp_path / f"t.{fmt}", img)
+        jw(tmp_path / f"j.{fmt}", img)
+        assert (tmp_path / f"t.{fmt}").read_bytes() == (tmp_path / f"j.{fmt}").read_bytes(), fmt
+        assert read(tmp_path / f"t.{fmt}").shape[:2] == (7, 9)
+    assert_same(tio.load_image(tmp_path / "t.png"), jio.load_image(tmp_path / "j.png"), "png")
+    assert_same(tio.load_image(tmp_path / "t.hdr"), jio.load_image(tmp_path / "j.hdr"), "hdr")
+
+
+def test_render_options_defaults_equal():
+    got, want = tconfig.RenderOptions(), jconfig.RenderOptions()
+    names = [f.name for f in dataclasses.fields(got)]
+    assert names == [f.name for f in dataclasses.fields(want)]
+    for n in names:
+        a, b = getattr(got, n), getattr(want, n)
+        if isinstance(b, jconfig.SampleMode):
+            assert isinstance(a, tconfig.SampleMode) and (a.name, a.value) == (b.name, b.value)
+        else:
+            assert a == b, n
+    assert [(m.name, m.value) for m in tconfig.SampleMode] == [
+        (m.name, m.value) for m in jconfig.SampleMode]
+    assert (tconfig.PI, tconfig.TWO_PI, tconfig.INV_PI) == (jconfig.PI, jconfig.TWO_PI, jconfig.INV_PI)
+
+
+def test_missing_obj_error_names_the_file(tmp_path):
+    text = (ROOT / "scenes" / "glasstorus.txt").read_text()
+    scene = tmp_path / "s.txt"
+    scene.write_text(text.replace("assets/torus10k.obj", "assets/nowhere.obj"))
+    with pytest.raises(FileNotFoundError, match="nowhere.obj"):
+        tparser.load_scene(scene)
+
+
+def test_ensure_torus_obj(tmp_path):
+    path = tmp_path / "assets" / "t.obj"
+    assert ensure_torus_obj(path, 8, 4) == path
+    first = path.read_bytes()
+    assert first.count(b"\nf ") == 64
+    path.write_bytes(first + b"# kept\n")
+    ensure_torus_obj(path, 8, 4)  # an existing file is left alone
+    assert path.read_bytes().endswith(b"# kept\n")
+    assert not list(path.parent.glob("*.tmp"))
+    big = (ROOT / "scenes" / "glasstorus160k.txt").read_text()
+    assert "assets/torus160k.obj" in big and "--major 400 --minor 200" in big

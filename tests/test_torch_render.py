@@ -19,8 +19,9 @@ import pytest
 import torch
 
 from pathtracer_tpu.integrator.render import Renderer as JaxRenderer
-from pathtracer_tpu.utils.config import RenderOptions, SampleMode
+from pathtracer_tpu.utils import config as jax_config
 from pathtracer_tpu_torch.integrator.render import Renderer
+from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 from tools.make_torus_obj import write_torus_obj
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -41,13 +42,17 @@ def scene(tmp_path_factory):
     return small_torus_scene(tmp_path_factory.mktemp("slice"))
 
 
-@pytest.mark.parametrize("mode", [SampleMode.BSDF, SampleMode.DIRECT_LI, SampleMode.MIS])
-def test_slice_matches_jax(scene, mode):
-    opts = RenderOptions(sample_mode=mode)
-    ref = JaxRenderer(scene, opts=opts, resolution=(64, 64), trace_depth=4)
+def render_and_compare(scene, mode) -> Renderer:
+    """Render `scene` with the JAX Renderer (XLA walk) and the port's on the
+    CPU, each with its own package's options, 64x64, depth 4, 2 spp, seed
+    0, and hold the port to the JAX image; returns the port's renderer."""
+    jax_mode = jax_config.SampleMode[mode.name]
+    ref = JaxRenderer(scene, opts=jax_config.RenderOptions(sample_mode=jax_mode),
+                      resolution=(64, 64), trace_depth=4)
     ref.set_seed(0)
     ref_stats = ref.step(2)
-    port = Renderer(scene, opts=opts, resolution=(64, 64), trace_depth=4, device="cpu")
+    port = Renderer(scene, opts=RenderOptions(sample_mode=mode), resolution=(64, 64),
+                    trace_depth=4, device="cpu")
     port.set_seed(0)
     stats = port.step(2)
 
@@ -63,6 +68,13 @@ def test_slice_matches_jax(scene, mode):
     else:
         assert abs(stats.rays_traced - ref_stats.rays_traced) <= 1e-3 * ref_stats.rays_traced
     np.testing.assert_allclose(port.ldr_image(), ref.ldr_image(), atol=1e-3)
+    return port
+
+
+@pytest.mark.parametrize("mode", [SampleMode.BSDF, SampleMode.DIRECT_LI, SampleMode.MIS])
+def test_slice_matches_jax(scene, mode):
+    port = render_and_compare(scene, mode)
+    assert port.static.stream_subs == 0  # the resident kernels' path
 
 
 def test_save_png_and_hdr(scene, tmp_path):
@@ -76,9 +88,14 @@ def test_save_png_and_hdr(scene, tmp_path):
 
 PORT_MODULES = [
     "pathtracer_tpu_torch",
+    "pathtracer_tpu_torch.accel",
+    "pathtracer_tpu_torch.accel.bvh",
+    "pathtracer_tpu_torch.accel.native",
     "pathtracer_tpu_torch.cli",
+    "pathtracer_tpu_torch.integrator",
     "pathtracer_tpu_torch.integrator.render",
     "pathtracer_tpu_torch.integrator.wavefront",
+    "pathtracer_tpu_torch.ops",
     "pathtracer_tpu_torch.ops._build",
     "pathtracer_tpu_torch.ops.intersect",
     "pathtracer_tpu_torch.ops.lights",
@@ -86,17 +103,37 @@ PORT_MODULES = [
     "pathtracer_tpu_torch.ops.math",
     "pathtracer_tpu_torch.ops.traverse",
     "pathtracer_tpu_torch.ops.traverse_cuda",
+    "pathtracer_tpu_torch.ops.traverse_stream_cuda",
+    "pathtracer_tpu_torch.scene",
+    "pathtracer_tpu_torch.scene.camera",
     "pathtracer_tpu_torch.scene.flatscene",
+    "pathtracer_tpu_torch.scene.obj_loader",
+    "pathtracer_tpu_torch.scene.parser",
+    "pathtracer_tpu_torch.utils",
+    "pathtracer_tpu_torch.utils.config",
+    "pathtracer_tpu_torch.utils.image_io",
     "pathtracer_tpu_torch.utils.rng",
+    "chip_smoke",
 ]
 
 
 def test_port_imports_without_jax():
+    """Every port module, and chip_smoke, imports with both JAX and the JAX
+    package blocked; the list covers every module file of the port."""
+    pkg = ROOT / "pathtracer_tpu_torch"
+    files = {
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in pkg.rglob("*.py")
+    }
+    assert files <= set(PORT_MODULES)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['pathtracer_tpu'] = None\n"
         f"for name in {PORT_MODULES!r}:\n"
         "    importlib.import_module(name)\n"
+        "assert not any(m == 'pathtracer_tpu' or m.startswith(('jax.', 'pathtracer_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)

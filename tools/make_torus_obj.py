@@ -7,6 +7,12 @@ triangle mesh committed as `scenes/assets/torus10k.obj`, which
 
     python tools/make_torus_obj.py -o scenes/assets/torus10k.obj
 
+`scenes/glasstorus160k.txt` renders the 400 x 200 torus (160,000
+triangles, about 11 MB), which is not committed; `ensure_torus_obj` writes
+it at first use, or by hand:
+
+    python tools/make_torus_obj.py -o scenes/assets/torus160k.obj --major 400 --minor 200
+
 The tube radius carries a ripple `0.05 * sin(6 phi) * cos(4 theta)` (phi
 around the ring, theta around the tube), so the shape is not convex and
 rays meet it more than twice.
@@ -15,6 +21,7 @@ rays meet it more than twice.
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
 
 import numpy as np
@@ -71,6 +78,19 @@ def write_torus_obj(path, major_seg: int = 100, minor_seg: int = 50) -> int:
     lines += [f"f {a}//{a} {b}//{b} {c}//{c}" for a, b, c in faces + 1]
     Path(path).write_text("\n".join(lines) + "\n")
     return len(faces)
+
+
+def ensure_torus_obj(path, major_seg: int, minor_seg: int) -> Path:
+    """Write the torus OBJ to `path` unless it is there already; returns
+    the path.  The file appears whole or not at all (written aside, then
+    renamed), so concurrent callers never read a partial mesh."""
+    path = Path(path)
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        write_torus_obj(tmp, major_seg, minor_seg)
+        os.replace(tmp, path)
+    return path
 
 
 def main(argv=None) -> int:
