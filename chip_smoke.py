@@ -17,13 +17,25 @@ line):
    past the resident budget) at 800x800, on the same kinds of rays: K3
    (closest hit) and K4 (shadow any-hit) against their plain versions, and
    against K1/K2 on the same mesh's wide tables (t bitwise equal, occlusion
-   equal: a lost or doubled triangle of the split would show); median times;
-5. main paths, as a user calls them: Renderer(scene, MIS, device="cuda") at
-   800x800, depth 8, 8 spp, for glasstorus (must launch K1 and K2) and for
-   glasstorus160k (must launch K3 and K4, and neither K1 nor K2); launch
-   counts are zeroed just before each path and read just after;
-6. card against CPU: each scene at 64x64, depth 8, 2 spp, MIS, rendered on
-   "cuda" and on "cpu", held to the CPU slice test's image tolerance.
+   equal: a lost or doubled triangle of the split would show); K5
+   (block-major closest hit) against its plain version and against K3 (t
+   bitwise equal, exact-t tie lanes counted); median times of K1, K3, K5;
+5. the same K5-against-K3 check on scenes/glasstorus640k.txt (640,000
+   triangles, stream tables past the L2), the table bytes, and median times
+   of K1, K3, K5, K2 and K4 there;
+6. main paths, as a user calls them: Renderer(scene, MIS, device="cuda") at
+   800x800, depth 8, 8 spp, for glasstorus (must launch K1 and K2), for
+   glasstorus160k (must launch K3 and K4, and neither K1 nor K2), and for
+   glasstorus640k twice, with STREAM_BLOCKMAJOR off (K3 and K4 only) and on
+   (K5 and K4 only), the two images held to the slice tolerance; launch
+   counts are zeroed just before each path and read just after; each
+   scene's tables are built once and serve its kernel checks too;
+7. card against CPU: glasstorus and glasstorus160k (the latter with the flag
+   off and on) at 64x64, depth 8, 2 spp, MIS, rendered on "cuda" and on
+   "cpu", held to the CPU slice test's image tolerance;
+8. the probes P1 and P2 against their plain versions (every P2 variant at a
+   small pop count, from the probe's accumulator start and from a small
+   one), and their ns per lap at the TPU probes' sizes.
 
 The line before the last is a JSON object with one entry per kernel (times,
 errors, launches, and the least time the card could take for the same work);
@@ -32,6 +44,7 @@ the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -39,13 +52,22 @@ import sys
 import time
 from pathlib import Path
 
+from tools.cuda_timing import median_ms
+
 ROOT = Path(__file__).resolve().parent
 SCENE = ROOT / "scenes" / "glasstorus.txt"
 SCENE_160K = ROOT / "scenes" / "glasstorus160k.txt"
+SCENE_640K = ROOT / "scenes" / "glasstorus640k.txt"
 TORUS_160K = (ROOT / "scenes" / "assets" / "torus160k.obj", 400, 200)
+TORUS_640K = (ROOT / "scenes" / "assets" / "torus640k.obj", 800, 400)
 RES, DEPTH, SPP = 800, 8, 8
+DEVICE = "cuda"
 IMG_RTOL, IMG_ATOL, IMG_MIN_FRAC = 1e-4, 1e-5, 0.999  # tests/test_torch_render.py
 KERNEL_RTOL = 1e-5
+PROBE_RTOL = 1e-6  # the probes repeat their plain versions' operations in order
+# P2: pops per parity check, and per timed call of the kernels line (the
+# plain version takes one Python step per pop, so not the probe's 20,000)
+P2_CHECK_F, P2_ROW_F, P2_ROW = 64, 500, "push_branchless"
 # The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): float32 outside the
 # tensor cores, and device memory.
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -57,28 +79,11 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 BOX_OPS, TRI_OPS = 25, 55
 SRC_RESIDENT = "pathtracer_tpu_torch/csrc/wbvh_traverse.cu"
 SRC_STREAM = "pathtracer_tpu_torch/csrc/stream_traverse.cu"
+SRC_PROBES = "pathtracer_tpu_torch/csrc/probes.cu"
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, runs: int = 5) -> float:
-    """Median milliseconds of fn() over `runs` runs, timed with CUDA events
-    after one warm-up."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def nbytes(*tensors) -> int:
@@ -130,21 +135,33 @@ def _max_err(a, b):
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def ray_cases(scene_path):
-    """The main path's rays on `scene_path` at RES x RES: camera rays and one
-    bounce's continuation rays (with dead-lane and t-cap variants) for the
-    closest-hit kernels, NEE shadow rays toward the lamp (plain, and with
-    occluded0 every 7th lane and 25% of lanes at -FLT_MAX) for the any-hit
-    kernels."""
-    import torch
-
+def build_renderer(scene_path):
+    """The main path's Renderer for `scene_path` (MIS, RES x RES, DEPTH, on
+    the card), with the host's parse and table seconds."""
     from pathtracer_tpu_torch.integrator.render import Renderer
-    from pathtracer_tpu_torch.integrator.wavefront import _Pool, bounce, camera_rays
-    from pathtracer_tpu_torch.ops import traverse as tv
+    from pathtracer_tpu_torch.scene.parser import load_scene
     from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 
-    r = Renderer(scene_path, RenderOptions(sample_mode=SampleMode.MIS),
-                 resolution=(RES, RES), trace_depth=DEPTH, device="cuda")
+    t0 = time.perf_counter()
+    scene = load_scene(scene_path)
+    t1 = time.perf_counter()
+    r = Renderer(scene, RenderOptions(sample_mode=SampleMode.MIS),
+                 resolution=(RES, RES), trace_depth=DEPTH, device=DEVICE)
+    return r, t1 - t0, time.perf_counter() - t1
+
+
+def ray_cases(r):
+    """The main path's rays for renderer `r` at RES x RES: camera rays and
+    one bounce's continuation rays (with dead-lane and t-cap variants) for
+    the closest-hit kernels, NEE shadow rays toward the lamp (plain, and
+    with occluded0 every 7th lane and 25% of lanes at -FLT_MAX) for the
+    any-hit kernels."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator.wavefront import _Pool, bounce, camera_rays
+    from pathtracer_tpu_torch.ops import traverse as tv
+    from pathtracer_tpu_torch.utils.config import SampleMode
+
     flat, static = r.flat, r.static
     o, d = camera_rays(r._cam_arrays(), RES, RES, r.key, 1, pixel_xy=r.pixel_xy)
     n = o.shape[0]
@@ -157,8 +174,8 @@ def ray_cases(scene_path):
     o2, d2 = pool.o, pool.d
     t_geo2, *_ = tv._geoms_closest(flat, static, o2, d2)
     t_cont = tv._root_box_cull(static, o2, d2, torch.where(pool.alive, t_geo2, tv.DEAD_T))
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    dead = torch.rand(n, device="cuda", generator=gen) < 0.25
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    dead = torch.rand(n, device=DEVICE, generator=gen) < 0.25
     closest = {
         "camera": (o, d, t_cam),
         "continuation": (o2, d2, t_cont),
@@ -171,13 +188,13 @@ def ray_cases(scene_path):
     min_t = torch.sqrt((to_l * to_l).sum(1))
     sd = to_l / min_t[:, None]
     so = hit0.point + 1e-5 * sd
-    occ0 = torch.arange(n, device="cuda") % 7 == 0
+    occ0 = torch.arange(n, device=DEVICE) % 7 == 0
     shadow = {
         "NEE": (so, sd, min_t, torch.zeros_like(occ0)),
         "NEE, occluded0 every 7th, 25% -FLT_MAX": (so, sd, torch.where(dead, tv.DEAD_T, min_t), occ0),
     }
     torch.cuda.synchronize()
-    return r, closest, shadow
+    return closest, shadow
 
 
 def check_closest(label, kname, got, ref, n):
@@ -211,11 +228,69 @@ def check_shadow(label, kname, got, ref, mt, o0, n):
     return float((got != ref).any())  # |a - b| of booleans
 
 
-def phase_resident_kernels():
+def check_k5_k3(label, k5, k3):
+    """K5 against K3 on the same rays: t bitwise equal on every lane; tri,
+    u, v may differ only on exact-t ties (the block of lower index wins in
+    K5, K3's depth-first order may pick another).  Returns the tie lanes."""
+    import torch
+
+    torch.cuda.synchronize()
+    t_same = torch.equal(k5[0], k3[0])
+    ties = int(((k5[1] != k3[1]) | (k5[2] != k3[2]) | (k5[3] != k3[3])).sum())
+    log(f"K5 vs K3 {label}: t bitwise equal: {t_same}, tri/u/v differ on {ties} lanes "
+        f"(each an exact-t tie, as t is equal)")
+    if not t_same:
+        raise AssertionError(f"K5 and K3 disagree on t ({label})")
+    return ties
+
+
+def stream_calls(flat, static):
+    """Closures over the stream tables: K3, K4, K5 and their plain versions,
+    and K1/K2 on the same mesh's wide tables."""
+    from pathtracer_tpu_torch.ops import traverse_cuda as tc
+    from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
+
+    sizes = dict(sub_nodes=static.stream_sub_nodes, sub_tris=static.stream_sub_tris)
+    k3_tables = (flat.str_topf, flat.str_topl, flat.str_topp, flat.str_subf, flat.str_subi,
+                 flat.str_subp, flat.str_subt, flat.str_base)
+    k4_tables = (flat.str_topf, flat.str_topl, flat.str_subf, flat.str_subi, flat.str_subt,
+                 flat.str_base)
+    k5_tables = (flat.str_roots, flat.str_subf, flat.str_subi, flat.str_subp, flat.str_subt,
+                 flat.str_base)
+    k1_tables = (flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)
+    k2_tables = (flat.bvh_wf, flat.bvh_wi, flat.tri_pk)
+    depths = dict(top_depth=static.stream_top_depth, sub_depth=static.stream_sub_depth)
+    wide = dict(wide_depth=static.wide_depth)
+    return dict(
+        tables=dict(K3=k3_tables, K4=k4_tables, K5=k5_tables, K1=k1_tables, K2=k2_tables),
+        K3=lambda ro, rd, t0: ts.closest_hit_stream(*k3_tables, ro, rd, t0, **sizes, **depths),
+        K3_plain=lambda ro, rd, t0, **kw: ts.closest_hit_stream_plain(*k3_tables, ro, rd, t0, **sizes, **kw),
+        K4=lambda so, sd, mt, o0: ts.occlusion_stream(*k4_tables, so, sd, mt, o0, **sizes, **depths),
+        K4_plain=lambda so, sd, mt, o0, **kw: ts.occlusion_stream_plain(*k4_tables, so, sd, mt, o0, **sizes, **kw),
+        K5=lambda ro, rd, t0: ts.closest_hit_blockmajor(
+            *k5_tables, ro, rd, t0, **sizes, sub_depth=static.stream_sub_depth),
+        K5_plain=lambda ro, rd, t0, **kw: ts.closest_hit_blockmajor_plain(*k5_tables, ro, rd, t0, **sizes, **kw),
+        K1=lambda ro, rd, t0: tc.closest_hit_wbvh(*k1_tables, ro, rd, t0, **wide),
+        K2=lambda so, sd, mt, o0: tc.occlusion_wbvh(*k2_tables, so, sd, mt, o0, **wide),
+    )
+
+
+def describe_stream(label, flat, static):
+    log(f"{label}: {static.num_tris} triangles, {static.wide_nodes} wide nodes "
+        f"(depth {static.wide_depth}), {static.stream_top} top nodes, {static.stream_subs} blocks of "
+        f"{static.stream_sub_nodes} nodes / {static.stream_sub_tris} triangles, walk depths "
+        f"top {static.stream_top_depth} block {static.stream_sub_depth}; stream tables "
+        f"{nbytes(flat.str_topf, flat.str_topl, flat.str_topp, flat.str_subf, flat.str_subi, flat.str_subp, flat.str_subt, flat.str_base)} "
+        f"bytes, wide tables {nbytes(flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)} bytes")
+    if static.stream_subs == 0:
+        raise AssertionError(f"{label} did not take the streaming tables")
+
+
+def phase_resident_kernels(r):
     """K1/K2 against their plain versions at the glasstorus main path's shapes."""
     from pathtracer_tpu_torch.ops import traverse_cuda as tc
 
-    r, closest, shadow = ray_cases(SCENE)
+    closest, shadow = ray_cases(r)
     flat, static = r.flat, r.static
     tables = (flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)
     k1 = lambda ro, rd, t0: tc.closest_hit_wbvh(*tables, ro, rd, t0, wide_depth=static.wide_depth)
@@ -233,10 +308,10 @@ def phase_resident_kernels():
     ro, rd, t0 = closest["continuation"]
     so, sd, mt, o0 = shadow["NEE"]
     n = ro.shape[0]
-    k1_ms = cuda_ms(lambda: k1(ro, rd, t0))
-    k1_plain_ms = cuda_ms(lambda: tc.closest_hit_wbvh_plain(*tables, ro, rd, t0))
-    k2_ms = cuda_ms(lambda: k2(so, sd, mt, o0))
-    k2_plain_ms = cuda_ms(lambda: tc.occlusion_wbvh_plain(*k2_tables, so, sd, mt, o0))
+    k1_ms = median_ms(lambda: k1(ro, rd, t0))
+    k1_plain_ms = median_ms(lambda: tc.closest_hit_wbvh_plain(*tables, ro, rd, t0))
+    k2_ms = median_ms(lambda: k2(so, sd, mt, o0))
+    k2_plain_ms = median_ms(lambda: tc.occlusion_wbvh_plain(*k2_tables, so, sd, mt, o0))
     c1, c2 = {"box": 0, "tri": 0}, {"box": 0, "tri": 0}
     tc.closest_hit_wbvh_plain(*tables, ro, rd, t0, counts=c1)
     tc.occlusion_wbvh_plain(*k2_tables, so, sd, mt, o0, counts=c2)
@@ -254,41 +329,24 @@ def phase_resident_kernels():
     }
 
 
-def phase_stream_kernels():
+def phase_stream_kernels(r):
     """K3/K4 against their plain versions, and against K1/K2 on the same
-    mesh, at the glasstorus160k main path's shapes."""
+    mesh; K5 against its plain version and against K3; at the
+    glasstorus160k main path's shapes."""
     import torch
 
-    from pathtracer_tpu_torch.ops import traverse_cuda as tc
-    from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
-
-    r, closest, shadow = ray_cases(SCENE_160K)
+    closest, shadow = ray_cases(r)
     flat, static = r.flat, r.static
-    log(f"glasstorus160k: {static.num_tris} triangles, {static.wide_nodes} wide nodes "
-        f"(depth {static.wide_depth}), {static.stream_top} top nodes, {static.stream_subs} blocks of "
-        f"{static.stream_sub_nodes} nodes / {static.stream_sub_tris} triangles, walk depths "
-        f"top {static.stream_top_depth} block {static.stream_sub_depth}")
-    if static.stream_subs == 0:
-        raise AssertionError("glasstorus160k did not take the streaming tables")
-    sizes = dict(sub_nodes=static.stream_sub_nodes, sub_tris=static.stream_sub_tris)
-    depths = dict(top_depth=static.stream_top_depth, sub_depth=static.stream_sub_depth)
-    k3_tables = (flat.str_topf, flat.str_topl, flat.str_topp, flat.str_subf, flat.str_subi,
-                 flat.str_subp, flat.str_subt, flat.str_base)
-    k4_tables = (flat.str_topf, flat.str_topl, flat.str_subf, flat.str_subi, flat.str_subt,
-                 flat.str_base)
-    k1_tables = (flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)
-    k2_tables = (flat.bvh_wf, flat.bvh_wi, flat.tri_pk)
-    k3 = lambda ro, rd, t0: ts.closest_hit_stream(*k3_tables, ro, rd, t0, **sizes, **depths)
-    k3_plain = lambda ro, rd, t0, **kw: ts.closest_hit_stream_plain(*k3_tables, ro, rd, t0, **sizes, **kw)
-    k4 = lambda so, sd, mt, o0: ts.occlusion_stream(*k4_tables, so, sd, mt, o0, **sizes, **depths)
-    k4_plain = lambda so, sd, mt, o0, **kw: ts.occlusion_stream_plain(*k4_tables, so, sd, mt, o0, **sizes, **kw)
+    describe_stream("glasstorus160k", flat, static)
+    k = stream_calls(flat, static)
 
-    k3_err = 0.0
+    k3_err = k5_err = 0.0
+    c5 = {"box": 0, "tri": 0}
     for label, (ro, rd, t0) in closest.items():
-        got = k3(ro, rd, t0)
-        k3_err = max(k3_err, check_closest(label, "K3", got, k3_plain(ro, rd, t0), ro.shape[0]))
+        got = k["K3"](ro, rd, t0)
+        k3_err = max(k3_err, check_closest(label, "K3", got, k["K3_plain"](ro, rd, t0), ro.shape[0]))
         # the same rays through K1 on the same mesh's wide tables
-        k1 = tc.closest_hit_wbvh(*k1_tables, ro, rd, t0, wide_depth=static.wide_depth)
+        k1 = k["K1"](ro, rd, t0)
         torch.cuda.synchronize()
         t_same = torch.equal(got[0], k1[0])
         tri_diff = int((got[1] != k1[1]).sum())
@@ -296,11 +354,16 @@ def phase_stream_kernels():
             f"(each an exact-t tie, as t is equal)")
         if not t_same:
             raise AssertionError(f"K3 and K1 disagree on t ({label})")
+        k5 = k["K5"](ro, rd, t0)
+        # the continuation rays' plain walk also counts the bound's tests
+        kw = dict(counts=c5) if label == "continuation" else {}
+        k5_err = max(k5_err, check_closest(label, "K5", k5, k["K5_plain"](ro, rd, t0, **kw), ro.shape[0]))
+        check_k5_k3(label, k5, got)
     k4_err = 0.0
     for label, (so, sd, mt, o0) in shadow.items():
-        got = k4(so, sd, mt, o0)
-        k4_err = max(k4_err, check_shadow(label, "K4", got, k4_plain(so, sd, mt, o0), mt, o0, so.shape[0]))
-        k2 = tc.occlusion_wbvh(*k2_tables, so, sd, mt, o0, wide_depth=static.wide_depth)
+        got = k["K4"](so, sd, mt, o0)
+        k4_err = max(k4_err, check_shadow(label, "K4", got, k["K4_plain"](so, sd, mt, o0), mt, o0, so.shape[0]))
+        k2 = k["K2"](so, sd, mt, o0)
         torch.cuda.synchronize()
         same = torch.equal(got, k2)
         log(f"K4 vs K2 {label}: identical: {same}")
@@ -310,96 +373,219 @@ def phase_stream_kernels():
     ro, rd, t0 = closest["continuation"]
     so, sd, mt, o0 = shadow["NEE"]
     n = ro.shape[0]
-    k3_ms = cuda_ms(lambda: k3(ro, rd, t0))
-    k3_plain_ms = cuda_ms(lambda: k3_plain(ro, rd, t0))
-    k4_ms = cuda_ms(lambda: k4(so, sd, mt, o0))
-    k4_plain_ms = cuda_ms(lambda: k4_plain(so, sd, mt, o0))
-    k1_ms = cuda_ms(lambda: tc.closest_hit_wbvh(*k1_tables, ro, rd, t0, wide_depth=static.wide_depth))
-    k2_ms = cuda_ms(lambda: tc.occlusion_wbvh(*k2_tables, so, sd, mt, o0, wide_depth=static.wide_depth))
+    k3_ms = median_ms(lambda: k["K3"](ro, rd, t0))
+    k3_plain_ms = median_ms(lambda: k["K3_plain"](ro, rd, t0))
+    k4_ms = median_ms(lambda: k["K4"](so, sd, mt, o0))
+    k4_plain_ms = median_ms(lambda: k["K4_plain"](so, sd, mt, o0))
+    k5_ms = median_ms(lambda: k["K5"](ro, rd, t0))
+    # the plain K5 walks block after block (seconds a call): one timed run,
+    # warm from the checks above
+    k5_plain_ms = median_ms(lambda: k["K5_plain"](ro, rd, t0), runs=1, warmup=False)
+    k1_ms = median_ms(lambda: k["K1"](ro, rd, t0))
+    k2_ms = median_ms(lambda: k["K2"](so, sd, mt, o0))
     c3, c4 = {"box": 0, "tri": 0}, {"box": 0, "tri": 0}
-    k3_plain(ro, rd, t0, counts=c3)
-    k4_plain(so, sd, mt, o0, counts=c4)
-    b3 = bound(nbytes(*k3_tables, ro, rd, t0) + 16 * n, c3)
-    b4 = bound(nbytes(*k4_tables, so, sd, mt, o0) + n, c4)
+    k["K3_plain"](ro, rd, t0, counts=c3)
+    k["K4_plain"](so, sd, mt, o0, counts=c4)
+    tables = k["tables"]
+    b3 = bound(nbytes(*tables["K3"], ro, rd, t0) + 16 * n, c3)
+    b4 = bound(nbytes(*tables["K4"], so, sd, mt, o0) + n, c4)
+    # K5 computes K3's function, the closest hit: its bound is K5's bytes and
+    # the tests K3's walk needs on these rays.  K5's own walk (c5: a root test
+    # per live lane and block, blocks K3's upper boxes reject, caps that
+    # shrink later) is the cost of its schedule, printed beside the bound.
+    b5 = bound(nbytes(*tables["K5"], ro, rd, t0) + 16 * n, c3)
+    live = int((t0 >= 0).sum())
+    roots = live * static.stream_subs
     log(f"K3 time at {n} continuation rays of glasstorus160k: kernel {k3_ms:.4f} ms, plain "
         f"{k3_plain_ms:.4f} ms (median of 5); walk {c3['box']} box + {c3['tri']} triangle tests, "
         f"bound {b3[0]:.4f} ms ({b3[1]}); K1 on the same rays and mesh {k1_ms:.4f} ms")
     log(f"K4 time at {n} NEE shadow rays of glasstorus160k: kernel {k4_ms:.4f} ms, plain "
         f"{k4_plain_ms:.4f} ms (median of 5); walk {c4['box']} box + {c4['tri']} triangle tests, "
         f"bound {b4[0]:.4f} ms ({b4[1]}); K2 on the same rays and mesh {k2_ms:.4f} ms")
+    log(f"K5 time at {n} continuation rays of glasstorus160k: kernel {k5_ms:.4f} ms (median of 5), "
+        f"plain {k5_plain_ms:.4f} ms (one run); bound {b5[0]:.4f} ms ({b5[1]}; K5's bytes, K3's "
+        f"walk); K5's own walk, the cost of its schedule: {c5['box']} box tests ({roots} root "
+        f"tests: {live} live lanes x {static.stream_subs} blocks) + {c5['tri']} triangle tests, "
+        f"against K3's {c3['box']} + {c3['tri']}; K5/K3 {k5_ms / k3_ms:.3f}, "
+        f"K5/K1 {k5_ms / k1_ms:.3f}, K3/K1 {k3_ms / k1_ms:.3f}")
     return {
         "K3": ("closest_hit_stream", SRC_STREAM, "pathtracer_tpu/ops/traverse_pallas.py:871",
                k3_err, k3_ms, k3_plain_ms, b3),
         "K4": ("occlusion_stream", SRC_STREAM, "pathtracer_tpu/ops/traverse_pallas.py:1448",
                k4_err, k4_ms, k4_plain_ms, b4),
+        "K5": ("closest_hit_blockmajor", SRC_STREAM, "pathtracer_tpu/ops/traverse_pallas.py:1120",
+               k5_err, k5_ms, k5_plain_ms, b5),
     }
 
 
+def phase_640k_kernels(r):
+    """K5 against K3 on glasstorus640k's rays (its stream tables are past
+    the 50 MB L2), and the times of K5, K3, K1, K4 and K2 there."""
+    closest, shadow = ray_cases(r)
+    flat, static = r.flat, r.static
+    describe_stream("glasstorus640k", flat, static)
+    k = stream_calls(flat, static)
+    for label, (ro, rd, t0) in closest.items():
+        check_k5_k3(label, k["K5"](ro, rd, t0), k["K3"](ro, rd, t0))
+    ro, rd, t0 = closest["continuation"]
+    so, sd, mt, o0 = shadow["NEE"]
+    ms = {name: median_ms(lambda name=name: k[name](ro, rd, t0)) for name in ("K5", "K3", "K1")}
+    ms.update({name: median_ms(lambda name=name: k[name](so, sd, mt, o0)) for name in ("K4", "K2")})
+    log(f"glasstorus640k times at {ro.shape[0]} rays (median of 5; K5/K3/K1 continuation, "
+        f"K4/K2 NEE shadow): " + ", ".join(f"{name} {v:.4f} ms" for name, v in ms.items())
+        + f"; K5/K3 {ms['K5'] / ms['K3']:.3f}, K3/K1 {ms['K3'] / ms['K1']:.3f}, "
+        f"K4/K2 {ms['K4'] / ms['K2']:.3f}")
+
+
+def reset_launch_counts() -> None:
+    from pathtracer_tpu_torch.ops import probes
+    from pathtracer_tpu_torch.ops import traverse_cuda as tc
+    from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
+
+    tc.reset_launch_counts()
+    ts.reset_launch_counts()
+    probes.reset_launch_counts()
+
+
 def launch_counts() -> dict:
+    from pathtracer_tpu_torch.ops import probes
     from pathtracer_tpu_torch.ops import traverse_cuda as tc
     from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
 
     return {"K1": tc.closest_launches, "K2": tc.occlusion_launches,
-            "K3": ts.closest_launches, "K4": ts.occlusion_launches}
+            "K3": ts.closest_launches, "K4": ts.occlusion_launches,
+            "K5": ts.blockmajor_launches, "P1": probes.rowprim_launches,
+            "P2": probes.pop_launches}
 
 
-def phase_main_path(scene_path, used: tuple, unused: tuple) -> dict:
-    """The port's main path on `scene_path`, as a user calls it; the kernels
-    in `used` must launch and those in `unused` must not."""
+@contextlib.contextmanager
+def blockmajor(on: bool):
+    """STREAM_BLOCKMAJOR set to `on` inside the block, restored after."""
+    from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
+
+    was, ts.STREAM_BLOCKMAJOR = ts.STREAM_BLOCKMAJOR, on
+    try:
+        yield
+    finally:
+        ts.STREAM_BLOCKMAJOR = was
+
+
+def phase_main_path(built, used: tuple, unused: tuple, label: str = ""):
+    """The port's main path on a Renderer built by `build_renderer`, as a
+    user calls it: `step(SPP)` from a fresh accumulation.  The kernels in
+    `used` must launch and those in `unused` must not.  Returns the launch
+    counts and the image (the accumulated HDR sum)."""
     import numpy as np
 
-    from pathtracer_tpu_torch.integrator.render import Renderer
-    from pathtracer_tpu_torch.ops import traverse_cuda as tc
-    from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
-    from pathtracer_tpu_torch.scene.parser import load_scene
-    from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
+    from pathtracer_tpu_torch.integrator.render import RenderStats
 
-    t0 = time.perf_counter()
-    scene = load_scene(scene_path)
-    t1 = time.perf_counter()
-    r = Renderer(scene, RenderOptions(sample_mode=SampleMode.MIS),
-                 resolution=(RES, RES), trace_depth=DEPTH, device="cuda")
-    t2 = time.perf_counter()
-    tc.reset_launch_counts()
-    ts.reset_launch_counts()
+    r, parse_s, tables_s = built
+    r.reset()
+    r.stats = RenderStats()
+    reset_launch_counts()
     stats = r.step(SPP)
     launches = launch_counts()
-    img = r.hdr_sum() / r.iteration
-    out = ROOT / "pathtracer_tpu_torch" / "_build" / f"{r.static.image_name}_mis_{RES}.png"
+    img = r.hdr_sum()
+    out = ROOT / "pathtracer_tpu_torch" / "_build" / f"{r.static.image_name}{label}_mis_{RES}.png"
     out.parent.mkdir(parents=True, exist_ok=True)
     r.save_png(out)
-    log(f"main path: {scene_path.name} MIS {RES}x{RES} depth {DEPTH} {SPP} spp: "
+    log(f"main path: {r.static.image_name}{label} MIS {RES}x{RES} depth {DEPTH} {SPP} spp: "
         f"{stats.mrays_per_sec:.3f} Mrays/s, {stats.rays_traced} rays in "
         f"{stats.wall_seconds:.3f} s wall over {stats.iterations_done - 1} timed iterations "
         f"({statistics.mean(stats.per_iter_seconds):.4f} s/iteration; warm-up "
-        f"{stats.compile_seconds:.3f} s); host set-up: parse {t1 - t0:.3f} s, tables (BVH, "
-        f"wide collapse, stream split, upload) {t2 - t1:.3f} s; launches {launches}, "
-        f"image mean {float(img.mean()):.5f}, saved {out.relative_to(ROOT)}")
+        f"{stats.compile_seconds:.3f} s); host set-up: parse {parse_s:.3f} s, tables (BVH, "
+        f"wide collapse, stream split, upload) {tables_s:.3f} s; launches {launches}, "
+        f"image mean {float(img.mean()) / r.iteration:.5f}, saved {out.relative_to(ROOT)}")
     if not all(launches[k] > 0 for k in used) or any(launches[k] for k in unused):
-        raise AssertionError(f"main path on {scene_path.name} launched {launches}; "
+        raise AssertionError(f"main path on {r.static.image_name}{label} launched {launches}; "
                              f"needs {used} and none of {unused}")
     if not (np.isfinite(img).all() and img.mean() > 0 and stats.rays_traced > 0):
         raise AssertionError("main path image is not finite and positive")
-    return launches
+    return launches, img
 
 
-def phase_card_vs_cpu(scene_path):
+def compare_images(what, a, b) -> float:
+    """Share of pixels of a within the slice tolerance of b; raises below
+    IMG_MIN_FRAC."""
     import numpy as np
 
+    ok = np.isclose(a, b, rtol=IMG_RTOL, atol=IMG_ATOL).all(-1)
+    same = int((a == b).all(-1).sum())
+    log(f"{what}: {ok.mean():.5f} of pixels within rtol {IMG_RTOL} atol {IMG_ATOL} "
+        f"({int((~ok).sum())} outliers; need >= {IMG_MIN_FRAC}); {same} of {ok.size} pixels "
+        f"bitwise equal")
+    if ok.mean() < IMG_MIN_FRAC:
+        raise AssertionError(f"{what}: the images disagree")
+    return float(ok.mean())
+
+
+def phase_card_vs_cpu(scene_path, k5: bool = False):
     from pathtracer_tpu_torch.integrator.render import Renderer
     from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 
     imgs = {}
-    for dev in ("cuda", "cpu"):
-        r = Renderer(scene_path, RenderOptions(sample_mode=SampleMode.MIS),
-                     resolution=(64, 64), trace_depth=DEPTH, device=dev)
-        r.step(2)
-        imgs[dev] = r.hdr_sum()
-    ok = np.isclose(imgs["cuda"], imgs["cpu"], rtol=IMG_RTOL, atol=IMG_ATOL).all(-1)
-    log(f"card vs cpu: {scene_path.name} MIS 64x64 depth {DEPTH} 2 spp: {ok.mean():.5f} of pixels "
-        f"within rtol {IMG_RTOL} atol {IMG_ATOL} ({int((~ok).sum())} outliers; need >= {IMG_MIN_FRAC})")
-    if ok.mean() < IMG_MIN_FRAC:
-        raise AssertionError(f"card and CPU renders of {scene_path.name} disagree")
+    with blockmajor(k5):
+        for dev in (DEVICE, "cpu"):
+            r = Renderer(scene_path, RenderOptions(sample_mode=SampleMode.MIS),
+                         resolution=(64, 64), trace_depth=DEPTH, device=dev)
+            r.step(2)
+            imgs[dev] = r.hdr_sum()
+    compare_images(f"card vs cpu: {scene_path.name}{' (STREAM_BLOCKMAJOR)' if k5 else ''} MIS "
+                   f"64x64 depth {DEPTH} 2 spp", imgs[DEVICE], imgs["cpu"])
+
+
+def phase_probes():
+    """P1 and P2 against their plain versions; ns per lap at the TPU probes'
+    sizes; the kernels line's rows (P2's at P2_ROW_F pops of P2_ROW)."""
+    import torch
+
+    from pathtracer_tpu_torch.ops import probes
+
+    def same(kname, label, got, want):
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        log(f"{kname} {label}: bitwise equal: {torch.equal(got, want)}, max abs err {err:.3g}")
+        torch.testing.assert_close(got, want, rtol=PROBE_RTOL, atol=0.0)
+        return err
+
+    tab, rays = probes.rowprim_inputs(DEVICE)
+    p1_err = same("P1", f"{probes.ROWPRIM_LAPS} laps", probes.rowprim(tab, rays),
+                  probes.rowprim_plain(tab, rays))
+    p1_ms = median_ms(lambda: probes.rowprim(tab, rays))
+    p1_plain_ms = median_ms(lambda: probes.rowprim_plain(tab, rays), runs=1)
+    # per lap: 8 columns x 1,024 lanes x (2 comparisons + 1 and), 1,023 adds
+    # of the row sum, 8 of the bits, 2 of the accumulator
+    p1_ops = probes.ROWPRIM_LAPS * (8 * 1024 * 3 + 1023 + 8 + 2)
+    b1 = max(((nbytes(tab, rays) + 4) / PEAK_BYTES * 1e3, "bytes"),
+             (p1_ops / PEAK_FLOPS * 1e3, "operations"), key=lambda x: x[0])
+    log(f"P1 time: {p1_ms:.4f} ms for {probes.ROWPRIM_LAPS} laps, "
+        f"{p1_ms / probes.ROWPRIM_LAPS * 1e6:.1f} ns/lap; plain {p1_plain_ms:.4f} ms (one run); "
+        f"bound {b1[0]:.6f} ms ({b1[1]})")
+
+    args = probes.pop_inputs(DEVICE)
+    p2_err = 0.0
+    for v in probes.P2_VARIANTS:
+        for acc0 in (probes.POP_ACC0, 50.0 if v == "leaf_mt" else 0.0):
+            kw = dict(F=P2_CHECK_F, acc0=acc0)
+            p2_err = max(p2_err, same("P2", f"{v} F={P2_CHECK_F} start {acc0:g}",
+                                      probes.pop(v, *args, **kw), probes.pop_plain(v, *args, **kw)))
+    for v in probes.P2_VARIANTS:
+        ms = median_ms(lambda v=v: probes.pop(v, *args))
+        log(f"P2 {v:17s}: {ms / probes.POP_F * 1e6:8.3f} ns/lap ({probes.POP_F} pops, "
+            f"{ms:.4f} ms, median of 5)")
+    p2_ms = median_ms(lambda: probes.pop(P2_ROW, *args, F=P2_ROW_F))
+    p2_plain_ms = median_ms(lambda: probes.pop_plain(P2_ROW, *args, F=P2_ROW_F), runs=1)
+    # per lane and pop: 8 box tests, each with the vote, the link test and
+    # the push (3 more); 2,048 lanes
+    p2_ops = 2048 * P2_ROW_F * 8 * (BOX_OPS + 3)
+    b2 = max(((nbytes(*args) + 2048 * 4) / PEAK_BYTES * 1e3, "bytes"),
+             (p2_ops / PEAK_FLOPS * 1e3, "operations"), key=lambda x: x[0])
+    log(f"P2 {P2_ROW} at {P2_ROW_F} pops: kernel {p2_ms:.4f} ms, plain {p2_plain_ms:.4f} ms "
+        f"(one run); bound {b2[0]:.6f} ms ({b2[1]})")
+    return {
+        "P1": ("rowprim", SRC_PROBES, "tools/rowprim_probe.py:55", p1_err, p1_ms, p1_plain_ms, b1),
+        "P2": ("pop", SRC_PROBES, "tools/kernel_microbench.py:228", p2_err, p2_ms, p2_plain_ms, b2),
+    }
 
 
 def main() -> int:
@@ -410,15 +596,31 @@ def main() -> int:
     from tools.make_torus_obj import ensure_torus_obj
 
     phase_build()
-    t0 = time.perf_counter()
-    ensure_torus_obj(*TORUS_160K)
-    log(f"{TORUS_160K[0].relative_to(ROOT)}: ready in {time.perf_counter() - t0:.2f} s")
-    kernels = {**phase_resident_kernels(), **phase_stream_kernels()}
-    launches = phase_main_path(SCENE, used=("K1", "K2"), unused=("K3", "K4"))
-    stream_launches = phase_main_path(SCENE_160K, used=("K3", "K4"), unused=("K1", "K2"))
+    for obj in (TORUS_160K, TORUS_640K):
+        t0 = time.perf_counter()
+        ensure_torus_obj(*obj)
+        log(f"{obj[0].relative_to(ROOT)}: ready in {time.perf_counter() - t0:.2f} s")
+    resident = build_renderer(SCENE)
+    kernels = phase_resident_kernels(resident[0])
+    stream = build_renderer(SCENE_160K)
+    kernels.update(phase_stream_kernels(stream[0]))
+    big = build_renderer(SCENE_640K)
+    phase_640k_kernels(big[0])
+    launches, _ = phase_main_path(resident, used=("K1", "K2"), unused=("K3", "K4", "K5"))
+    stream_launches, _ = phase_main_path(stream, used=("K3", "K4"), unused=("K1", "K2", "K5"))
     launches.update(K3=stream_launches["K3"], K4=stream_launches["K4"])
+    _, img_k3 = phase_main_path(big, used=("K3", "K4"), unused=("K1", "K2", "K5"))
+    with blockmajor(True):
+        bm_launches, img_k5 = phase_main_path(big, used=("K5", "K4"), unused=("K1", "K2", "K3"),
+                                              label="_blockmajor")
+    launches.update(K5=bm_launches["K5"], P1=bm_launches["P1"], P2=bm_launches["P2"])
+    compare_images(f"glasstorus640k STREAM_BLOCKMAJOR on (K5) vs off (K3), MIS {RES}x{RES} "
+                   f"depth {DEPTH} {SPP} spp", img_k5, img_k3)
+    del big, img_k3, img_k5
     phase_card_vs_cpu(SCENE)
     phase_card_vs_cpu(SCENE_160K)
+    phase_card_vs_cpu(SCENE_160K, k5=True)
+    kernels.update(phase_probes())
     rows = [
         {"name": name_, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[key], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

@@ -1,6 +1,7 @@
 // Two-level (streaming) wide-BVH traversal kernels for Hopper (sm_90a):
-// closest hit (K3) and shadow any-hit (K4), for meshes past the resident
-// budget.  One thread per ray, as K1/K2 (wbvh_traverse.cu).
+// closest hit (K3), shadow any-hit (K4) and block-major closest hit (K5),
+// for meshes past the resident budget.  One thread per ray, as K1/K2
+// (wbvh_traverse.cu).
 //
 // Tables (scene/flatscene.py build_stream_tables, identical to the JAX
 // package's; accel/bvh.py partition_stream splits the wide tree):
@@ -13,6 +14,8 @@
 //   subp (n_sub*S*8,)   i32  block node child order
 //   subt (n_sub*Tmax*9,) f32 block triangle rows [v0, e1, e2] (stride 9)
 //   base (n_sub,)       i32  global id of block s's first triangle
+//   rootf (n_sub*6,)    f32  K5 only: block s's root box, the top slot that
+//                            links it (built by the wrapper from topf/topl)
 //
 // The TPU kernels stream each block into on-chip memory through a DMA ring.
 // Here the tables simply stay in device memory (22 MB for 160k triangles,
@@ -120,6 +123,26 @@ __device__ __forceinline__ bool leaf_blocks(const float* __restrict__ rows, int 
   return false;
 }
 
+// One node of a block walk for a closest hit (K3's block branch, and K5's):
+// children far -> near in the ray's octant order (the nearest is pushed
+// last), child nodes onto the block stack, leaf cuts tested at once.
+__device__ __forceinline__ void block_node_closest(const Block& b, const int* __restrict__ bp,
+                                                   int node, int oct, int gbase, const Ray& r,
+                                                   Closest& best, int* bstack, int& bsp) {
+  const int perm = bp[node * 8 + oct];
+  const float* nf = b.f + node * 48;
+  const int* ni = b.i + node * 24;
+  for (int rank = 7; rank >= 0; --rank) {
+    const int slot = (perm >> (3 * rank)) & 7;
+    if (!child_box(nf, slot, r, best.t)) continue;
+    const int link = ni[slot];
+    if (link >= 0)
+      bstack[bsp++] = link;
+    else
+      leaf_closest(b.t, ni[8 + slot], ni[16 + slot], gbase, r, best);
+  }
+}
+
 // K3: closest hit.  Replaces closest_hit_stream_pallas /
 // _make_stream_closest_kernel / _sub_walk_closest
 // (pathtracer_tpu/ops/traverse_pallas.py:871,633,549).  Starts from
@@ -129,8 +152,7 @@ __device__ __forceinline__ bool leaf_blocks(const float* __restrict__ rows, int 
 // is a chain of dependent loads (perm, boxes, links, triangle rows) from L2
 // or device memory, and the rays of a warp diverge over different nodes and
 // blocks.  It takes 1.7-1.8x K1's time on the same rays and mesh (PERF.md);
-// staging a block in shared memory, or the block-outer schedule of K5, is
-// later work.
+// K5 below is the block-outer schedule of the same walk.
 __global__ void __launch_bounds__(THREADS)
 closest_hit_stream_kernel(const float* __restrict__ topf, const int* __restrict__ topl,
                           const int* __restrict__ topp, const float* __restrict__ subf,
@@ -174,18 +196,7 @@ closest_hit_stream_kernel(const float* __restrict__ topf, const int* __restrict_
         }
       }
       if (in_block) {
-        const int perm = bp[node * 8 + oct];
-        const float* nf = b.f + node * 48;
-        const int* ni = b.i + node * 24;
-        for (int rank = 7; rank >= 0; --rank) {
-          const int slot = (perm >> (3 * rank)) & 7;
-          if (!child_box(nf, slot, r, best.t)) continue;
-          const int link = ni[slot];
-          if (link >= 0)
-            bstack[bsp++] = link;
-          else
-            leaf_closest(b.t, ni[8 + slot], ni[16 + slot], gbase, r, best);
-        }
+        block_node_closest(b, bp, node, oct, gbase, r, best, bstack, bsp);
         continue;
       }
       const int perm = topp[node * 8 + oct];
@@ -286,6 +297,65 @@ occlusion_stream_kernel(const float* __restrict__ topf, const int* __restrict__ 
   occ_out[i] = occ ? 1 : 0;
 }
 
+// K5: block-major closest hit.  Replaces closest_hit_blockmajor_pallas /
+// _make_blockmajor_closest_kernel (pathtracer_tpu/ops/traverse_pallas.py:1120,
+// 993).  K3's result with the loops swapped: an outer loop over the blocks
+// in index order; a ray enters block s only if it passes the block's root
+// box under its current best t, and then walks it to its end as K3 does (a
+// wrapped one-node block has its triangles tested at once).  The top tree's
+// inner boxes are never tested, so every live ray pays n_sub root tests.
+// The closest t equals K3's (the minimum does not depend on the visit
+// order); on an exact-t tie the block of lower index wins, where K3's
+// depth-first order may pick another.  Starts from t = t_init, tri = -1,
+// u = v = 0; lanes with t_init < 0 never enter a block.
+// What bounds it on this card: latency, as K3 (dependent loads from L2 or
+// device memory, warps that diverge over the blocks' nodes).  The TPU
+// kernel's chunk of resident rays, DMA ring and per-packet root filter are
+// not carried over: the tables stay in device memory, and the block-outer
+// order is what gives the threads of a CTA the same block at about the same
+// time.  A whole block (311,296 bytes at 512 nodes / 4,096 triangles) does
+// not fit the 232,448 bytes of shared memory a CTA may use; only its node
+// part (163,840 bytes) would, which is the design question for making K5
+// fast.
+__global__ void __launch_bounds__(THREADS)
+closest_hit_blockmajor_kernel(const float* __restrict__ rootf, const float* __restrict__ subf,
+                              const int* __restrict__ subi, const int* __restrict__ subp,
+                              const float* __restrict__ subt, const int* __restrict__ base,
+                              const float* __restrict__ o, const float* __restrict__ d,
+                              const float* __restrict__ t_init,
+                              float* __restrict__ t_out, int* __restrict__ tri_out,
+                              float* __restrict__ u_out, float* __restrict__ v_out,
+                              int n, int n_sub, int S, int Tmax) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(o, d, i);
+  Closest best = {t_init[i], 0.0f, 0.0f, -1};
+  if (best.t >= 0.0f) {
+    const int oct = (r.dx > 0.0f ? 1 : 0) | (r.dy > 0.0f ? 2 : 0) | (r.dz > 0.0f ? 4 : 0);
+    int bstack[SUB_STACK];
+    for (int s = 0; s < n_sub; ++s) {
+      if (!child_box(rootf, s, r, best.t)) continue;
+      const Block b = block(subf, subi, subt, s, S, Tmax);
+      const int gbase = base[s];
+      if (wrapped_leaf(b.i)) {
+        leaf_closest(b.t, b.i[8], b.i[16], gbase, r, best);
+        continue;
+      }
+      const int* bp = subp + (size_t)s * S * 8;
+      int bsp = 0;
+      bstack[bsp++] = 0;
+      while (bsp > 0) {
+        const int node = bstack[--bsp];
+        block_node_closest(b, bp, node, oct, gbase, r, best, bstack, bsp);
+      }
+    }
+  }
+  t_out[i] = best.t;
+  tri_out[i] = best.tri;
+  u_out[i] = best.u;
+  v_out[i] = best.v;
+}
+
 inline dim3 grid_for(int n) { return dim3((unsigned)((n + THREADS - 1) / THREADS)); }
 
 }  // namespace
@@ -303,6 +373,19 @@ extern "C" int pt_closest_hit_stream(const float* topf, const int* topl, const i
     closest_hit_stream_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
         topf, topl, topp, subf, subi, subp, subt, base, o, d, t_init, t_out, tri_out, u_out,
         v_out, n, S, Tmax);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pt_closest_hit_blockmajor(const float* rootf, const float* subf,
+                                         const int* subi, const int* subp, const float* subt,
+                                         const int* base, const float* o, const float* d,
+                                         const float* t_init, float* t_out, int* tri_out,
+                                         float* u_out, float* v_out, int n, int n_sub, int S,
+                                         int Tmax, void* stream) {
+  if (n > 0)
+    closest_hit_blockmajor_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+        rootf, subf, subi, subp, subt, base, o, d, t_init, t_out, tri_out, u_out, v_out, n,
+        n_sub, S, Tmax);
   return (int)cudaGetLastError();
 }
 

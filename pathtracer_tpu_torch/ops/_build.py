@@ -39,11 +39,18 @@ ARGTYPES = {
     "pt_occlusion_wbvh": [_P] * 8 + [_I, _P],
     "pt_closest_hit_stream": [_P] * 15 + [_I, _I, _I, _P],
     "pt_occlusion_stream": [_P] * 10 + [_I, _I, _I, _P],
+    "pt_closest_hit_blockmajor": [_P] * 13 + [_I] * 4 + [_P],
+    "pt_probe_rowprim": [_P] * 3 + [_I, _I, _P],
+    "pt_probe_pop": [_I] + [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
 }
 
 KERNELS = (
     "closest_hit_wbvh_kernel", "occlusion_wbvh_kernel",
-    "closest_hit_stream_kernel", "occlusion_stream_kernel",
+    "closest_hit_stream_kernel", "occlusion_stream_kernel", "closest_hit_blockmajor_kernel",
+    "p1_rowprim_kernel",
+    *(f"p2_{v}_kernel" for v in (
+        "loop_empty", "while_empty", "loop_and", "loop_only", "loads", "loads4", "aabb", "any1",
+        "aabb_any", "push_branchless", "push_packed", "leaf_mt")),
 )
 
 _lock = threading.Lock()

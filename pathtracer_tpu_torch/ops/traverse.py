@@ -4,8 +4,9 @@ Port of `pathtracer_tpu/ops/traverse.py`.  Analytic geoms (spheres and cubes)
 are swept on (N,) component columns exactly as the JAX package does; the
 triangle part goes, by `packet_mode`, through the resident wide-BVH kernels
 of `ops/traverse_cuda.py` (K1 closest hit, K2 shadow any-hit) or the
-two-level streaming kernels of `ops/traverse_stream_cuda.py` (K3, K4), which
-take the same tables, rays and sentinels as the Pallas kernels they replace.
+two-level streaming kernels of `ops/traverse_stream_cuda.py` (K3, K4; K5 for
+closest hits when its `STREAM_BLOCKMAJOR` is true), which take the same
+tables, rays and sentinels as the Pallas kernels they replace.
 The port has no MTBVH lockstep walk and no brute-force sweep
 (`use_bvh=False`).
 """
@@ -28,7 +29,9 @@ from pathtracer_tpu_torch.ops.traverse_cuda import (
     closest_hit_wbvh,
     occlusion_wbvh,
 )
+from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
 from pathtracer_tpu_torch.ops.traverse_stream_cuda import (
+    closest_hit_blockmajor,
     closest_hit_stream,
     occlusion_stream,
 )
@@ -201,7 +204,13 @@ def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None) -> Hit:
 
     t_init = t_min if alive is None else torch.where(alive, t_min, DEAD_T)
     t_init = _root_box_cull(static, o, d, t_init)
-    if packet_mode(static) == "stream":
+    if packet_mode(static) == "stream" and ts.STREAM_BLOCKMAJOR:
+        t_tri, tri, u, v = closest_hit_blockmajor(
+            flat.str_roots, flat.str_subf, flat.str_subi, flat.str_subp,
+            flat.str_subt, flat.str_base, o, d, t_init, sub_nodes=static.stream_sub_nodes,
+            sub_tris=static.stream_sub_tris, sub_depth=static.stream_sub_depth,
+        )
+    elif packet_mode(static) == "stream":
         t_tri, tri, u, v = closest_hit_stream(
             flat.str_topf, flat.str_topl, flat.str_topp, flat.str_subf, flat.str_subi,
             flat.str_subp, flat.str_subt, flat.str_base, o, d, t_init,

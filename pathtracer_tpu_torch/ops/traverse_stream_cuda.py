@@ -1,9 +1,11 @@
-"""Two-level (streaming) traversal kernels K3 (closest hit) and K4 (shadow
-any-hit), for meshes past the resident budget.
+"""Two-level (streaming) traversal kernels K3 (closest hit), K4 (shadow
+any-hit) and K5 (block-major closest hit), for meshes past the resident
+budget.
 
 Port of the streaming Pallas kernels of `pathtracer_tpu/ops/traverse_pallas.py`:
-`closest_hit_stream_pallas` (K3) and `occlusion_stream_pallas` (K4).  The CUDA
-kernels live in `csrc/stream_traverse.cu`; this module holds, for each:
+`closest_hit_stream_pallas` (K3), `occlusion_stream_pallas` (K4) and
+`closest_hit_blockmajor_pallas` (K5).  The CUDA kernels live in
+`csrc/stream_traverse.cu`; this module holds, for each:
 
 - the wrapper (`closest_hit_stream`, `occlusion_stream`): on a CPU tensor it
   runs the plain PyTorch version; on a CUDA tensor it launches the kernel
@@ -11,16 +13,23 @@ kernels live in `csrc/stream_traverse.cu`; this module holds, for each:
 - the plain PyTorch version (`*_plain`): a lockstep, masked walk of the same
   two-level tables, with a top stack and a block stack per ray and the
   kernel's per-ray visit order, so kernel and plain version agree exactly.
-- a launch counter (`closest_launches`, `occlusion_launches`), bumped once
-  per kernel launch and nowhere else.
+- a launch counter (`closest_launches`, `occlusion_launches`,
+  `blockmajor_launches`), bumped once per kernel launch and nowhere else.
 
 The walk is K1/K2's (`ops/traverse_cuda.py`), nested: the top tree is the
 wide tree's upper part, a child link -(2+s) enters block s, which is walked
 to its end with block-local node and triangle indices (triangle ids rebased
 by `base[s]`).  A leaf cut hanging off a top node is a one-node block and is
 tested at once, as K1 tests it, so K3 returns K1's result lane for lane.
-Sentinels as K1/K2: lanes with t_init < 0 never enter K3; K4 keeps
+Sentinels as K1/K2: lanes with t_init < 0 never enter K3 or K5; K4 keeps
 `occluded0` lanes blocked and never blocks a lane with min_t < 0.
+
+K5 computes K3's result with the loops swapped: blocks outer, in index
+order, each entered by the rays that reach its root box (the top slot that
+links it; `FlatScene.str_roots`, built with the scene) under their current
+best t; the top tree's inner boxes are not tested.  `closest_hit` in `ops/traverse.py` takes it instead of K3 when
+`STREAM_BLOCKMAJOR` is true (read at call time, as the JAX package reads
+its flag of that name).
 """
 
 from __future__ import annotations
@@ -36,15 +45,20 @@ from pathtracer_tpu_torch.ops.traverse_cuda import (
 )
 
 STACK = 64  # each of the top and block stacks (csrc/stream_traverse.cu TOP_STACK, SUB_STACK)
+# closest hits of a streamed mesh go through K5 instead of K3 (the
+# counterpart of pathtracer_tpu/ops/traverse_pallas.py STREAM_BLOCKMAJOR)
+STREAM_BLOCKMAJOR = False
 
 closest_launches = 0
 occlusion_launches = 0
+blockmajor_launches = 0
 
 
 def reset_launch_counts() -> None:
-    global closest_launches, occlusion_launches
+    global closest_launches, occlusion_launches, blockmajor_launches
     closest_launches = 0
     occlusion_launches = 0
+    blockmajor_launches = 0
 
 
 def _check_depths(top_depth: int, sub_depth: int) -> None:
@@ -56,19 +70,21 @@ def _check_depths(top_depth: int, sub_depth: int) -> None:
             )
 
 
-def _check_tables(topf, topl, topp, subf, subi, subp, subt, base, sub_nodes, sub_tris):
-    n_top, n_sub = topl.numel() // 8, base.numel()
+def _check_tables(base, sub_nodes, sub_tris, **tables):
+    """The sizes of the stream `tables` given (by their FlatScene names less
+    `str_`), for base's block count and topl's top-node count."""
+    n_top = tables["topl"].numel() // 8 if "topl" in tables else 0
+    n_sub = base.numel()
     want = dict(
-        topf=n_top * 48, topl=n_top * 8, topp=n_top * 8,
+        topf=n_top * 48, topl=n_top * 8, topp=n_top * 8, roots=n_sub * 6,
         subf=n_sub * sub_nodes * 48, subi=n_sub * sub_nodes * 24,
         subp=n_sub * sub_nodes * 8, subt=n_sub * sub_tris * 9,
     )
-    got = dict(topf=topf, topl=topl, topp=topp, subf=subf, subi=subi, subp=subp, subt=subt)
-    for name, size in want.items():
-        if got[name] is not None and got[name].numel() != size:
+    for name, table in tables.items():
+        if table.numel() != want[name]:
             raise ValueError(
-                f"{name} has {got[name].numel()} entries; {n_top} top nodes and "
-                f"{n_sub} blocks of {sub_nodes} nodes / {sub_tris} triangles need {size}"
+                f"{name} has {table.numel()} entries; {n_top} top nodes and "
+                f"{n_sub} blocks of {sub_nodes} nodes / {sub_tris} triangles need {want[name]}"
             )
 
 
@@ -80,15 +96,17 @@ class _StreamWalk:
     """Per-ray state of a lockstep two-level walk: a top stack (top nodes and
     block entries -(2+s)), a block stack of block-local nodes, and the block
     each ray is inside.  A ray pops from its block stack while it is not
-    empty, else from its top stack."""
+    empty, else from its top stack.  K5's walk has no top tree: topf and
+    topl are None and no lane is live on the top stack."""
 
     def __init__(self, topf, topl, subf, subi, subt, base, o, d, live, sub_nodes, sub_tris,
                  counts):
         n = o.shape[0]
         dev = o.device
         self.S, self.Tmax = sub_nodes, sub_tris
-        self.top_boxes = topf.view(-1, 8, 6)
-        self.top_links = topl.view(-1, 8)
+        if topf is not None:
+            self.top_boxes = topf.view(-1, 8, 6)
+            self.top_links = topl.view(-1, 8)
         self.sub_boxes = subf.view(-1, 8, 6)  # row s*S + local node
         self.sub_links = subi.view(-1, 3, 8)
         self.sub_tri = subt.view(-1, 9)  # row s*Tmax + local triangle
@@ -182,45 +200,101 @@ class _StreamWalk:
         return take, link, take & push, take & leaf, s, start, end
 
 
+class _Closest:
+    """Per-ray closest-hit state (t, tri, u, v) and K3's node and leaf
+    steps, shared by the plain K3 and K5."""
+
+    def __init__(self, w: _StreamWalk, topp, subp, d, t_init):
+        n, dev = d.shape[0], d.device
+        self.w = w
+        self.perms = {True: topp.view(-1, 8) if topp is not None else None,
+                      False: subp.view(-1, 8)}
+        self.octant = (d[:, 0] > 0).long() + 2 * (d[:, 1] > 0).long() + 4 * (d[:, 2] > 0).long()
+        self.t = t_init.clone()
+        self.tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        self.u = torch.zeros((n,), dtype=torch.float32, device=dev)
+        self.v = torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    def leaf(self, li, s, start, end):
+        """Test block triangles [start, end) of blocks `s` for lanes `li`,
+        in cut order; a hit wins only if strictly closer."""
+        th, tt, tu, tv, gid = self.w.leaf(li, s, start, end)
+        lt, ltri, lu, lv = self.t[li], self.tri[li], self.u[li], self.v[li]
+        for k in range(self.w.leaf_k):
+            upd = th[:, k] & (tt[:, k] < lt)
+            lt = torch.where(upd, tt[:, k], lt)
+            ltri = torch.where(upd, gid[:, k].to(torch.int32), ltri)
+            lu = torch.where(upd, tu[:, k], lu)
+            lv = torch.where(upd, tv[:, k], lv)
+        self.t[li], self.tri[li], self.u[li], self.v[li] = lt, ltri, lu, lv
+
+    def node(self, top: bool, lanes, node):
+        """One popped node per lane: its children far -> near in the ray's
+        octant order (the nearest is pushed last), leaf cuts tested at once."""
+        if lanes.numel() == 0:
+            return
+        perm = self.perms[top][node, self.octant[lanes]]
+        for rank in range(7, -1, -1):
+            slot = ((perm >> (3 * rank)) & 7).long()
+            take, link, push, leaf, s, start, end = self.w.children(
+                top, lanes, node, slot, self.t[lanes])
+            self.w.push(top, lanes, link, push)
+            lm = torch.nonzero(leaf).squeeze(1)
+            if lm.numel():
+                self.leaf(lanes[lm], s[lm], start[lm], end[lm])
+
+    def result(self):
+        return self.t, self.tri, self.u, self.v
+
+
 def closest_hit_stream_plain(topf, topl, topp, subf, subi, subp, subt, base, o, d, t_init,
                              *, sub_nodes: int, sub_tris: int, counts: dict | None = None):
     """Plain PyTorch K3 (any device): returns (t, tri, u, v).  `counts`, if
     given, accumulates the box tests ("box", 8 per pop) and triangle tests
     ("tri") of the walk."""
-    n = o.shape[0]
-    dev = o.device
     w = _StreamWalk(topf, topl, subf, subi, subt, base, o, d, t_init >= 0.0,
                     sub_nodes, sub_tris, counts)
-    perms = {True: topp.view(-1, 8), False: subp.view(-1, 8)}
-    octant = (d[:, 0] > 0).long() + 2 * (d[:, 1] > 0).long() + 4 * (d[:, 2] > 0).long()
-    best_t = t_init.clone()
-    best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
-    best_v = torch.zeros((n,), dtype=torch.float32, device=dev)
+    best = _Closest(w, topp, subp, d, t_init)
     while (popped := w.pop()) is not None:
         for top, (lanes, node) in zip((True, False), popped):
-            if lanes.numel() == 0:
-                continue
-            perm = perms[top][node, octant[lanes]]
-            for rank in range(7, -1, -1):  # far -> near: the nearest child is pushed last
-                slot = ((perm >> (3 * rank)) & 7).long()
-                take, link, push, leaf, s, start, end = w.children(
-                    top, lanes, node, slot, best_t[lanes])
-                w.push(top, lanes, link, push)
-                lm = torch.nonzero(leaf).squeeze(1)
-                if lm.numel() == 0:
-                    continue
-                li = lanes[lm]
-                th, tt, tu, tv, gid = w.leaf(li, s[lm], start[lm], end[lm])
-                lt, ltri, lu, lv = best_t[li], best_tri[li], best_u[li], best_v[li]
-                for k in range(w.leaf_k):  # in cut order, strictly closer wins
-                    upd = th[:, k] & (tt[:, k] < lt)
-                    lt = torch.where(upd, tt[:, k], lt)
-                    ltri = torch.where(upd, gid[:, k].to(torch.int32), ltri)
-                    lu = torch.where(upd, tu[:, k], lu)
-                    lv = torch.where(upd, tv[:, k], lv)
-                best_t[li], best_tri[li], best_u[li], best_v[li] = lt, ltri, lu, lv
-    return best_t, best_tri, best_u, best_v
+            best.node(top, lanes, node)
+    return best.result()
+
+
+def closest_hit_blockmajor_plain(roots, subf, subi, subp, subt, base, o, d, t_init,
+                                 *, sub_nodes: int, sub_tris: int, counts: dict | None = None):
+    """Plain PyTorch K5 (any device): returns (t, tri, u, v).  `roots` holds
+    the blocks' root boxes (FlatScene.str_roots).  Blocks in index order;
+    the live lanes that pass block s's root box under their best t test a
+    wrapped one-node block's triangles at once, or walk the block to its
+    end with K3's block steps.  `counts` as K3's, plus one box test per live
+    lane per block root."""
+    n_sub = base.numel()
+    w = _StreamWalk(None, None, subf, subi, subt, base, o, d,
+                    torch.zeros_like(t_init, dtype=torch.bool), sub_nodes, sub_tris, counts)
+    best = _Closest(w, None, subp, d, t_init)
+    roots = roots.view(n_sub, 6)
+    live = torch.nonzero(t_init >= 0.0).squeeze(1)
+    ray = w.ray_inv(live)
+    for s in range(n_sub):
+        hit, te = _slab(roots[s].expand(live.numel(), 6), *ray)
+        if counts is not None:
+            counts["box"] += live.numel()
+        lanes = live[hit & (te <= best.t[live])]
+        if lanes.numel() == 0:
+            continue
+        sv = torch.full_like(lanes, s)
+        if w.wrapped[s]:
+            root = w.sub_links[s * sub_nodes]
+            best.leaf(lanes, sv, root[1, 0].expand_as(lanes).long(),
+                      root[2, 0].expand_as(lanes).long())
+            continue
+        w.blk[lanes] = s
+        w.bstack[lanes, 0] = 0
+        w.bsp[lanes] = 1
+        while (popped := w.pop()) is not None:
+            best.node(False, *popped[1])
+    return best.result()
 
 
 def occlusion_stream_plain(topf, topl, subf, subi, subt, base, o, d, min_t, occluded0,
@@ -266,7 +340,8 @@ def closest_hit_stream(topf, topl, topp, subf, subi, subp, subt, base, o, d, t_i
     """
     global closest_launches
     _check_depths(top_depth, sub_depth)
-    _check_tables(topf, topl, topp, subf, subi, subp, subt, base, sub_nodes, sub_tris)
+    _check_tables(base, sub_nodes, sub_tris, topf=topf, topl=topl, topp=topp, subf=subf,
+                  subi=subi, subp=subp, subt=subt)
     _rays(o, d)
     if o.device.type == "cpu":
         return closest_hit_stream_plain(topf, topl, topp, subf, subi, subp, subt, base, o, d,
@@ -298,12 +373,56 @@ def closest_hit_stream(topf, topl, topp, subf, subi, subp, subt, base, o, d, t_i
     return t, tri, u, v
 
 
+def closest_hit_blockmajor(roots, subf, subi, subp, subt, base, o, d, t_init, *,
+                           sub_nodes: int, sub_tris: int, sub_depth: int):
+    """K5: K3's closest hit with blocks outer and rays inner.  `roots` is
+    FlatScene.str_roots, the blocks' root boxes, built once per scene.
+
+    Returns (t, tri, u, v) as K3: t equal to K3's, and tri/u/v too except
+    on exact-t ties, where the block of lower index wins.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel.
+    """
+    global blockmajor_launches
+    _check_depths(0, sub_depth)  # K5 has no top stack
+    _check_tables(base, sub_nodes, sub_tris, roots=roots, subf=subf, subi=subi, subp=subp,
+                  subt=subt)
+    _rays(o, d)
+    if o.device.type == "cpu":
+        return closest_hit_blockmajor_plain(roots, subf, subi, subp, subt, base, o, d,
+                                            t_init, sub_nodes=sub_nodes, sub_tris=sub_tris)
+    if o.device.type != "cuda":
+        raise ValueError(f"closest_hit_blockmajor runs on cpu or cuda tensors, not {o.device}")
+    f32, i32 = torch.float32, torch.int32
+    _check_cuda_args(
+        dict(roots=roots, subf=subf, subi=subi, subp=subp, subt=subt, base=base,
+             o=o, d=d, t_init=t_init),
+        dict(roots=f32, subf=f32, subi=i32, subp=i32, subt=f32, base=i32,
+             o=f32, d=f32, t_init=f32),
+    )
+    lib = _build.load_library()
+    n, n_sub = o.shape[0], base.numel()
+    t = torch.empty((n,), dtype=f32, device=o.device)
+    tri = torch.empty((n,), dtype=i32, device=o.device)
+    u = torch.empty((n,), dtype=f32, device=o.device)
+    v = torch.empty((n,), dtype=f32, device=o.device)
+    rc = lib.pt_closest_hit_blockmajor(
+        roots.data_ptr(), subf.data_ptr(), subi.data_ptr(), subp.data_ptr(), subt.data_ptr(),
+        base.data_ptr(), o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
+        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n, n_sub, sub_nodes, sub_tris,
+        torch.cuda.current_stream(o.device).cuda_stream,
+    )
+    _build.check(rc, "closest_hit_blockmajor launch")
+    blockmajor_launches += 1
+    return t, tri, u, v
+
+
 def occlusion_stream(topf, topl, subf, subi, subt, base, o, d, min_t, occluded0, *,
                      sub_nodes: int, sub_tris: int, top_depth: int, sub_depth: int):
     """K4: shadow any-hit against the two-level streaming tables; (N,) bool."""
     global occlusion_launches
     _check_depths(top_depth, sub_depth)
-    _check_tables(topf, topl, None, subf, subi, None, subt, base, sub_nodes, sub_tris)
+    _check_tables(base, sub_nodes, sub_tris, topf=topf, topl=topl, subf=subf, subi=subi,
+                  subt=subt)
     _rays(o, d)
     if o.device.type == "cpu":
         return occlusion_stream_plain(topf, topl, subf, subi, subt, base, o, d, min_t,

@@ -7,7 +7,9 @@ are what make triangle-id parity exact.  The fields carry the JAX names.
 
 A mesh within `resident_tables_fit` is walked through the wide tables
 (`bvh_w*`, `tri_pk`; kernels K1/K2); a larger one through the two-level
-streaming tables (`str_*`, `build_stream_tables`; kernels K3/K4).
+streaming tables (`str_*`, `build_stream_tables`; kernels K3/K4, and K5,
+which also reads the blocks' root boxes `str_roots`, a table only the port
+has).
 
 Not yet ported (each raises `NotImplementedError`): texture atlases and
 normal maps (ROADMAP Queue 1 item 11) and environment maps (item 12).  Their
@@ -70,6 +72,7 @@ class FlatScene:
     str_subp: torch.Tensor         # (n_sub*S*8,) i32: per-octant child order
     str_subt: torch.Tensor         # (n_sub*Tmax*9,) f32: v0, e1, e2 of block-local triangles
     str_base: torch.Tensor         # (n_sub,) i32: global id of each block's first triangle
+    str_roots: torch.Tensor        # (n_sub*6,) f32: each block's root box (K5; `stream_roots`)
     mat_f32: torch.Tensor          # (8, M): albedo(3) roughness metallic ior pad(2)
     mat_i32: torch.Tensor          # (8, M): type atex mtex rtex ntex pad(3)
     atlas: torch.Tensor            # texture tables: placeholders (not ported)
@@ -322,6 +325,18 @@ def build_stream_tables(bvh: FlatBVH, tri_pk: np.ndarray,
     )
 
 
+def stream_roots(topf: np.ndarray, topl: np.ndarray, n_sub: int) -> np.ndarray:
+    """(n_sub*6,) f32 root boxes of the blocks: the top child slot whose link
+    is -(2+s) holds block s's bounds (as pathtracer_tpu/ops/traverse_pallas.py
+    :1136-1145 builds them per call; here once per scene).  A block no slot
+    links keeps NaN, which no ray passes."""
+    links = np.asarray(topl).reshape(-1).astype(np.int64)
+    sid = np.where(links < -1, -(links + 2), n_sub)
+    roots = np.full((n_sub + 1, 6), np.nan, np.float32)
+    roots[sid] = np.asarray(topf, np.float32).reshape(-1, 6)
+    return roots[:n_sub].reshape(-1)
+
+
 def _tree_depth(links: np.ndarray) -> np.ndarray:
     """Depth of the deepest node reachable from node 0 of each tree in
     `links` (B, nodes, 8), following links >= 0; returns (B,)."""
@@ -362,7 +377,12 @@ def _placeholder_tables() -> dict[str, np.ndarray]:
 
 def flat_from_arrays(arrays: Mapping[str, np.ndarray], device) -> FlatScene:
     """Tables as numpy arrays (for instance the JAX package's FlatScene
-    fields) -> the port's FlatScene on `device`."""
+    fields) -> the port's FlatScene on `device`.  `str_roots`, which the JAX
+    package does not hold, is built from the stream tables when absent."""
+    if "str_roots" not in arrays:
+        base = np.asarray(arrays["str_base"])
+        arrays = {**arrays, "str_roots": stream_roots(arrays["str_topf"], arrays["str_topl"],
+                                                      base.size)}
     return FlatScene(**{
         f.name: torch.from_numpy(np.array(arrays[f.name])).to(device)
         for f in fields(FlatScene)
@@ -507,6 +527,7 @@ def build_flat_scene(
         str_topf=str_topf, str_topl=str_topl, str_topp=str_topp,
         str_subf=str_subf, str_subi=str_subi, str_subp=str_subp,
         str_subt=str_subt, str_base=str_base,
+        str_roots=stream_roots(str_topf, str_topl, str_base.size),
         mat_f32=mat_f32.T.copy(), mat_i32=mat_i32.T.copy(),
         light_geom=light_geom, light_tri=light_tri, light_type=light_type,
         **placeholders,

@@ -101,6 +101,7 @@ PORT_MODULES = [
     "pathtracer_tpu_torch.ops.lights",
     "pathtracer_tpu_torch.ops.materials",
     "pathtracer_tpu_torch.ops.math",
+    "pathtracer_tpu_torch.ops.probes",
     "pathtracer_tpu_torch.ops.traverse",
     "pathtracer_tpu_torch.ops.traverse_cuda",
     "pathtracer_tpu_torch.ops.traverse_stream_cuda",
@@ -114,6 +115,10 @@ PORT_MODULES = [
     "pathtracer_tpu_torch.utils.image_io",
     "pathtracer_tpu_torch.utils.rng",
     "chip_smoke",
+    "tools.cuda_timing",
+    "tools.kernel_microbench_torch",
+    "tools.profile_torch_port",
+    "tools.rowprim_probe_torch",
 ]
 
 

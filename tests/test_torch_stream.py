@@ -13,7 +13,8 @@
   have), since both walk the same boxes in the same per-ray order.
 - The port's Renderer on the 576-triangle glass torus forced onto the
   streaming path, against the JAX Renderer, with test_torch_render.py's
-  image tolerance, in all three modes.
+  image tolerance, in all three modes, with STREAM_BLOCKMAJOR off (K3/K4)
+  and on (K5/K4).
 """
 
 import json
@@ -277,8 +278,11 @@ def torus_scene(tmp_path_factory):
 
 
 @pytest.mark.parametrize("mode", [SampleMode.BSDF, SampleMode.DIRECT_LI, SampleMode.MIS])
-def test_stream_slice_matches_jax(torus_scene, mode, monkeypatch):
+@pytest.mark.parametrize("blockmajor", [False, True], ids=["packetmajor", "blockmajor"])
+def test_stream_slice_matches_jax(torus_scene, mode, blockmajor, monkeypatch):
+    """K3/K4 by default; K5/K4 with STREAM_BLOCKMAJOR, and then K3 never."""
     force_stream(monkeypatch, tfs)
+    monkeypatch.setattr(ts, "STREAM_BLOCKMAJOR", blockmajor)
     calls = {"closest": 0, "occlusion": 0}
 
     def counted(name, fn):
@@ -288,9 +292,12 @@ def test_stream_slice_matches_jax(torus_scene, mode, monkeypatch):
         return wrapper
 
     def refuse(*args, **kwargs):
-        raise AssertionError("a streamed scene reached the resident kernels")
+        raise AssertionError("a streamed scene reached a kernel of the other path")
 
-    monkeypatch.setattr(ttv, "closest_hit_stream", counted("closest", ttv.closest_hit_stream))
+    closest = "closest_hit_blockmajor" if blockmajor else "closest_hit_stream"
+    unused = "closest_hit_stream" if blockmajor else "closest_hit_blockmajor"
+    monkeypatch.setattr(ttv, closest, counted("closest", getattr(ttv, closest)))
+    monkeypatch.setattr(ttv, unused, refuse)
     monkeypatch.setattr(ttv, "occlusion_stream", counted("occlusion", ttv.occlusion_stream))
     monkeypatch.setattr(ttv, "closest_hit_wbvh", refuse)
     monkeypatch.setattr(ttv, "occlusion_wbvh", refuse)

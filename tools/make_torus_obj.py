@@ -13,6 +13,11 @@ it at first use, or by hand:
 
     python tools/make_torus_obj.py -o scenes/assets/torus160k.obj --major 400 --minor 200
 
+`scenes/glasstorus640k.txt` renders the 800 x 400 torus (640,000
+triangles, about 46 MB), written the same way:
+
+    python tools/make_torus_obj.py -o scenes/assets/torus640k.obj --major 800 --minor 400
+
 The tube radius carries a ripple `0.05 * sin(6 phi) * cos(4 theta)` (phi
 around the ring, theta around the tube), so the shape is not convex and
 rays meet it more than twice.

@@ -7,7 +7,7 @@ Renders the scene MIS at 800x800, depth 8, through
 with torch.profiler and prints, per iteration: the wall time, the device's
 busy time (sum of kernel times) and busy share, the number of kernel
 launches, and the 12 kernels that take the most device time, with the
-traversal kernels (K1-K4) named.  The card's name and power limit come
+traversal kernels (K1-K5) named.  The card's name and power limit come
 first.  Needs CUDA.  The scene's assets must exist: for glasstorus160k,
 write its OBJ first with `tools/make_torus_obj.py` (see its docstring).
 """
@@ -26,6 +26,7 @@ RES, DEPTH, WARM, ITERS, TOP = 800, 8, 3, 2, 12
 TRAVERSAL = {
     "closest_hit_wbvh_kernel": "K1", "occlusion_wbvh_kernel": "K2",
     "closest_hit_stream_kernel": "K3", "occlusion_stream_kernel": "K4",
+    "closest_hit_blockmajor_kernel": "K5",
 }
 
 

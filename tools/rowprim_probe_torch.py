@@ -1,0 +1,54 @@
+"""Time the primitives a per-row-stack walk needs on the GPU (P1), the
+counterpart of tools/rowprim_probe.py.
+
+    python tools/rowprim_probe_torch.py
+
+Runs the P1 probe of `pathtracer_tpu_torch/ops/probes.py` (kernel in
+`csrc/probes.cu`): one CTA of 1,024 threads (8 rows x 128 lanes), 2,000
+laps of 8 dynamic row reads from a (1024, 128) table in device memory,
+16 broadcasts through shared memory, 8 per-row any votes packed into bits
+and read back as scalars, and a sum of the 8 rows; table and rays from
+numpy with seed 0.  Prints the result and ns per lap (the kernel's time
+over the laps, median of 20 runs timed with CUDA events after a warm-up),
+as the original does, then the SM clock `nvidia-smi` sampled meanwhile and
+the cycles per lap at its median.  The card's name and power limit come
+first.  Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def main() -> int:
+    import torch
+
+    from pathtracer_tpu_torch.ops import probes
+    from tools.cuda_timing import describe_clock, median_ms, sm_clock
+
+    if not torch.cuda.is_available():
+        print("rowprim_probe_torch: needs CUDA", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"nvidia-smi: {smi}")
+    tab, rays = probes.rowprim_inputs("cuda")
+    out = probes.rowprim(tab, rays)
+    print("compile ok, result", float(out[0, 0]), flush=True)
+    with sm_clock() as mhz:
+        ms = median_ms(lambda: probes.rowprim(tab, rays), runs=20)
+    ns = ms / probes.ROWPRIM_LAPS * 1e6
+    cycles = f", {ns * statistics.median(mhz) / 1e3:.0f} cycles/lap" if mhz else ""
+    print(f"{probes.ROWPRIM_LAPS} laps: {ms:.4f} ms -> {ns:.1f} ns/lap "
+          f"(8 row-reads + 8x2 bcasts + 8 reduces + scalar readback); "
+          f"{describe_clock(mhz)}{cycles}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
