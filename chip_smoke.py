@@ -8,7 +8,11 @@ line):
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles the kernels from pathtracer_tpu_torch/csrc with nvcc (one
    process per source, in parallel) and prints ptxas's registers, stack
-   frame and spills for each kernel;
+   frame and spills for each kernel, and a census of its machine code
+   (16-byte loads, local loads and stores, NaN-propagating min/max,
+   convergence regions); K1 and K3 may not spill and must fetch nodes and
+   triangle rows in 16-byte loads, and the box test must have compiled to
+   NaN-propagating min/max without a convergence region of its own;
 3. resident kernel parity on scenes/glasstorus.txt (10,000 triangles) at
    800x800: K1 (closest hit) and K2 (shadow any-hit) against their plain
    PyTorch versions on the card, on the 640,000 camera rays and one bounce's
@@ -17,7 +21,9 @@ line):
    past the resident budget) at 800x800, on the same kinds of rays: K3
    (closest hit) and K4 (shadow any-hit) against their plain versions, and
    against K1/K2 on the same mesh's wide tables (t bitwise equal, occlusion
-   equal: a lost or doubled triangle of the split would show); K5
+   equal: a lost or doubled triangle of the split would show), K3 through
+   the tables derived for it with the scene (padded triangle rows, per-block
+   rows), whose 16-byte alignment is asserted; K5
    (block-major closest hit) against its plain version and against K3 (t
    bitwise equal, exact-t tie lanes counted); median times of K1, K3, K5;
 5. the same K5-against-K3 check on scenes/glasstorus640k.txt (640,000
@@ -77,6 +83,7 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # additions or subtractions, 1 division, 1 select, 6 comparisons, and the
 # comparison with the ray's best t or window).
 BOX_OPS, TRI_OPS = 25, 55
+WALK_KERNELS = ("closest_hit_wbvh_kernel", "closest_hit_stream_kernel")  # csrc/walk_core.cuh
 SRC_RESIDENT = "pathtracer_tpu_torch/csrc/wbvh_traverse.cu"
 SRC_STREAM = "pathtracer_tpu_torch/csrc/stream_traverse.cu"
 SRC_PROBES = "pathtracer_tpu_torch/csrc/probes.cu"
@@ -129,6 +136,24 @@ def phase_build():
             f"{props.get('stack_bytes')} bytes stack frame, "
             f"{props.get('spill_store_bytes')} bytes spill stores, "
             f"{props.get('spill_load_bytes')} bytes spill loads")
+        # K1 and K3 hold a node's 48 box floats in registers: they must not spill
+        if kernel in WALK_KERNELS and (props.get("spill_store_bytes") or props.get("spill_load_bytes")
+                                       or props.get("stack_bytes") != 256):
+            raise AssertionError(f"{kernel} spills registers: {props}")
+    census = _build.sass_census()
+    for kernel, ops in sorted(census.items()):
+        log(f"sass {kernel}: " + ", ".join(f"{op} {n}" for op, n in ops.items()))
+    # a box test alone (the probe's aabb variant: 8 slab tests a pop, 10 min/max
+    # each) must not branch: each min/max is one NaN-propagating opcode,
+    # where a branchy form opens 12 regions a box
+    aabb = census["p2_aabb_kernel"]
+    if aabb["FMNMX.NAN"] < 80 or aabb["BSSY"] >= 12:
+        raise AssertionError(f"the box test of p2_aabb_kernel still branches: {aabb}")
+    for kernel in WALK_KERNELS:
+        ops = census[kernel]
+        # 12 loads for a node's boxes, 2 for its links, 3 for a triangle row
+        if ops["LDG.E.128"] < 17 or ops["FMNMX.NAN"] != ops["FMNMX"]:
+            raise AssertionError(f"{kernel} does not fetch in 16-byte loads: {ops}")
 
 
 def _max_err(a, b):
@@ -263,7 +288,9 @@ def stream_calls(flat, static):
     wide = dict(wide_depth=static.wide_depth)
     return dict(
         tables=dict(K3=k3_tables, K4=k4_tables, K5=k5_tables, K1=k1_tables, K2=k2_tables),
-        K3=lambda ro, rd, t0: ts.closest_hit_stream(*k3_tables, ro, rd, t0, **sizes, **depths),
+        K3=lambda ro, rd, t0: ts.closest_hit_stream(
+            *k3_tables, ro, rd, t0, **sizes, **depths, subt12=flat.str_subt12,
+            blocks=flat.str_blocks),
         K3_plain=lambda ro, rd, t0, **kw: ts.closest_hit_stream_plain(*k3_tables, ro, rd, t0, **sizes, **kw),
         K4=lambda so, sd, mt, o0: ts.occlusion_stream(*k4_tables, so, sd, mt, o0, **sizes, **depths),
         K4_plain=lambda so, sd, mt, o0, **kw: ts.occlusion_stream_plain(*k4_tables, so, sd, mt, o0, **sizes, **kw),
@@ -281,9 +308,19 @@ def describe_stream(label, flat, static):
         f"{static.stream_sub_nodes} nodes / {static.stream_sub_tris} triangles, walk depths "
         f"top {static.stream_top_depth} block {static.stream_sub_depth}; stream tables "
         f"{nbytes(flat.str_topf, flat.str_topl, flat.str_topp, flat.str_subf, flat.str_subi, flat.str_subp, flat.str_subt, flat.str_base)} "
-        f"bytes, wide tables {nbytes(flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)} bytes")
+        f"bytes, K3's derived tables {nbytes(flat.str_subt12, flat.str_blocks)} bytes, wide tables "
+        f"{nbytes(flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)} bytes")
     if static.stream_subs == 0:
         raise AssertionError(f"{label} did not take the streaming tables")
+    assert_aligned(flat, ("str_topf", "str_topl", "str_subf", "str_subi", "str_subt12",
+                          "str_blocks", "bvh_wf", "bvh_wi", "tri_pk"))
+
+
+def assert_aligned(flat, names) -> None:
+    """The tables K1 and K3 read in 16-byte loads start on 16-byte bounds."""
+    for name in names:
+        if getattr(flat, name).data_ptr() % 16:
+            raise AssertionError(f"{name} is not 16-byte aligned")
 
 
 def phase_resident_kernels(r):
@@ -292,6 +329,7 @@ def phase_resident_kernels(r):
 
     closest, shadow = ray_cases(r)
     flat, static = r.flat, r.static
+    assert_aligned(flat, ("bvh_wf", "bvh_wi", "tri_pk"))
     tables = (flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)
     k1 = lambda ro, rd, t0: tc.closest_hit_wbvh(*tables, ro, rd, t0, wide_depth=static.wide_depth)
     k1_err = 0.0

@@ -12,10 +12,18 @@
 //   subi (n_sub*S*24,)  i32  block node [local link x8 | start x8 | end x8];
 //                            [start, end) indexes the block's triangles
 //   subp (n_sub*S*8,)   i32  block node child order
-//   subt (n_sub*Tmax*9,) f32 block triangle rows [v0, e1, e2] (stride 9)
+//   subt (n_sub*Tmax*9,) f32 block triangle rows [v0, e1, e2] (stride 9; K4, K5)
 //   base (n_sub,)       i32  global id of block s's first triangle
 //   rootf (n_sub*6,)    f32  K5 only: block s's root box, the top slot that
-//                            links it (built by the wrapper from topf/topl)
+//                            links it (scene/flatscene.py stream_roots)
+// and, derived from them once per scene for K3 (scene/flatscene.py
+// stream_walk_tables):
+//   subt12 (n_sub*Tmax*12,) f32  subt's rows padded to [v0, e1, e2, 0 0 0]: 48
+//                            bytes, 3 loads of 16 bytes (a stride-9 row is
+//                            never 16-byte aligned)
+//   blocks (n_sub*4,)   i32  block s: [base[s], s*Tmax, lo, hi]; a block that
+//                            wraps one leaf cut has its rows [lo, hi) of
+//                            subt12, any other block lo = hi = -1
 //
 // The TPU kernels stream each block into on-chip memory through a DMA ring.
 // Here the tables simply stay in device memory (22 MB for 160k triangles,
@@ -25,10 +33,8 @@
 // The walk is K1's over two levels.  The top tree is the wide tree's upper
 // part and each block is a relabelled subtree, so a depth-first walk that
 // enters a block when it pops the block's entry, and walks the block to its
-// end before popping the top stack again, visits the same boxes and
-// triangles in the same order as K1 on the wide tables.  One loop serves
-// both levels (one node per iteration, block stack first), so the threads of
-// a warp re-converge after every node whichever level each is on.
+// end before it pops another top entry, visits the same boxes and triangles
+// in the same order as K1 on the wide tables.
 //
 // A leaf cut that hangs off a top node is stored as a one-node block (slot 0
 // the leaf, slot 1 empty).  K1 tests such a cut as soon as its box passes,
@@ -41,31 +47,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "traverse_common.cuh"
+#include "walk_core.cuh"
 
-#define TOP_STACK 64  // the wrapper checks 7*top_depth+1 <= TOP_STACK
-#define SUB_STACK 64  // and 7*sub_depth+1 <= SUB_STACK
-#define THREADS 128   // rays per block
+#define TOP_STACK 64  // K4: the wrapper checks 7*top_depth+1 <= TOP_STACK
+#define SUB_STACK 64  // K4, K5: and 7*sub_depth+1 <= SUB_STACK
+#define THREADS 128   // K4, K5: rays per block
 
 namespace {
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, idx, idy, idz;
-};
 
 struct Closest {
   float t, u, v;
   int tri;
 };
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
-                                        const float* __restrict__ d, int i) {
-  Ray r;
-  r.ox = o[3 * i], r.oy = o[3 * i + 1], r.oz = o[3 * i + 2];
-  r.dx = d[3 * i], r.dy = d[3 * i + 1], r.dz = d[3 * i + 2];
-  r.idx = 1.0f / r.dx, r.idy = 1.0f / r.dy, r.idz = 1.0f / r.dz;
-  return r;
-}
 
 __device__ __forceinline__ bool child_box(const float* __restrict__ nf, int slot,
                                           const Ray& r, float cap) {
@@ -123,7 +116,8 @@ __device__ __forceinline__ bool leaf_blocks(const float* __restrict__ rows, int 
   return false;
 }
 
-// One node of a block walk for a closest hit (K3's block branch, and K5's):
+// One node of K5's block walk (the per-ray order of K3's walk, child after
+// child):
 // children far -> near in the ray's octant order (the nearest is pushed
 // last), child nodes onto the block stack, leaf cuts tested at once.
 __device__ __forceinline__ void block_node_closest(const Block& b, const int* __restrict__ bp,
@@ -143,86 +137,92 @@ __device__ __forceinline__ void block_node_closest(const Block& b, const int* __
   }
 }
 
+// The stream tables as walk_core.cuh walks them, as one tree.  An entry is
+// ~t for top node t (so negative) or the flat row s*S + m of block s's node m
+// (which indexes subf/subi/subp as they lie), so one stack serves both
+// levels and nothing is kept per block.  A top child is a top node, a block
+// (entered at its root, row s*S) or a wrapped leaf cut (tested at once); a
+// block child is a node of the same block or a leaf cut of its triangles.
+struct StreamTables {
+  const float* topf;
+  const int* topl;
+  const int* topp;
+  const float* subf;
+  const int* subi;
+  const int* subp;
+  const float4* tri;    // subt12
+  const int4* blocks;
+  int S, Tmax;
+  static constexpr int kRoot = ~0;
+  struct Node {
+    const float4* boxes;
+    const int4* links;
+    const int* perm;
+  };
+  __device__ __forceinline__ Node node(int e) const {
+    const bool top = e < 0;
+    const size_t row = top ? ~e : e;
+    return {reinterpret_cast<const float4*>((top ? topf : subf) + row * 48),
+            reinterpret_cast<const int4*>(top ? topl + row * 8 : subi + row * 24),
+            (top ? topp : subp) + row * 8};
+  }
+  __device__ __forceinline__ bool child(int e, const Node& nd, int slot, int link, int& push,
+                                        int& lo, int& hi) const {
+    if (e < 0) {
+      if (link >= 0) {
+        push = ~link;
+        return true;
+      }
+      lo = hi = 0;
+      if (link == -1) return false;  // empty (its NaN box never passes)
+      const int s = -(link + 2);
+      const int4 b = __ldg(blocks + s);
+      push = s * S;
+      lo = b.z;
+      hi = b.w;
+      return b.z < 0;
+    }
+    const int s = (unsigned)e / (unsigned)S;
+    if (link >= 0) {
+      push = s * S + link;
+      return true;
+    }
+    const int* ni = reinterpret_cast<const int*>(nd.links);
+    lo = s * Tmax + __ldg(ni + 8 + slot);
+    hi = s * Tmax + __ldg(ni + 16 + slot);
+    return false;
+  }
+  // row s*Tmax + k of subt12 is triangle base[s] + k
+  __device__ __forceinline__ int tri_id(int row) const {
+    const int4 b = __ldg(blocks + (unsigned)row / (unsigned)Tmax);
+    return b.x + (row - b.y);
+  }
+};
+
 // K3: closest hit.  Replaces closest_hit_stream_pallas /
 // _make_stream_closest_kernel / _sub_walk_closest
 // (pathtracer_tpu/ops/traverse_pallas.py:871,633,549).  Starts from
-// t = t_init, tri = -1, u = v = 0; lanes with t_init < 0 never enter.
-// What bounds it on this card: latency, not bytes or operations (on the
-// 160k-triangle torus its roofline bound is about 1% of its time).  Every pop
-// is a chain of dependent loads (perm, boxes, links, triangle rows) from L2
-// or device memory, and the rays of a warp diverge over different nodes and
-// blocks.  It takes 1.7-1.8x K1's time on the same rays and mesh (PERF.md);
-// K5 below is the block-outer schedule of the same walk.
-__global__ void __launch_bounds__(THREADS)
+// t = t_init, tri = -1, u = v = 0; lanes with t_init < 0 never enter.  The
+// best triangle is kept as its row of subt12 and turned into its global id
+// (base[s] + the row within block s) once, at the end.
+// What bounds it on this card, and what the design does about it:
+// walk_core.cuh.  Beyond K1's walk a pop pays the choice of the level's
+// pointers, a block link its 16-byte row of `blocks`, and the tables are
+// sparser (blocks padded to S nodes and Tmax triangles).
+__global__ void __launch_bounds__(WALK_THREADS)
 closest_hit_stream_kernel(const float* __restrict__ topf, const int* __restrict__ topl,
                           const int* __restrict__ topp, const float* __restrict__ subf,
                           const int* __restrict__ subi, const int* __restrict__ subp,
-                          const float* __restrict__ subt, const int* __restrict__ base,
+                          const float* __restrict__ subt12, const int* __restrict__ blocks,
                           const float* __restrict__ o, const float* __restrict__ d,
                           const float* __restrict__ t_init,
                           float* __restrict__ t_out, int* __restrict__ tri_out,
                           float* __restrict__ u_out, float* __restrict__ v_out,
                           int n, int S, int Tmax) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(o, d, i);
-  Closest best = {t_init[i], 0.0f, 0.0f, -1};
-  if (best.t >= 0.0f) {
-    const int oct = (r.dx > 0.0f ? 1 : 0) | (r.dy > 0.0f ? 2 : 0) | (r.dz > 0.0f ? 4 : 0);
-    int tstack[TOP_STACK];
-    int bstack[SUB_STACK];
-    int tsp = 0, bsp = 0;
-    tstack[tsp++] = 0;
-    Block b = {};
-    const int* bp = nullptr;  // the block's child orders
-    int gbase = 0;            // and the global id of its first triangle
-    while (tsp > 0 || bsp > 0) {
-      // one node per iteration, from the block stack while it holds any,
-      // else from the top stack; a block entry -(2+s) starts block s at its
-      // root.  Depth first either way, so the order is K1's.
-      int node;
-      bool in_block = bsp > 0;
-      if (in_block) {
-        node = bstack[--bsp];
-      } else {
-        node = tstack[--tsp];
-        if (node < 0) {
-          const int s = -(node + 2);
-          b = block(subf, subi, subt, s, S, Tmax);
-          bp = subp + (size_t)s * S * 8;
-          gbase = base[s];
-          node = 0;
-          in_block = true;
-        }
-      }
-      if (in_block) {
-        block_node_closest(b, bp, node, oct, gbase, r, best, bstack, bsp);
-        continue;
-      }
-      const int perm = topp[node * 8 + oct];
-      const float* nf = topf + node * 48;
-      for (int rank = 7; rank >= 0; --rank) {
-        const int slot = (perm >> (3 * rank)) & 7;
-        if (!child_box(nf, slot, r, best.t)) continue;
-        const int link = topl[node * 8 + slot];
-        if (link == -1) continue;  // empty (its NaN box never passes)
-        if (link >= 0) {
-          tstack[tsp++] = link;
-          continue;
-        }
-        const int s = -(link + 2);
-        const int* root = subi + (size_t)s * S * 24;
-        if (wrapped_leaf(root))
-          leaf_closest(subt + (size_t)s * Tmax * 9, root[8], root[16], base[s], r, best);
-        else
-          tstack[tsp++] = link;
-      }
-    }
-  }
-  t_out[i] = best.t;
-  tri_out[i] = best.tri;
-  u_out[i] = best.u;
-  v_out[i] = best.v;
+  const StreamTables tb = {topf, topl, topp, subf, subi, subp,
+                           reinterpret_cast<const float4*>(subt12),
+                           reinterpret_cast<const int4*>(blocks), S, Tmax};
+  closest_hit_rays(tb, o, d, t_init, t_out, tri_out, u_out, v_out, n);
 }
 
 // K4: shadow any-hit.  Replaces occlusion_stream_pallas /
@@ -230,7 +230,11 @@ closest_hit_stream_kernel(const float* __restrict__ topf, const int* __restrict_
 // 1221).  K2's semantics: boxes are tested against min_t, children in slot
 // order, a lane stops at its first blocker (t < min_t - 1e-5 and
 // |t - min_t| > 1e-4); occluded0 lanes stay blocked and lanes with min_t < 0
-// (the -FLT_MAX sentinel) never block.  Bounds as K3.
+// (the -FLT_MAX sentinel) never block.  It keeps two stacks (top entries,
+// block-local nodes) and one loop over both levels, a node per iteration.
+// What bounds it on this card: latency, as K2 (dependent 4-byte loads, child
+// after child, from L2 or device memory; warps that diverge over nodes and
+// blocks); K3's redesign (walk_core.cuh) is still to be carried over.
 __global__ void __launch_bounds__(THREADS)
 occlusion_stream_kernel(const float* __restrict__ topf, const int* __restrict__ topl,
                         const float* __restrict__ subf, const int* __restrict__ subi,
@@ -308,8 +312,8 @@ occlusion_stream_kernel(const float* __restrict__ topf, const int* __restrict__ 
 // order); on an exact-t tie the block of lower index wins, where K3's
 // depth-first order may pick another.  Starts from t = t_init, tri = -1,
 // u = v = 0; lanes with t_init < 0 never enter a block.
-// What bounds it on this card: latency, as K3 (dependent loads from L2 or
-// device memory, warps that diverge over the blocks' nodes).  The TPU
+// What bounds it on this card: latency, as K4 (dependent 4-byte loads from L2
+// or device memory, warps that diverge over the blocks' nodes).  The TPU
 // kernel's chunk of resident rays, DMA ring and per-packet root filter are
 // not carried over: the tables stay in device memory, and the block-outer
 // order is what gives the threads of a CTA the same block at about the same
@@ -365,14 +369,14 @@ inline dim3 grid_for(int n) { return dim3((unsigned)((n + THREADS - 1) / THREADS
 
 extern "C" int pt_closest_hit_stream(const float* topf, const int* topl, const int* topp,
                                      const float* subf, const int* subi, const int* subp,
-                                     const float* subt, const int* base, const float* o,
+                                     const float* subt12, const int* blocks, const float* o,
                                      const float* d, const float* t_init, float* t_out,
                                      int* tri_out, float* u_out, float* v_out, int n, int S,
                                      int Tmax, void* stream) {
   if (n > 0)
-    closest_hit_stream_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        topf, topl, topp, subf, subi, subp, subt, base, o, d, t_init, t_out, tri_out, u_out,
-        v_out, n, S, Tmax);
+    closest_hit_stream_kernel<<<walk_grid(n), WALK_THREADS, 0, (cudaStream_t)stream>>>(
+        topf, topl, topp, subf, subi, subp, subt12, blocks, o, d, t_init, t_out, tri_out,
+        u_out, v_out, n, S, Tmax);
   return (int)cudaGetLastError();
 }
 

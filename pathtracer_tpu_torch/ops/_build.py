@@ -12,6 +12,8 @@ Flags: `sm_90a` (Hopper), `-O3`, and `-fmad=false` without fast math, so a
 kernel rounds operation for operation like its plain PyTorch version and an
 IEEE division by zero gives +-inf.  `-Xptxas=-v` makes ptxas report each
 kernel's registers, stack frame and spills; `ptxas_report()` returns them.
+`sass_census()` counts, in the machine code of each kernel as `cuobjdump
+-sass` prints it, the opcodes that say how it loads and branches.
 """
 
 from __future__ import annotations
@@ -162,6 +164,39 @@ def ptxas_report() -> dict[str, dict[str, int]]:
             elif fn and (m := re.search(r"Used (\d+) registers", line)):
                 report.setdefault(fn, {})["registers"] = int(m.group(1))
     return report
+
+
+# SASS opcodes counted per kernel: 16-byte and other global loads, local
+# (stack, spill) loads and stores, NaN-propagating min/max, and the
+# convergence regions (BSSY) that divergent branches open
+SASS_OPCODES = ("LDG.E.128", "LDG", "LDL", "STL", "FMNMX.NAN", "FMNMX", "BSSY", "BRA")
+
+
+def sass_census() -> dict[str, dict[str, int]]:
+    """Per kernel, how many operations of each `SASS_OPCODES` entry its
+    machine code holds (an opcode counts under every entry it starts with:
+    LDG.E.128 also under LDG).  Needs the built libraries and `cuobjdump`
+    beside nvcc."""
+    load_library()
+    nvcc = find_nvcc()
+    cuobjdump = Path(nvcc).with_name("cuobjdump") if nvcc else None
+    if cuobjdump is None or not cuobjdump.is_file():
+        raise RuntimeError("cuobjdump not found beside nvcc")
+    census: dict[str, dict[str, int]] = {}
+    for src in _sources():
+        text = subprocess.run([str(cuobjdump), "-sass", str(_lib_path(src))],
+                              capture_output=True, text=True, check=True).stdout
+        fn = None
+        for line in text.splitlines():
+            if m := re.search(r"Function : (\S+)", line):
+                fn = next((k for k in KERNELS if k in m.group(1)), None)
+                if fn:
+                    census[fn] = dict.fromkeys(SASS_OPCODES, 0)
+            elif fn and (m := re.search(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z][\w.]*)", line)):
+                for op in SASS_OPCODES:
+                    if m.group(1) == op or m.group(1).startswith(op + "."):
+                        census[fn][op] += 1
+    return census
 
 
 def check(rc: int, what: str) -> None:

@@ -214,7 +214,7 @@ def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None) -> Hit:
         t_tri, tri, u, v = closest_hit_stream(
             flat.str_topf, flat.str_topl, flat.str_topp, flat.str_subf, flat.str_subi,
             flat.str_subp, flat.str_subt, flat.str_base, o, d, t_init,
-            **_stream_args(static),
+            **_stream_args(static), subt12=flat.str_subt12, blocks=flat.str_blocks,
         )
     else:
         t_tri, tri, u, v = closest_hit_wbvh(

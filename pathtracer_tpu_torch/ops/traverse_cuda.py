@@ -3,7 +3,8 @@
 Port of the two resident Pallas kernels of
 `pathtracer_tpu/ops/traverse_pallas.py`: `closest_hit_wbvh_pallas` (K1) and
 `occlusion_wbvh_pallas` (K2).  The CUDA kernels live in
-`csrc/wbvh_traverse.cu`; this module holds, for each:
+`csrc/wbvh_traverse.cu` (K1's walk in `csrc/walk_core.cuh`, which K3 shares);
+this module holds, for each:
 
 - the wrapper (`closest_hit_wbvh`, `occlusion_wbvh`): on a CPU tensor it
   runs the plain PyTorch version; on a CUDA tensor it launches the kernel
@@ -27,7 +28,7 @@ import torch
 
 from pathtracer_tpu_torch.ops import _build
 
-STACK = 64  # per-ray traversal stack (csrc/wbvh_traverse.cu STACK)
+STACK = 64  # per-ray traversal stack (csrc/wbvh_traverse.cu STACK, csrc/walk_core.cuh WALK_STACK)
 
 closest_launches = 0
 occlusion_launches = 0
@@ -57,6 +58,13 @@ def _check_cuda_args(tensors: dict, dtypes: dict) -> None:
             raise ValueError(f"{name} has dtype {t.dtype}, expected {dtypes[name]}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_aligned(**tensors) -> None:
+    """The kernels read these tables in 16-byte loads."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the kernel's vector loads")
 
 
 def _rays(o, d):
@@ -256,6 +264,7 @@ def closest_hit_wbvh(wf, wi, wp, tri12, o, d, t_init, *, wide_depth: int):
         dict(wf=wf, wi=wi, wp=wp, tri12=tri12, o=o, d=d, t_init=t_init),
         dict(wf=f32, wi=i32, wp=i32, tri12=f32, o=f32, d=f32, t_init=f32),
     )
+    _check_aligned(wf=wf, wi=wi, tri12=tri12)
     lib = _build.load_library()
     n = o.shape[0]
     t = torch.empty((n,), dtype=f32, device=o.device)

@@ -21,6 +21,13 @@ wide tree's upper part, a child link -(2+s) enters block s, which is walked
 to its end with block-local node and triangle indices (triangle ids rebased
 by `base[s]`).  A leaf cut hanging off a top node is a one-node block and is
 tested at once, as K1 tests it, so K3 returns K1's result lane for lane.
+K3's kernel shares K1's walk (`csrc/walk_core.cuh`): it walks both levels as
+one tree with one stack (so `closest_hit_stream` holds top_depth + sub_depth
+against it) and reads, beside the stream tables, two tables derived from
+them once per scene (`scene/flatscene.py stream_walk_tables`): triangle rows
+padded to 48 bytes and a 16-byte row per block.  Its plain version keeps the
+two stacks and the stream tables alone; both visit the same nodes in the
+same order.
 Sentinels as K1/K2: lanes with t_init < 0 never enter K3 or K5; K4 keeps
 `occluded0` lanes blocked and never blocks a lane with min_t < 0.
 
@@ -38,13 +45,16 @@ import torch
 
 from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops.traverse_cuda import (
+    _check_aligned,
     _check_cuda_args,
     _moller_trumbore,
     _rays,
     _slab,
 )
 
-STACK = 64  # each of the top and block stacks (csrc/stream_traverse.cu TOP_STACK, SUB_STACK)
+# K4's top and block stacks and K5's block stack (csrc/stream_traverse.cu
+# TOP_STACK, SUB_STACK), and K3's one stack (csrc/walk_core.cuh WALK_STACK)
+STACK = 64
 # closest hits of a streamed mesh go through K5 instead of K3 (the
 # counterpart of pathtracer_tpu/ops/traverse_pallas.py STREAM_BLOCKMAJOR)
 STREAM_BLOCKMAJOR = False
@@ -70,6 +80,19 @@ def _check_depths(top_depth: int, sub_depth: int) -> None:
             )
 
 
+def _check_walk_depth(top_depth: int, sub_depth: int) -> None:
+    """K3 walks the two levels as one tree with one stack.  A block's root
+    lies at most `top_depth` below the top root and its nodes at most
+    `sub_depth` below that; a depth-first walk holds up to 7 pending siblings
+    per level, so at most 7*(top_depth + sub_depth) + 1 entries."""
+    need = 7 * (int(top_depth) + int(sub_depth)) + 1
+    if need > STACK:
+        raise ValueError(
+            f"streaming depths top {top_depth} + block {sub_depth} need a stack of "
+            f"{need} entries; the kernel has {STACK}"
+        )
+
+
 def _check_tables(base, sub_nodes, sub_tris, **tables):
     """The sizes of the stream `tables` given (by their FlatScene names less
     `str_`), for base's block count and topl's top-node count."""
@@ -79,6 +102,7 @@ def _check_tables(base, sub_nodes, sub_tris, **tables):
         topf=n_top * 48, topl=n_top * 8, topp=n_top * 8, roots=n_sub * 6,
         subf=n_sub * sub_nodes * 48, subi=n_sub * sub_nodes * 24,
         subp=n_sub * sub_nodes * 8, subt=n_sub * sub_tris * 9,
+        subt12=n_sub * sub_tris * 12, blocks=n_sub * 4,
     )
     for name, table in tables.items():
         if table.numel() != want[name]:
@@ -332,14 +356,19 @@ def occlusion_stream_plain(topf, topl, subf, subi, subt, base, o, d, min_t, occl
 
 
 def closest_hit_stream(topf, topl, topp, subf, subi, subp, subt, base, o, d, t_init, *,
-                       sub_nodes: int, sub_tris: int, top_depth: int, sub_depth: int):
+                       sub_nodes: int, sub_tris: int, top_depth: int, sub_depth: int,
+                       subt12=None, blocks=None):
     """K3: closest hit of N rays against the two-level streaming tables.
 
     Returns (t, tri, u, v); tri is -1 where nothing beat t_init.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel.
+    tensors take the plain version; CUDA tensors launch the kernel, which
+    reads the triangles from `subt12` and the blocks' bases and wrapped leaf
+    cuts from `blocks` (FlatScene.str_subt12 and str_blocks, derived from
+    subt, subi and base once per scene by scene/flatscene.py
+    stream_walk_tables) and so needs both.
     """
     global closest_launches
-    _check_depths(top_depth, sub_depth)
+    _check_walk_depth(top_depth, sub_depth)
     _check_tables(base, sub_nodes, sub_tris, topf=topf, topl=topl, topp=topp, subf=subf,
                   subi=subi, subp=subp, subt=subt)
     _rays(o, d)
@@ -348,13 +377,18 @@ def closest_hit_stream(topf, topl, topp, subf, subi, subp, subt, base, o, d, t_i
                                         t_init, sub_nodes=sub_nodes, sub_tris=sub_tris)
     if o.device.type != "cuda":
         raise ValueError(f"closest_hit_stream runs on cpu or cuda tensors, not {o.device}")
+    if subt12 is None or blocks is None:
+        raise ValueError("closest_hit_stream on CUDA tensors needs subt12 and blocks "
+                         "(FlatScene.str_subt12, str_blocks)")
+    _check_tables(base, sub_nodes, sub_tris, subt12=subt12, blocks=blocks)
     f32, i32 = torch.float32, torch.int32
     _check_cuda_args(
-        dict(topf=topf, topl=topl, topp=topp, subf=subf, subi=subi, subp=subp, subt=subt,
-             base=base, o=o, d=d, t_init=t_init),
-        dict(topf=f32, topl=i32, topp=i32, subf=f32, subi=i32, subp=i32, subt=f32,
-             base=i32, o=f32, d=f32, t_init=f32),
+        dict(topf=topf, topl=topl, topp=topp, subf=subf, subi=subi, subp=subp, subt12=subt12,
+             blocks=blocks, o=o, d=d, t_init=t_init),
+        dict(topf=f32, topl=i32, topp=i32, subf=f32, subi=i32, subp=i32, subt12=f32,
+             blocks=i32, o=f32, d=f32, t_init=f32),
     )
+    _check_aligned(topf=topf, topl=topl, subf=subf, subi=subi, subt12=subt12, blocks=blocks)
     lib = _build.load_library()
     n = o.shape[0]
     t = torch.empty((n,), dtype=f32, device=o.device)
@@ -363,7 +397,7 @@ def closest_hit_stream(topf, topl, topp, subf, subi, subp, subt, base, o, d, t_i
     v = torch.empty((n,), dtype=f32, device=o.device)
     rc = lib.pt_closest_hit_stream(
         topf.data_ptr(), topl.data_ptr(), topp.data_ptr(), subf.data_ptr(),
-        subi.data_ptr(), subp.data_ptr(), subt.data_ptr(), base.data_ptr(),
+        subi.data_ptr(), subp.data_ptr(), subt12.data_ptr(), blocks.data_ptr(),
         o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
         t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n, sub_nodes, sub_tris,
         torch.cuda.current_stream(o.device).cuda_stream,

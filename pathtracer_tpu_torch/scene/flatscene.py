@@ -8,8 +8,9 @@ are what make triangle-id parity exact.  The fields carry the JAX names.
 A mesh within `resident_tables_fit` is walked through the wide tables
 (`bvh_w*`, `tri_pk`; kernels K1/K2); a larger one through the two-level
 streaming tables (`str_*`, `build_stream_tables`; kernels K3/K4, and K5,
-which also reads the blocks' root boxes `str_roots`, a table only the port
-has).
+which also reads the blocks' root boxes `str_roots`; K3 reads the padded
+triangle rows `str_subt12` and the per-block rows `str_blocks`: three tables
+only the port has, each derived from the stream tables once per scene).
 
 Not yet ported (each raises `NotImplementedError`): texture atlases and
 normal maps (ROADMAP Queue 1 item 11) and environment maps (item 12).  Their
@@ -73,6 +74,8 @@ class FlatScene:
     str_subt: torch.Tensor         # (n_sub*Tmax*9,) f32: v0, e1, e2 of block-local triangles
     str_base: torch.Tensor         # (n_sub,) i32: global id of each block's first triangle
     str_roots: torch.Tensor        # (n_sub*6,) f32: each block's root box (K5; `stream_roots`)
+    str_subt12: torch.Tensor       # (n_sub*Tmax*12,) f32: str_subt's rows padded to 48 bytes (K3)
+    str_blocks: torch.Tensor       # (n_sub*4,) i32: [base, s*Tmax, wrapped leaf lo, hi] (K3)
     mat_f32: torch.Tensor          # (8, M): albedo(3) roughness metallic ior pad(2)
     mat_i32: torch.Tensor          # (8, M): type atex mtex rtex ntex pad(3)
     atlas: torch.Tensor            # texture tables: placeholders (not ported)
@@ -337,6 +340,34 @@ def stream_roots(topf: np.ndarray, topl: np.ndarray, n_sub: int) -> np.ndarray:
     return roots[:n_sub].reshape(-1)
 
 
+def stream_walk_tables(subi: np.ndarray, subt: np.ndarray, base: np.ndarray,
+                       sub_nodes: int, sub_tris: int) -> tuple[np.ndarray, np.ndarray]:
+    """The two tables K3's walk reads beside the stream tables, derived from
+    them (`ops/traverse_stream_cuda.py closest_hit_stream`):
+
+    - subt12 (n_sub*Tmax*12,) f32: `subt`'s rows [v0, e1, e2] padded with
+      three zeros to 12 floats, so that a row is 48 bytes and 16-byte aligned
+      (as `tri_pk`'s are), and row s*Tmax + k is block s's triangle k;
+    - blocks (n_sub*4,) i32: block s's row [base[s], s*Tmax, lo, hi].  A block
+      that wraps one leaf cut (its root has nothing in slot 1: a real wide
+      node has at least two children) has lo, hi = s*Tmax + the cut's
+      [start, end), the rows of subt12 to test as soon as the block's box
+      passes; any other block has lo = hi = -1 and is entered at its root.
+    """
+    n_sub = int(np.asarray(base).size)
+    subt12 = np.zeros((n_sub * sub_tris, 12), np.float32)
+    subt12[:, 0:9] = np.asarray(subt, np.float32).reshape(n_sub * sub_tris, 9)
+    roots = np.asarray(subi, np.int32).reshape(n_sub, sub_nodes, 3, 8)[:, 0]
+    wrapped = (roots[:, 0, 1] < 0) & (roots[:, 2, 1] <= roots[:, 1, 1])
+    row0 = np.arange(n_sub, dtype=np.int64) * sub_tris
+    blocks = np.empty((n_sub, 4), np.int32)
+    blocks[:, 0] = np.asarray(base, np.int32).reshape(-1)
+    blocks[:, 1] = row0
+    blocks[:, 2] = np.where(wrapped, row0 + roots[:, 1, 0], -1)
+    blocks[:, 3] = np.where(wrapped, row0 + roots[:, 2, 0], -1)
+    return subt12.reshape(-1), blocks.reshape(-1)
+
+
 def _tree_depth(links: np.ndarray) -> np.ndarray:
     """Depth of the deepest node reachable from node 0 of each tree in
     `links` (B, nodes, 8), following links >= 0; returns (B,)."""
@@ -377,12 +408,19 @@ def _placeholder_tables() -> dict[str, np.ndarray]:
 
 def flat_from_arrays(arrays: Mapping[str, np.ndarray], device) -> FlatScene:
     """Tables as numpy arrays (for instance the JAX package's FlatScene
-    fields) -> the port's FlatScene on `device`.  `str_roots`, which the JAX
-    package does not hold, is built from the stream tables when absent."""
+    fields) -> the port's FlatScene on `device`.  `str_roots`, `str_subt12`
+    and `str_blocks`, which the JAX package does not hold, are built from the
+    stream tables when absent (the block sizes follow from the tables: 24
+    ints a node, 9 floats a triangle)."""
+    base = np.asarray(arrays["str_base"])
     if "str_roots" not in arrays:
-        base = np.asarray(arrays["str_base"])
         arrays = {**arrays, "str_roots": stream_roots(arrays["str_topf"], arrays["str_topl"],
                                                       base.size)}
+    if "str_subt12" not in arrays:
+        subi, subt = np.asarray(arrays["str_subi"]), np.asarray(arrays["str_subt"])
+        subt12, blocks = stream_walk_tables(subi, subt, base, subi.size // (24 * base.size),
+                                            subt.size // (9 * base.size))
+        arrays = {**arrays, "str_subt12": subt12, "str_blocks": blocks}
     return FlatScene(**{
         f.name: torch.from_numpy(np.array(arrays[f.name])).to(device)
         for f in fields(FlatScene)

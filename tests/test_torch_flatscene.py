@@ -34,9 +34,10 @@ def _jax_arrays(flat):
 
 # SceneStatic fields that only the port has (the streaming walk's depths)
 PORT_STATIC = {"stream_top_depth", "stream_sub_depth"}
-# FlatScene fields that only the port has (K5's block root boxes, which the
-# JAX package builds inside its kernel's call)
-PORT_FLAT = {"str_roots"}
+# FlatScene fields that only the port has, each derived from the stream
+# tables: K5's block root boxes, which the JAX package builds inside its
+# kernel's call, and K3's padded triangle rows and per-block rows
+PORT_FLAT = {"str_roots", "str_subt12", "str_blocks"}
 
 
 def test_tables_equal(scene_path):
@@ -45,6 +46,9 @@ def test_tables_equal(scene_path):
     want = _jax_arrays(jflat)
     assert set(want) | PORT_FLAT == {f.name for f in dataclasses.fields(tfs.FlatScene)}
     want["str_roots"] = tfs.stream_roots(want["str_topf"], want["str_topl"], want["str_base"].size)
+    want["str_subt12"], want["str_blocks"] = tfs.stream_walk_tables(
+        want["str_subi"], want["str_subt"], want["str_base"], tfs.STREAM_SUB_NODES,
+        tfs.STREAM_SUB_TRIS)
     for name, a in want.items():
         b = getattr(tflat, name).numpy()
         assert b.dtype == a.dtype and b.shape == a.shape, name

@@ -1,0 +1,168 @@
+"""Times the traversal kernels K1-K5 of several checkouts of this repository
+on one GPU, in turns, inside one process tree on one card.
+
+    python tools/compare_walk_kernels.py [--meshes M,M] [--runs N] [--out FILE] \\
+        TREE[:NAME=VALUE,...] [TREE ...]
+
+for instance, with the parent commit unpacked into `_checkout/parent`
+(`git archive <commit> | tar -x -C _checkout/parent`; `_checkout/` is
+gitignored):
+
+    python tools/compare_walk_kernels.py _checkout/parent . . _checkout/parent
+
+Each TREE is the root of a checkout that holds `chip_smoke.py` and the
+port; the trees run in the order given, each in a process of its own, so
+old-new-new-old shows the run-to-run spread beside the difference.  A tree
+may carry compile-time defines for its kernels (`.:WALK_THREADS=64`): they
+are passed to nvcc as `-D`, and the libraries go into a build directory of
+their own.  In each turn the tree's own `chip_smoke.py` builds the three
+scenes' tables (glasstorus, glasstorus160k, glasstorus640k) and the
+800x800 frame's 640,000 continuation rays, checks K1 and K3 against the
+tree's plain versions on glasstorus and glasstorus160k (all four ray sets)
+and K3 against K1 on the two large meshes, and times K1, K3 and K5 on the
+continuation rays and K2 and K4 on the NEE shadow rays with CUDA events
+(median of `--runs`, 5 unless given, after a warm-up), the SM clock sampled
+over the mesh's turn.  `--meshes` keeps the turns to some of the three.
+Prints the card's name and power limit, one
+line per turn and mesh, and a table of medians per tree; `--out FILE`
+writes the same as JSON.  Needs CUDA; the large OBJs are written once and
+shared between the trees.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+# Runs with a tree's root as working directory; uses only what every tree's
+# chip_smoke.py has had since the streaming kernels landed.
+WORKER = r"""
+import json, sys
+from pathlib import Path
+meshes, runs = sys.argv[1].split(","), int(sys.argv[2])
+defines = [a for a in sys.argv[3:] if a]
+import torch
+import chip_smoke as cs
+from pathtracer_tpu_torch.ops import _build
+from pathtracer_tpu_torch.ops import traverse_cuda as tc
+from tools.cuda_timing import describe_clock, median_ms, sm_clock
+if defines:
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + tuple("-D" + a for a in defines)
+    _build.BUILD_DIR = _build.BUILD_DIR / ("variant_" + "_".join(defines).replace("=", "-"))
+_build.load_library()
+report = {k: v for k, v in _build.ptxas_report().items() if not k.startswith("p")}
+out = {"ptxas": report, "meshes": {}}
+for scene in (cs.SCENE, cs.SCENE_160K, cs.SCENE_640K):
+    if scene.stem not in meshes:
+        continue
+    r = cs.build_renderer(scene)[0]
+    closest, shadow = cs.ray_cases(r)
+    flat, static = r.flat, r.static
+    wide = (flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)
+    k1 = lambda ro, rd, t0: tc.closest_hit_wbvh(*wide, ro, rd, t0, wide_depth=static.wide_depth)
+    k = cs.stream_calls(flat, static) if static.stream_subs else None
+    check = scene != cs.SCENE_640K  # the plain walks take minutes there
+    same = True
+    with sm_clock() as clock:
+        for label, (ro, rd, t0) in closest.items():
+            got1 = k1(ro, rd, t0)
+            if check:
+                want = tc.closest_hit_wbvh_plain(*wide, ro, rd, t0)
+                same &= all(torch.equal(a, b) for a, b in zip(got1, want))
+            if k:
+                got3 = k["K3"](ro, rd, t0)
+                same &= all(torch.equal(a, b) for a, b in zip(got3, got1))
+                if check:
+                    want = k["K3_plain"](ro, rd, t0)
+                    same &= all(torch.equal(a, b) for a, b in zip(got3, want))
+        ro, rd, t0 = closest["continuation"]
+        so, sd, mt, o0 = shadow["NEE"]
+        k2_tables = (flat.bvh_wf, flat.bvh_wi, flat.tri_pk)
+        ms = {"K1": median_ms(lambda: k1(ro, rd, t0), runs),
+              "K2": median_ms(lambda: tc.occlusion_wbvh(*k2_tables, so, sd, mt, o0,
+                                                        wide_depth=static.wide_depth), runs)}
+        if k:
+            ms["K3"] = median_ms(lambda: k["K3"](ro, rd, t0), runs)
+            ms["K4"] = median_ms(lambda: k["K4"](so, sd, mt, o0), runs)
+            ms["K5"] = median_ms(lambda: k["K5"](ro, rd, t0), runs)
+    out["meshes"][scene.stem] = {"ms": ms, "bitwise_equal": bool(same), "clock": describe_clock(clock),
+                                 "rays": ro.shape[0]}
+    del r, closest, flat, k
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out))
+"""
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("trees", nargs="+", metavar="TREE[:NAME=VALUE,...]")
+    p.add_argument("--out", type=Path)
+    p.add_argument("--meshes", default="glasstorus,glasstorus160k,glasstorus640k")
+    p.add_argument("--runs", type=int, default=5)
+    args = p.parse_args(argv)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"nvidia-smi: {smi}", flush=True)
+    sys.path.insert(0, str(ROOT))
+    from tools.make_torus_obj import ensure_torus_obj
+
+    assets = {"torus160k.obj": (400, 200), "torus640k.obj": (800, 400)}
+    for name, (major, minor) in assets.items():
+        ensure_torus_obj(ROOT / "scenes" / "assets" / name, major, minor)
+
+    turns = []
+    for spec in args.trees:
+        tree, _, defs = spec.partition(":")
+        root = Path(tree).resolve()
+        for name in assets:  # the OBJs are gitignored, so a fresh checkout lacks them
+            dst = root / "scenes" / "assets" / name
+            if not dst.exists():
+                shutil.copy(ROOT / "scenes" / "assets" / name, dst)
+        proc = subprocess.run([sys.executable, "-c", WORKER, args.meshes, str(args.runs), *defs.split(",")], cwd=root,
+                              env={**os.environ, "PYTHONPATH": str(root)},
+                              capture_output=True, text=True)
+        line = next((l for l in proc.stdout.splitlines() if l.startswith("RESULT ")), None)
+        if proc.returncode != 0 or line is None:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
+            raise SystemExit(f"the turn of {spec} failed")
+        res = json.loads(line[len("RESULT "):])
+        turns.append({"tree": spec, **res})
+        for kernel, props in sorted(res["ptxas"].items()):  # empty when already built
+            print(f"{spec} ptxas {kernel}: {props}", flush=True)
+        for mesh, m in res["meshes"].items():
+            ms = m["ms"]
+            ratio = f", K3/K1 {ms['K3'] / ms['K1']:.3f}" if "K3" in ms else ""
+            print(f"{spec} {mesh} at {m['rays']} continuation rays: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()) + ratio
+                  + f"; equal to the plain versions bit for bit: {m['bitwise_equal']}; {m['clock']}",
+                  flush=True)
+        if not all(m["bitwise_equal"] for m in res["meshes"].values()):
+            raise SystemExit(f"{spec}: a kernel disagrees with its plain version")
+
+    print("medians over each tree's turns (ms):")
+    for spec in dict.fromkeys(t["tree"] for t in turns):
+        mine = [t for t in turns if t["tree"] == spec]
+        for mesh in mine[0]["meshes"]:
+            cells = []
+            for kernel in mine[0]["meshes"][mesh]["ms"]:
+                vals = [t["meshes"][mesh]["ms"][kernel] for t in mine]
+                cells.append(f"{kernel} {statistics.median(vals):.4f} "
+                             f"({' / '.join(f'{v:.4f}' for v in vals)})")
+            print(f"  {spec} {mesh}: " + ", ".join(cells))
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"card": smi, "turns": turns}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -3,11 +3,12 @@
     python tools/profile_torch_port.py scenes/glasstorus160k.txt
 
 Renders the scene MIS at 800x800, depth 8, through
-`Renderer(..., device="cuda")`, runs 3 iterations to warm up, then traces 2
-with torch.profiler and prints, per iteration: the wall time, the device's
-busy time (sum of kernel times) and busy share, the number of kernel
-launches, and the 12 kernels that take the most device time, with the
-traversal kernels (K1-K5) named.  The card's name and power limit come
+`Renderer(..., device="cuda")`, runs 3 iterations to warm up, times 2 on the
+host's clock without the profiler, then traces 2 with torch.profiler and
+prints, per iteration: the wall time without and under the profiler, the
+device's busy time (sum of kernel times) and busy share, the number of
+kernel launches, and the 12 kernels that take the most device time, with
+the traversal kernels (K1-K5) named.  The card's name and power limit come
 first.  Needs CUDA.  The scene's assets must exist: for glasstorus160k,
 write its OBJ first with `tools/make_torus_obj.py` (see its docstring).
 """
@@ -51,6 +52,10 @@ def main(argv=None) -> int:
                  resolution=(RES, RES), trace_depth=DEPTH, device="cuda")
     r.step(WARM)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.step(ITERS)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         r.step(ITERS)
@@ -61,7 +66,8 @@ def main(argv=None) -> int:
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     print(f"{args.scene.name} MIS {RES}x{RES} depth {DEPTH}, {ITERS} traced iterations "
-          f"after {WARM}: wall {wall / ITERS * 1e3:.3f} ms/iteration (under the profiler), device "
+          f"after {WARM}: wall {plain_wall / ITERS * 1e3:.3f} ms/iteration without the profiler "
+          f"({ITERS} iterations before the traced ones), {wall / ITERS * 1e3:.3f} under it, device "
           f"busy {busy_us / ITERS / 1e3:.3f} ms/iteration, busy share {busy_us / 1e6 / wall:.4f}, "
           f"{launches / ITERS:.0f} kernel launches/iteration")
     kernels.sort(key=lambda e: -e.self_device_time_total)
