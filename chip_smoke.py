@@ -10,25 +10,28 @@ line):
    process per source, in parallel) and prints ptxas's registers, stack
    frame and spills for each kernel, and a census of its machine code
    (16-byte loads, local loads and stores, NaN-propagating min/max,
-   convergence regions); K1 and K3 may not spill and must fetch nodes and
+   convergence regions); K1-K4 may not spill and must fetch nodes and
    triangle rows in 16-byte loads, and the box test must have compiled to
    NaN-propagating min/max without a convergence region of its own;
 3. resident kernel parity on scenes/glasstorus.txt (10,000 triangles) at
    800x800: K1 (closest hit) and K2 (shadow any-hit) against their plain
-   PyTorch versions on the card, on the 640,000 camera rays and one bounce's
-   continuation rays, plus dead-lane and t-cap variants; median times;
+   PyTorch versions on the card, K1 on the 640,000 camera rays and one
+   bounce's continuation rays, plus dead-lane and t-cap variants, K2 on two
+   sets of NEE shadow rays toward the lamp (from the camera rays' hits and
+   from the continuation rays' hits, the latter with ended paths as dead
+   lanes), each also with occluded0 lanes and -FLT_MAX lanes; median times;
 4. stream kernel parity on scenes/glasstorus160k.txt (160,000 triangles,
    past the resident budget) at 800x800, on the same kinds of rays: K3
    (closest hit) and K4 (shadow any-hit) against their plain versions, and
    against K1/K2 on the same mesh's wide tables (t bitwise equal, occlusion
-   equal: a lost or doubled triangle of the split would show), K3 through
-   the tables derived for it with the scene (padded triangle rows, per-block
-   rows), whose 16-byte alignment is asserted; K5
+   equal: a lost or doubled triangle of the split would show), K3 and K4
+   through the tables derived for them with the scene (padded triangle rows,
+   per-block rows), whose 16-byte alignment is asserted; K5
    (block-major closest hit) against its plain version and against K3 (t
    bitwise equal, exact-t tie lanes counted); median times of K1, K3, K5;
 5. the same K5-against-K3 check on scenes/glasstorus640k.txt (640,000
-   triangles, stream tables past the L2), the table bytes, and median times
-   of K1, K3, K5, K2 and K4 there;
+   triangles, stream tables past the L2), K4 against K2 there, the table
+   bytes, and median times of K1, K3, K5, K2 and K4 there;
 6. main paths, as a user calls them: Renderer(scene, MIS, device="cuda") at
    800x800, depth 8, 8 spp, for glasstorus (must launch K1 and K2), for
    glasstorus160k (must launch K3 and K4, and neither K1 nor K2), and for
@@ -83,7 +86,15 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # additions or subtractions, 1 division, 1 select, 6 comparisons, and the
 # comparison with the ray's best t or window).
 BOX_OPS, TRI_OPS = 25, 55
-WALK_KERNELS = ("closest_hit_wbvh_kernel", "closest_hit_stream_kernel")  # csrc/walk_core.cuh
+# The kernels of csrc/walk_core.cuh, K1, K3 (closest hit) and K2, K4 (any hit),
+# with the 16-byte loads each must hold at least: 12 for a node's boxes, 2 for
+# its links, 3 for a triangle row, of which the compiler may narrow the third
+# to the one float of it that counts (e2z), as it does in the any-hit walk
+WALK_KERNELS = {"closest_hit_wbvh_kernel": 17, "closest_hit_stream_kernel": 17,
+                "occlusion_wbvh_kernel": 16, "occlusion_stream_kernel": 16}
+# convergence regions of the two any-hit kernels before they took the shared walk
+BSSY_BEFORE = {"occlusion_wbvh_kernel": 29, "occlusion_stream_kernel": 61}
+SHADOW_SETS = ("NEE", "NEE continuation")  # the kernels line's times are the first set's
 SRC_RESIDENT = "pathtracer_tpu_torch/csrc/wbvh_traverse.cu"
 SRC_STREAM = "pathtracer_tpu_torch/csrc/stream_traverse.cu"
 SRC_PROBES = "pathtracer_tpu_torch/csrc/probes.cu"
@@ -136,23 +147,24 @@ def phase_build():
             f"{props.get('stack_bytes')} bytes stack frame, "
             f"{props.get('spill_store_bytes')} bytes spill stores, "
             f"{props.get('spill_load_bytes')} bytes spill loads")
-        # K1 and K3 hold a node's 48 box floats in registers: they must not spill
+        # the walks hold a node's 48 box floats in registers: they must not
+        # spill, and their frame is the 64-entry stack alone
         if kernel in WALK_KERNELS and (props.get("spill_store_bytes") or props.get("spill_load_bytes")
                                        or props.get("stack_bytes") != 256):
             raise AssertionError(f"{kernel} spills registers: {props}")
     census = _build.sass_census()
     for kernel, ops in sorted(census.items()):
-        log(f"sass {kernel}: " + ", ".join(f"{op} {n}" for op, n in ops.items()))
+        was = f" (BSSY {BSSY_BEFORE[kernel]} before the shared walk)" if kernel in BSSY_BEFORE else ""
+        log(f"sass {kernel}: " + ", ".join(f"{op} {n}" for op, n in ops.items()) + was)
     # a box test alone (the probe's aabb variant: 8 slab tests a pop, 10 min/max
     # each) must not branch: each min/max is one NaN-propagating opcode,
     # where a branchy form opens 12 regions a box
     aabb = census["p2_aabb_kernel"]
     if aabb["FMNMX.NAN"] < 80 or aabb["BSSY"] >= 12:
         raise AssertionError(f"the box test of p2_aabb_kernel still branches: {aabb}")
-    for kernel in WALK_KERNELS:
+    for kernel, need in WALK_KERNELS.items():
         ops = census[kernel]
-        # 12 loads for a node's boxes, 2 for its links, 3 for a triangle row
-        if ops["LDG.E.128"] < 17 or ops["FMNMX.NAN"] != ops["FMNMX"]:
+        if ops["LDG.E.128"] < need or ops["FMNMX.NAN"] != ops["FMNMX"]:
             raise AssertionError(f"{kernel} does not fetch in 16-byte loads: {ops}")
 
 
@@ -178,9 +190,12 @@ def build_renderer(scene_path):
 def ray_cases(r):
     """The main path's rays for renderer `r` at RES x RES: camera rays and
     one bounce's continuation rays (with dead-lane and t-cap variants) for
-    the closest-hit kernels, NEE shadow rays toward the lamp (plain, and
-    with occluded0 every 7th lane and 25% of lanes at -FLT_MAX) for the
-    any-hit kernels."""
+    the closest-hit kernels; for the any-hit kernels two sets of NEE shadow
+    rays toward the lamp, from the camera rays' hits ("NEE", the most
+    coherent shadow launch of an iteration) and from the continuation rays'
+    hits ("NEE continuation": ended paths are -FLT_MAX lanes, and the root
+    box has culled as occlusion_test does), each plain and with occluded0
+    every 7th lane and 25% of lanes at -FLT_MAX."""
     import torch
 
     from pathtracer_tpu_torch.integrator.wavefront import _Pool, bounce, camera_rays
@@ -207,17 +222,25 @@ def ray_cases(r):
         "camera, 25% dead": (o, d, torch.where(dead, tv.DEAD_T, t_cam)),
         "continuation, t cap 2.0": (o2, d2, torch.clamp(t_cont, max=2.0)),
     }
-    hit0 = tv.closest_hit(flat, static, o, d)
     lamp = flat.geom_transform[static.analytic_lights[0][1]][:3, 3]
-    to_l = lamp[None, :] - hit0.point
-    min_t = torch.sqrt((to_l * to_l).sum(1))
-    sd = to_l / min_t[:, None]
-    so = hit0.point + 1e-5 * sd
     occ0 = torch.arange(n, device=DEVICE) % 7 == 0
-    shadow = {
-        "NEE": (so, sd, min_t, torch.zeros_like(occ0)),
-        "NEE, occluded0 every 7th, 25% -FLT_MAX": (so, sd, torch.where(dead, tv.DEAD_T, min_t), occ0),
-    }
+
+    def nee(label, point, live=None):
+        to_l = lamp[None, :] - point
+        min_t = torch.sqrt((to_l * to_l).sum(1))
+        sd = to_l / min_t[:, None]
+        so = point + 1e-5 * sd
+        if live is not None:
+            min_t = tv._root_box_cull(static, so, sd, torch.where(live, min_t, tv.DEAD_T))
+        return {
+            label: (so, sd, min_t, torch.zeros_like(occ0)),
+            f"{label}, occluded0 every 7th, 25% -FLT_MAX":
+                (so, sd, torch.where(dead, tv.DEAD_T, min_t), occ0),
+        }
+
+    shadow = nee(SHADOW_SETS[0], tv.closest_hit(flat, static, o, d).point)
+    hit1 = tv.closest_hit(flat, static, o2, d2, alive=pool.alive)
+    shadow.update(nee(SHADOW_SETS[1], hit1.point, live=pool.alive & (hit1.geom >= 0)))
     torch.cuda.synchronize()
     return closest, shadow
 
@@ -246,11 +269,36 @@ def check_shadow(label, kname, got, ref, mt, o0, n):
 
     same = torch.equal(got, ref)
     kept, clear = bool(got[o0].all()), not bool(got[(mt < 0) & ~o0].any())
-    log(f"{kname} {label}: {n} lanes, {int(ref.sum())} blocked, identical: {same}, "
-        f"occluded0 kept: {kept}, -FLT_MAX lanes clear: {clear}")
+    enter = ~o0 & (mt >= 0)
+    log(f"{kname} {label}: {n} lanes, {int(enter.sum())} enter the walk "
+        f"({float(enter.float().mean()):.4f}), {int((ref & enter).sum())} of them end blocked "
+        f"({float((ref & enter).sum() / enter.sum().clamp(min=1)):.4f}), {int(ref.sum())} blocked "
+        f"in all, identical: {same}, occluded0 kept: {kept}, -FLT_MAX lanes clear: {clear}")
     if not (same and kept and clear):
         raise AssertionError(f"{kname} disagrees with its plain version ({label})")
     return float((got != ref).any())  # |a - b| of booleans
+
+
+def time_shadow(kname, mesh, kernel, plain, table_bytes, shadow, also=None):
+    """An any-hit kernel and its plain version on both shadow sets: median
+    times, the plain walk's tests and the bound from them.  `also` is a
+    (name, kernel) timed on the same rays.  Returns the first set's (ms,
+    plain ms, bound), which the kernels line reports."""
+    first = None
+    for label in SHADOW_SETS:
+        so, sd, mt, o0 = shadow[label]
+        n = so.shape[0]
+        ms = median_ms(lambda: kernel(so, sd, mt, o0))
+        plain_ms = median_ms(lambda: plain(so, sd, mt, o0))
+        c = {"box": 0, "tri": 0}
+        plain(so, sd, mt, o0, counts=c)
+        b = bound(table_bytes + nbytes(so, sd, mt, o0) + n, c)
+        other = f"; {also[0]} on the same rays and mesh {median_ms(lambda: also[1](so, sd, mt, o0)):.4f} ms" if also else ""
+        log(f"{kname} time at {n} shadow rays of {mesh}, set {label!r}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (median of 5); walk {c['box']} box + {c['tri']} triangle tests, "
+            f"bound {b[0]:.4f} ms ({b[1]}){other}")
+        first = first or (ms, plain_ms, b)
+    return first
 
 
 def check_k5_k3(label, k5, k3):
@@ -292,7 +340,9 @@ def stream_calls(flat, static):
             *k3_tables, ro, rd, t0, **sizes, **depths, subt12=flat.str_subt12,
             blocks=flat.str_blocks),
         K3_plain=lambda ro, rd, t0, **kw: ts.closest_hit_stream_plain(*k3_tables, ro, rd, t0, **sizes, **kw),
-        K4=lambda so, sd, mt, o0: ts.occlusion_stream(*k4_tables, so, sd, mt, o0, **sizes, **depths),
+        K4=lambda so, sd, mt, o0: ts.occlusion_stream(
+            *k4_tables, so, sd, mt, o0, **sizes, **depths, subt12=flat.str_subt12,
+            blocks=flat.str_blocks),
         K4_plain=lambda so, sd, mt, o0, **kw: ts.occlusion_stream_plain(*k4_tables, so, sd, mt, o0, **sizes, **kw),
         K5=lambda ro, rd, t0: ts.closest_hit_blockmajor(
             *k5_tables, ro, rd, t0, **sizes, sub_depth=static.stream_sub_depth),
@@ -308,7 +358,7 @@ def describe_stream(label, flat, static):
         f"{static.stream_sub_nodes} nodes / {static.stream_sub_tris} triangles, walk depths "
         f"top {static.stream_top_depth} block {static.stream_sub_depth}; stream tables "
         f"{nbytes(flat.str_topf, flat.str_topl, flat.str_topp, flat.str_subf, flat.str_subi, flat.str_subp, flat.str_subt, flat.str_base)} "
-        f"bytes, K3's derived tables {nbytes(flat.str_subt12, flat.str_blocks)} bytes, wide tables "
+        f"bytes, K3's and K4's derived tables {nbytes(flat.str_subt12, flat.str_blocks)} bytes, wide tables "
         f"{nbytes(flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)} bytes")
     if static.stream_subs == 0:
         raise AssertionError(f"{label} did not take the streaming tables")
@@ -317,7 +367,7 @@ def describe_stream(label, flat, static):
 
 
 def assert_aligned(flat, names) -> None:
-    """The tables K1 and K3 read in 16-byte loads start on 16-byte bounds."""
+    """The tables K1-K4 read in 16-byte loads start on 16-byte bounds."""
     for name in names:
         if getattr(flat, name).data_ptr() % 16:
             raise AssertionError(f"{name} is not 16-byte aligned")
@@ -338,27 +388,21 @@ def phase_resident_kernels(r):
                                            tc.closest_hit_wbvh_plain(*tables, ro, rd, t0), ro.shape[0]))
     k2_tables = (flat.bvh_wf, flat.bvh_wi, flat.tri_pk)
     k2 = lambda so, sd, mt, o0: tc.occlusion_wbvh(*k2_tables, so, sd, mt, o0, wide_depth=static.wide_depth)
+    k2_plain = lambda so, sd, mt, o0, **kw: tc.occlusion_wbvh_plain(*k2_tables, so, sd, mt, o0, **kw)
     k2_err = 0.0
     for label, (so, sd, mt, o0) in shadow.items():
-        k2_err = max(k2_err, check_shadow(label, "K2", k2(so, sd, mt, o0),
-                                          tc.occlusion_wbvh_plain(*k2_tables, so, sd, mt, o0),
+        k2_err = max(k2_err, check_shadow(label, "K2", k2(so, sd, mt, o0), k2_plain(so, sd, mt, o0),
                                           mt, o0, so.shape[0]))
     ro, rd, t0 = closest["continuation"]
-    so, sd, mt, o0 = shadow["NEE"]
     n = ro.shape[0]
     k1_ms = median_ms(lambda: k1(ro, rd, t0))
     k1_plain_ms = median_ms(lambda: tc.closest_hit_wbvh_plain(*tables, ro, rd, t0))
-    k2_ms = median_ms(lambda: k2(so, sd, mt, o0))
-    k2_plain_ms = median_ms(lambda: tc.occlusion_wbvh_plain(*k2_tables, so, sd, mt, o0))
-    c1, c2 = {"box": 0, "tri": 0}, {"box": 0, "tri": 0}
+    c1 = {"box": 0, "tri": 0}
     tc.closest_hit_wbvh_plain(*tables, ro, rd, t0, counts=c1)
-    tc.occlusion_wbvh_plain(*k2_tables, so, sd, mt, o0, counts=c2)
     b1 = bound(nbytes(*tables, ro, rd, t0) + 16 * n, c1)
-    b2 = bound(nbytes(*k2_tables, so, sd, mt, o0) + n, c2)
     log(f"K1 time at {n} continuation rays: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms "
         f"(median of 5); walk {c1['box']} box + {c1['tri']} triangle tests, bound {b1[0]:.4f} ms ({b1[1]})")
-    log(f"K2 time at {n} NEE shadow rays: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms "
-        f"(median of 5); walk {c2['box']} box + {c2['tri']} triangle tests, bound {b2[0]:.4f} ms ({b2[1]})")
+    k2_ms, k2_plain_ms, b2 = time_shadow("K2", "glasstorus", k2, k2_plain, nbytes(*k2_tables), shadow)
     return {
         "K1": ("closest_hit_wbvh", SRC_RESIDENT, "pathtracer_tpu/ops/traverse_pallas.py:418",
                k1_err, k1_ms, k1_plain_ms, b1),
@@ -409,24 +453,18 @@ def phase_stream_kernels(r):
             raise AssertionError(f"K4 and K2 disagree ({label})")
 
     ro, rd, t0 = closest["continuation"]
-    so, sd, mt, o0 = shadow["NEE"]
     n = ro.shape[0]
     k3_ms = median_ms(lambda: k["K3"](ro, rd, t0))
     k3_plain_ms = median_ms(lambda: k["K3_plain"](ro, rd, t0))
-    k4_ms = median_ms(lambda: k["K4"](so, sd, mt, o0))
-    k4_plain_ms = median_ms(lambda: k["K4_plain"](so, sd, mt, o0))
     k5_ms = median_ms(lambda: k["K5"](ro, rd, t0))
     # the plain K5 walks block after block (seconds a call): one timed run,
     # warm from the checks above
     k5_plain_ms = median_ms(lambda: k["K5_plain"](ro, rd, t0), runs=1, warmup=False)
     k1_ms = median_ms(lambda: k["K1"](ro, rd, t0))
-    k2_ms = median_ms(lambda: k["K2"](so, sd, mt, o0))
-    c3, c4 = {"box": 0, "tri": 0}, {"box": 0, "tri": 0}
+    c3 = {"box": 0, "tri": 0}
     k["K3_plain"](ro, rd, t0, counts=c3)
-    k["K4_plain"](so, sd, mt, o0, counts=c4)
     tables = k["tables"]
     b3 = bound(nbytes(*tables["K3"], ro, rd, t0) + 16 * n, c3)
-    b4 = bound(nbytes(*tables["K4"], so, sd, mt, o0) + n, c4)
     # K5 computes K3's function, the closest hit: its bound is K5's bytes and
     # the tests K3's walk needs on these rays.  K5's own walk (c5: a root test
     # per live lane and block, blocks K3's upper boxes reject, caps that
@@ -437,9 +475,9 @@ def phase_stream_kernels(r):
     log(f"K3 time at {n} continuation rays of glasstorus160k: kernel {k3_ms:.4f} ms, plain "
         f"{k3_plain_ms:.4f} ms (median of 5); walk {c3['box']} box + {c3['tri']} triangle tests, "
         f"bound {b3[0]:.4f} ms ({b3[1]}); K1 on the same rays and mesh {k1_ms:.4f} ms")
-    log(f"K4 time at {n} NEE shadow rays of glasstorus160k: kernel {k4_ms:.4f} ms, plain "
-        f"{k4_plain_ms:.4f} ms (median of 5); walk {c4['box']} box + {c4['tri']} triangle tests, "
-        f"bound {b4[0]:.4f} ms ({b4[1]}); K2 on the same rays and mesh {k2_ms:.4f} ms")
+    # K4's bytes: the stream tables it computes on, as K3's (not the padded copy)
+    k4_ms, k4_plain_ms, b4 = time_shadow("K4", "glasstorus160k", k["K4"], k["K4_plain"],
+                                         nbytes(*tables["K4"]), shadow, also=("K2", k["K2"]))
     log(f"K5 time at {n} continuation rays of glasstorus160k: kernel {k5_ms:.4f} ms (median of 5), "
         f"plain {k5_plain_ms:.4f} ms (one run); bound {b5[0]:.4f} ms ({b5[1]}; K5's bytes, K3's "
         f"walk); K5's own walk, the cost of its schedule: {c5['box']} box tests ({roots} root "
@@ -457,22 +495,33 @@ def phase_stream_kernels(r):
 
 
 def phase_640k_kernels(r):
-    """K5 against K3 on glasstorus640k's rays (its stream tables are past
-    the 50 MB L2), and the times of K5, K3, K1, K4 and K2 there."""
+    """K5 against K3 and K4 against K2 on glasstorus640k's rays (its stream
+    tables are past the 50 MB L2), and the times of K5, K3, K1, K4 and K2
+    there."""
+    import torch
+
     closest, shadow = ray_cases(r)
     flat, static = r.flat, r.static
     describe_stream("glasstorus640k", flat, static)
     k = stream_calls(flat, static)
     for label, (ro, rd, t0) in closest.items():
         check_k5_k3(label, k["K5"](ro, rd, t0), k["K3"](ro, rd, t0))
+    for label, (so, sd, mt, o0) in shadow.items():
+        same = torch.equal(k["K4"](so, sd, mt, o0), k["K2"](so, sd, mt, o0))
+        log(f"K4 vs K2 {label}: identical: {same}")
+        if not same:
+            raise AssertionError(f"K4 and K2 disagree on glasstorus640k ({label})")
     ro, rd, t0 = closest["continuation"]
-    so, sd, mt, o0 = shadow["NEE"]
     ms = {name: median_ms(lambda name=name: k[name](ro, rd, t0)) for name in ("K5", "K3", "K1")}
-    ms.update({name: median_ms(lambda name=name: k[name](so, sd, mt, o0)) for name in ("K4", "K2")})
+    for label in SHADOW_SETS:
+        so, sd, mt, o0 = shadow[label]
+        ms.update({f"{name} {label!r}": median_ms(lambda name=name: k[name](so, sd, mt, o0))
+                   for name in ("K4", "K2")})
     log(f"glasstorus640k times at {ro.shape[0]} rays (median of 5; K5/K3/K1 continuation, "
-        f"K4/K2 NEE shadow): " + ", ".join(f"{name} {v:.4f} ms" for name, v in ms.items())
+        f"K4/K2 on both shadow sets): " + ", ".join(f"{name} {v:.4f} ms" for name, v in ms.items())
         + f"; K5/K3 {ms['K5'] / ms['K3']:.3f}, K3/K1 {ms['K3'] / ms['K1']:.3f}, "
-        f"K4/K2 {ms['K4'] / ms['K2']:.3f}")
+        + ", ".join(f"K4/K2 {label!r} {ms[f'K4 {label!r}'] / ms[f'K2 {label!r}']:.3f}"
+                    for label in SHADOW_SETS))
 
 
 def reset_launch_counts() -> None:

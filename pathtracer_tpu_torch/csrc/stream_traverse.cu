@@ -7,16 +7,16 @@
 // package's; accel/bvh.py partition_stream splits the wide tree):
 //   topf (T*48,)        f32  top node child AABBs, as K1's wf
 //   topl (T*8,)         i32  child link: >= 0 top node, -1 empty, -(2+s) block s
-//   topp (T*8,)         i32  per-octant near->far child order, as K1's wp
+//   topp (T*8,)         i32  per-octant near->far child order, as K1's wp (K3)
 //   subf (n_sub*S*48,)  f32  block s node m child AABBs at [(s*S + m)*48 ...]
 //   subi (n_sub*S*24,)  i32  block node [local link x8 | start x8 | end x8];
 //                            [start, end) indexes the block's triangles
-//   subp (n_sub*S*8,)   i32  block node child order
-//   subt (n_sub*Tmax*9,) f32 block triangle rows [v0, e1, e2] (stride 9; K4, K5)
+//   subp (n_sub*S*8,)   i32  block node child order (K3, K5)
+//   subt (n_sub*Tmax*9,) f32 block triangle rows [v0, e1, e2] (stride 9; K5)
 //   base (n_sub,)       i32  global id of block s's first triangle
 //   rootf (n_sub*6,)    f32  K5 only: block s's root box, the top slot that
 //                            links it (scene/flatscene.py stream_roots)
-// and, derived from them once per scene for K3 (scene/flatscene.py
+// and, derived from them once per scene for K3 and K4 (scene/flatscene.py
 // stream_walk_tables):
 //   subt12 (n_sub*Tmax*12,) f32  subt's rows padded to [v0, e1, e2, 0 0 0]: 48
 //                            bytes, 3 loads of 16 bytes (a stride-9 row is
@@ -30,28 +30,29 @@
 // inside the 50 MB L2), and a ray walks them in place: no ring, no packet
 // queue, no block sort.
 //
-// The walk is K1's over two levels.  The top tree is the wide tree's upper
-// part and each block is a relabelled subtree, so a depth-first walk that
-// enters a block when it pops the block's entry, and walks the block to its
-// end before it pops another top entry, visits the same boxes and triangles
-// in the same order as K1 on the wide tables.
+// K3 and K4 are the walks of walk_core.cuh (K1's closest-hit walk, K2's
+// any-hit walk) over the two levels as one tree.  The top tree is the wide
+// tree's upper part and each block is a relabelled subtree, so a depth-first
+// walk that enters a block when it pops the block's entry, and walks the
+// block to its end before it pops another top entry, visits the same boxes
+// and triangles in the same order as K1 on the wide tables.
 //
 // A leaf cut that hangs off a top node is stored as a one-node block (slot 0
 // the leaf, slot 1 empty).  K1 tests such a cut as soon as its box passes,
 // and so do K3/K4 (chosen so that K3 returns K1's result lane for lane,
 // exact-t ties included).
 //
-// Built with -fmad=false and without fast math, as K1/K2; the plain PyTorch
-// versions in ops/traverse_stream_cuda.py walk the same per-ray order.
+// Built with -fmad=false and without fast math, as K1/K2.  The plain PyTorch
+// versions in ops/traverse_stream_cuda.py walk K3's and K5's per-ray order;
+// K4's result does not depend on the order (walk_core.cuh says why).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "walk_core.cuh"
 
-#define TOP_STACK 64  // K4: the wrapper checks 7*top_depth+1 <= TOP_STACK
-#define SUB_STACK 64  // K4, K5: and 7*sub_depth+1 <= SUB_STACK
-#define THREADS 128   // K4, K5: rays per block
+#define SUB_STACK 64  // K5: the wrapper checks 7*sub_depth+1 <= SUB_STACK
+#define THREADS 128   // K5: rays per block
 
 namespace {
 
@@ -67,7 +68,7 @@ __device__ __forceinline__ bool child_box(const float* __restrict__ nf, int slot
          t_enter <= cap;
 }
 
-// Block s's node rows (boxes, ints) and triangle rows.
+// K5: block s's node rows (boxes, ints) and triangle rows.
 struct Block {
   const float* f;
   const int* i;
@@ -103,19 +104,6 @@ __device__ __forceinline__ void leaf_closest(const float* __restrict__ rows, int
   }
 }
 
-// K2's blocking window over block triangles [start, end).
-__device__ __forceinline__ bool leaf_blocks(const float* __restrict__ rows, int start,
-                                            int end, const Ray& r, float mt) {
-  const float t_far = mt - 1e-5f;
-  for (int k = start; k < end; ++k) {
-    float tt, tu, tv;
-    if (moller_trumbore(rows + 9 * k, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, &tt, &tu, &tv) &&
-        t_far > tt && fabsf(tt - mt) > 1e-4f)
-      return true;
-  }
-  return false;
-}
-
 // One node of K5's block walk (the per-ray order of K3's walk, child after
 // child):
 // children far -> near in the ray's octant order (the nearest is pushed
@@ -146,7 +134,7 @@ __device__ __forceinline__ void block_node_closest(const Block& b, const int* __
 struct StreamTables {
   const float* topf;
   const int* topl;
-  const int* topp;
+  const int* topp;  // K3 alone reads topp and subp; K4 passes none
   const float* subf;
   const int* subi;
   const int* subp;
@@ -165,6 +153,18 @@ struct StreamTables {
     return {reinterpret_cast<const float4*>((top ? topf : subf) + row * 48),
             reinterpret_cast<const int4*>(top ? topl + row * 8 : subi + row * 24),
             (top ? topp : subp) + row * 8};
+  }
+  // A top node's inner children are top nodes; a block node's are nodes of
+  // its block, whose root is row0.
+  struct Level {
+    bool top;
+    int row0;
+  };
+  __device__ __forceinline__ Level level(int e) const {
+    return {e < 0, (int)((unsigned)e / (unsigned)S) * S};
+  }
+  __device__ __forceinline__ int inner(Level lv, int link) const {
+    return lv.top ? ~link : lv.row0 + link;
   }
   __device__ __forceinline__ bool child(int e, const Node& nd, int slot, int link, int& push,
                                         int& lo, int& hi) const {
@@ -227,78 +227,26 @@ closest_hit_stream_kernel(const float* __restrict__ topf, const int* __restrict_
 
 // K4: shadow any-hit.  Replaces occlusion_stream_pallas /
 // _make_stream_occlusion_kernel (pathtracer_tpu/ops/traverse_pallas.py:1448,
-// 1221).  K2's semantics: boxes are tested against min_t, children in slot
-// order, a lane stops at its first blocker (t < min_t - 1e-5 and
-// |t - min_t| > 1e-4); occluded0 lanes stay blocked and lanes with min_t < 0
-// (the -FLT_MAX sentinel) never block.  It keeps two stacks (top entries,
-// block-local nodes) and one loop over both levels, a node per iteration.
-// What bounds it on this card: latency, as K2 (dependent 4-byte loads, child
-// after child, from L2 or device memory; warps that diverge over nodes and
-// blocks); K3's redesign (walk_core.cuh) is still to be carried over.
-__global__ void __launch_bounds__(THREADS)
+// 1221).  K2's semantics: boxes are tested against min_t, a lane stops at its
+// first blocker (t < min_t - 1e-5 and |t - min_t| > 1e-4); occluded0 lanes
+// stay blocked and lanes with min_t < 0 (the -FLT_MAX sentinel) never block.
+// The any-hit walk of walk_core.cuh over the one tagged stack, without the
+// child orders; a block link costs its 16-byte row of `blocks`, and a
+// wrapped leaf cut is tested off its top node, before anything is pushed.
+// What bounds it on this card: walk_core.cuh; beyond K2's walk it pays what
+// K3 pays beyond K1's.
+__global__ void __launch_bounds__(WALK_THREADS)
 occlusion_stream_kernel(const float* __restrict__ topf, const int* __restrict__ topl,
                         const float* __restrict__ subf, const int* __restrict__ subi,
-                        const float* __restrict__ subt,
+                        const float* __restrict__ subt12, const int* __restrict__ blocks,
                         const float* __restrict__ o, const float* __restrict__ d,
                         const float* __restrict__ min_t,
                         const uint8_t* __restrict__ occluded0,
                         uint8_t* __restrict__ occ_out, int n, int S, int Tmax) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  bool occ = occluded0[i] != 0;
-  const float mt = min_t[i];
-  if (!occ && mt >= 0.0f) {
-    const Ray r = load_ray(o, d, i);
-    int tstack[TOP_STACK];
-    int bstack[SUB_STACK];
-    int tsp = 0, bsp = 0;
-    tstack[tsp++] = 0;
-    Block b = {};
-    while ((tsp > 0 || bsp > 0) && !occ) {
-      int node;
-      bool in_block = bsp > 0;
-      if (in_block) {
-        node = bstack[--bsp];
-      } else {
-        node = tstack[--tsp];
-        if (node < 0) {
-          b = block(subf, subi, subt, -(node + 2), S, Tmax);
-          node = 0;
-          in_block = true;
-        }
-      }
-      if (in_block) {
-        const float* nf = b.f + node * 48;
-        const int* ni = b.i + node * 24;
-        for (int slot = 0; slot < 8 && !occ; ++slot) {
-          if (!child_box(nf, slot, r, mt)) continue;
-          const int link = ni[slot];
-          if (link >= 0)
-            bstack[bsp++] = link;
-          else
-            occ = leaf_blocks(b.t, ni[8 + slot], ni[16 + slot], r, mt);
-        }
-        continue;
-      }
-      const float* nf = topf + node * 48;
-      for (int slot = 0; slot < 8 && !occ; ++slot) {
-        if (!child_box(nf, slot, r, mt)) continue;
-        const int link = topl[node * 8 + slot];
-        if (link == -1) continue;
-        if (link >= 0) {
-          tstack[tsp++] = link;
-          continue;
-        }
-        const int s = -(link + 2);
-        const int* root = subi + (size_t)s * S * 24;
-        if (wrapped_leaf(root))
-          occ = leaf_blocks(subt + (size_t)s * Tmax * 9, root[8], root[16], r, mt);
-        else
-          tstack[tsp++] = link;
-      }
-    }
-  }
-  occ_out[i] = occ ? 1 : 0;
+  const StreamTables tb = {topf, topl, nullptr, subf, subi, nullptr,
+                           reinterpret_cast<const float4*>(subt12),
+                           reinterpret_cast<const int4*>(blocks), S, Tmax};
+  any_hit_rays(tb, o, d, min_t, occluded0, occ_out, n);
 }
 
 // K5: block-major closest hit.  Replaces closest_hit_blockmajor_pallas /
@@ -312,8 +260,8 @@ occlusion_stream_kernel(const float* __restrict__ topf, const int* __restrict__ 
 // order); on an exact-t tie the block of lower index wins, where K3's
 // depth-first order may pick another.  Starts from t = t_init, tri = -1,
 // u = v = 0; lanes with t_init < 0 never enter a block.
-// What bounds it on this card: latency, as K4 (dependent 4-byte loads from L2
-// or device memory, warps that diverge over the blocks' nodes).  The TPU
+// What bounds it on this card: latency (dependent 4-byte loads, child after
+// child, from L2 or device memory; warps that diverge over the blocks' nodes).  The TPU
 // kernel's chunk of resident rays, DMA ring and per-packet root filter are
 // not carried over: the tables stay in device memory, and the block-outer
 // order is what gives the threads of a CTA the same block at about the same
@@ -394,11 +342,12 @@ extern "C" int pt_closest_hit_blockmajor(const float* rootf, const float* subf,
 }
 
 extern "C" int pt_occlusion_stream(const float* topf, const int* topl, const float* subf,
-                                   const int* subi, const float* subt, const float* o,
-                                   const float* d, const float* min_t, const uint8_t* occluded0,
-                                   uint8_t* occ_out, int n, int S, int Tmax, void* stream) {
+                                   const int* subi, const float* subt12, const int* blocks,
+                                   const float* o, const float* d, const float* min_t,
+                                   const uint8_t* occluded0, uint8_t* occ_out, int n, int S,
+                                   int Tmax, void* stream) {
   if (n > 0)
-    occlusion_stream_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        topf, topl, subf, subi, subt, o, d, min_t, occluded0, occ_out, n, S, Tmax);
+    occlusion_stream_kernel<<<walk_grid(n), WALK_THREADS, 0, (cudaStream_t)stream>>>(
+        topf, topl, subf, subi, subt12, blocks, o, d, min_t, occluded0, occ_out, n, S, Tmax);
   return (int)cudaGetLastError();
 }

@@ -267,6 +267,7 @@ def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=
         return occlusion_stream(
             flat.str_topf, flat.str_topl, flat.str_subf, flat.str_subi, flat.str_subt,
             flat.str_base, ori, dir, min_t_eff, occluded, **_stream_args(static),
+            subt12=flat.str_subt12, blocks=flat.str_blocks,
         )
     return occlusion_wbvh(
         flat.bvh_wf, flat.bvh_wi, flat.tri_pk, ori, dir, min_t_eff, occluded,

@@ -3,15 +3,20 @@
 Port of the two resident Pallas kernels of
 `pathtracer_tpu/ops/traverse_pallas.py`: `closest_hit_wbvh_pallas` (K1) and
 `occlusion_wbvh_pallas` (K2).  The CUDA kernels live in
-`csrc/wbvh_traverse.cu` (K1's walk in `csrc/walk_core.cuh`, which K3 shares);
-this module holds, for each:
+`csrc/wbvh_traverse.cu`, their walks in `csrc/walk_core.cuh` (K1 shares its
+closest-hit walk with K3, K2 its any-hit walk with K4); this module holds,
+for each:
 
 - the wrapper (`closest_hit_wbvh`, `occlusion_wbvh`): on a CPU tensor it
   runs the plain PyTorch version; on a CUDA tensor it launches the kernel
   (building it on first use) or raises.  It never falls back.
 - the plain PyTorch version (`*_plain`): a lockstep, masked walk of the same
-  tables with an (N, STACK) stack tensor and the kernel's per-ray visit
-  order, so kernel and plain version agree exactly (ties included).
+  tables with an (N, STACK) stack tensor.  K1's has the kernel's per-ray
+  visit order, so kernel and plain version agree exactly (ties included).
+  K2's visits children in slot order where the kernel tests a node's leaf
+  cuts before it pushes its inner children; both cap the box test at min_t,
+  which a ray never changes, so both reach the same boxes and agree on
+  every lane.
 - a launch counter (`closest_launches`, `occlusion_launches`), bumped once
   per kernel launch and nowhere else.
 
@@ -28,7 +33,7 @@ import torch
 
 from pathtracer_tpu_torch.ops import _build
 
-STACK = 64  # per-ray traversal stack (csrc/wbvh_traverse.cu STACK, csrc/walk_core.cuh WALK_STACK)
+STACK = 64  # per-ray traversal stack (csrc/walk_core.cuh WALK_STACK)
 
 closest_launches = 0
 occlusion_launches = 0
@@ -283,7 +288,9 @@ def closest_hit_wbvh(wf, wi, wp, tri12, o, d, t_init, *, wide_depth: int):
 
 
 def occlusion_wbvh(wf, wi, tri12, o, d, min_t, occluded0, *, wide_depth: int):
-    """K2: shadow any-hit against the resident wide BVH; (N,) bool."""
+    """K2: shadow any-hit against the resident wide BVH; (N,) bool.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel, which
+    reads wf, wi and tri12 in 16-byte loads."""
     global occlusion_launches
     _check_depth(wide_depth)
     _rays(o, d)
@@ -297,6 +304,7 @@ def occlusion_wbvh(wf, wi, tri12, o, d, min_t, occluded0, *, wide_depth: int):
         dict(wf=f32, wi=torch.int32, tri12=f32, o=f32, d=f32, min_t=f32,
              occluded0=torch.bool),
     )
+    _check_aligned(wf=wf, wi=wi, tri12=tri12)
     lib = _build.load_library()
     n = o.shape[0]
     occ = torch.empty((n,), dtype=torch.bool, device=o.device)

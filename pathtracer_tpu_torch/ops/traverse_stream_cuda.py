@@ -11,8 +11,9 @@ Port of the streaming Pallas kernels of `pathtracer_tpu/ops/traverse_pallas.py`:
   runs the plain PyTorch version; on a CUDA tensor it launches the kernel
   (building it on first use) or raises.  It never falls back.
 - the plain PyTorch version (`*_plain`): a lockstep, masked walk of the same
-  two-level tables, with a top stack and a block stack per ray and the
-  kernel's per-ray visit order, so kernel and plain version agree exactly.
+  two-level tables, with a top stack and a block stack per ray; K3's and
+  K5's in the kernel's per-ray visit order, so kernel and plain version
+  agree exactly.
 - a launch counter (`closest_launches`, `occlusion_launches`,
   `blockmajor_launches`), bumped once per kernel launch and nowhere else.
 
@@ -21,13 +22,17 @@ wide tree's upper part, a child link -(2+s) enters block s, which is walked
 to its end with block-local node and triangle indices (triangle ids rebased
 by `base[s]`).  A leaf cut hanging off a top node is a one-node block and is
 tested at once, as K1 tests it, so K3 returns K1's result lane for lane.
-K3's kernel shares K1's walk (`csrc/walk_core.cuh`): it walks both levels as
-one tree with one stack (so `closest_hit_stream` holds top_depth + sub_depth
-against it) and reads, beside the stream tables, two tables derived from
-them once per scene (`scene/flatscene.py stream_walk_tables`): triangle rows
-padded to 48 bytes and a 16-byte row per block.  Its plain version keeps the
-two stacks and the stream tables alone; both visit the same nodes in the
-same order.
+K3's and K4's kernels share K1's and K2's walks (`csrc/walk_core.cuh`): they
+walk both levels as one tree with one stack (so `closest_hit_stream` and
+`occlusion_stream` hold top_depth + sub_depth against it) and read, beside
+the stream tables, two tables derived from them once per scene
+(`scene/flatscene.py stream_walk_tables`): triangle rows padded to 48 bytes
+and a 16-byte row per block.  The plain versions keep the two stacks and the
+stream tables alone.  K3 and its plain version visit the same nodes in the
+same order.  K4 tests a node's leaf cuts before it pushes its inner children
+where its plain version goes in slot order; both cap the box test at min_t,
+which a ray never changes, so both reach the same boxes and agree on every
+lane.
 Sentinels as K1/K2: lanes with t_init < 0 never enter K3 or K5; K4 keeps
 `occluded0` lanes blocked and never blocks a lane with min_t < 0.
 
@@ -52,8 +57,8 @@ from pathtracer_tpu_torch.ops.traverse_cuda import (
     _slab,
 )
 
-# K4's top and block stacks and K5's block stack (csrc/stream_traverse.cu
-# TOP_STACK, SUB_STACK), and K3's one stack (csrc/walk_core.cuh WALK_STACK)
+# K5's block stack (csrc/stream_traverse.cu SUB_STACK), and K3's and K4's
+# one stack (csrc/walk_core.cuh WALK_STACK)
 STACK = 64
 # closest hits of a streamed mesh go through K5 instead of K3 (the
 # counterpart of pathtracer_tpu/ops/traverse_pallas.py STREAM_BLOCKMAJOR)
@@ -71,17 +76,17 @@ def reset_launch_counts() -> None:
     blockmajor_launches = 0
 
 
-def _check_depths(top_depth: int, sub_depth: int) -> None:
-    for what, depth in (("top tree", top_depth), ("deepest block", sub_depth)):
-        if 7 * int(depth) + 1 > STACK:
-            raise ValueError(
-                f"streaming {what} depth {depth} needs a stack of {7 * depth + 1} "
-                f"entries; the kernels have {STACK}"
-            )
+def _check_block_depth(sub_depth: int) -> None:
+    """K5 walks one block at a time: up to 7 pending siblings per level."""
+    if 7 * int(sub_depth) + 1 > STACK:
+        raise ValueError(
+            f"streaming deepest block depth {sub_depth} needs a stack of "
+            f"{7 * sub_depth + 1} entries; the kernel has {STACK}"
+        )
 
 
 def _check_walk_depth(top_depth: int, sub_depth: int) -> None:
-    """K3 walks the two levels as one tree with one stack.  A block's root
+    """K3 and K4 walk the two levels as one tree with one stack.  A block's root
     lies at most `top_depth` below the top root and its nodes at most
     `sub_depth` below that; a depth-first walk holds up to 7 pending siblings
     per level, so at most 7*(top_depth + sub_depth) + 1 entries."""
@@ -110,6 +115,17 @@ def _check_tables(base, sub_nodes, sub_tris, **tables):
                 f"{name} has {table.numel()} entries; {n_top} top nodes and "
                 f"{n_sub} blocks of {sub_nodes} nodes / {sub_tris} triangles need {want[name]}"
             )
+
+
+def _check_walk_tables(who, base, sub_nodes, sub_tris, subt12, blocks):
+    """K3's and K4's kernels read the triangles from `subt12` and the blocks'
+    bases and wrapped leaf cuts from `blocks`, so on CUDA tensors they need
+    both (FlatScene.str_subt12 and str_blocks, derived from subt, subi and
+    base once per scene by scene/flatscene.py stream_walk_tables)."""
+    if subt12 is None or blocks is None:
+        raise ValueError(f"{who} on CUDA tensors needs subt12 and blocks "
+                         "(FlatScene.str_subt12, str_blocks)")
+    _check_tables(base, sub_nodes, sub_tris, subt12=subt12, blocks=blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -362,10 +378,7 @@ def closest_hit_stream(topf, topl, topp, subf, subi, subp, subt, base, o, d, t_i
 
     Returns (t, tri, u, v); tri is -1 where nothing beat t_init.  CPU
     tensors take the plain version; CUDA tensors launch the kernel, which
-    reads the triangles from `subt12` and the blocks' bases and wrapped leaf
-    cuts from `blocks` (FlatScene.str_subt12 and str_blocks, derived from
-    subt, subi and base once per scene by scene/flatscene.py
-    stream_walk_tables) and so needs both.
+    needs `subt12` and `blocks` (`_check_walk_tables`).
     """
     global closest_launches
     _check_walk_depth(top_depth, sub_depth)
@@ -377,10 +390,7 @@ def closest_hit_stream(topf, topl, topp, subf, subi, subp, subt, base, o, d, t_i
                                         t_init, sub_nodes=sub_nodes, sub_tris=sub_tris)
     if o.device.type != "cuda":
         raise ValueError(f"closest_hit_stream runs on cpu or cuda tensors, not {o.device}")
-    if subt12 is None or blocks is None:
-        raise ValueError("closest_hit_stream on CUDA tensors needs subt12 and blocks "
-                         "(FlatScene.str_subt12, str_blocks)")
-    _check_tables(base, sub_nodes, sub_tris, subt12=subt12, blocks=blocks)
+    _check_walk_tables("closest_hit_stream", base, sub_nodes, sub_tris, subt12, blocks)
     f32, i32 = torch.float32, torch.int32
     _check_cuda_args(
         dict(topf=topf, topl=topl, topp=topp, subf=subf, subi=subi, subp=subp, subt12=subt12,
@@ -417,7 +427,7 @@ def closest_hit_blockmajor(roots, subf, subi, subp, subt, base, o, d, t_init, *,
     the plain version; CUDA tensors launch the kernel.
     """
     global blockmajor_launches
-    _check_depths(0, sub_depth)  # K5 has no top stack
+    _check_block_depth(sub_depth)
     _check_tables(base, sub_nodes, sub_tris, roots=roots, subf=subf, subi=subi, subp=subp,
                   subt=subt)
     _rays(o, d)
@@ -451,10 +461,15 @@ def closest_hit_blockmajor(roots, subf, subi, subp, subt, base, o, d, t_init, *,
 
 
 def occlusion_stream(topf, topl, subf, subi, subt, base, o, d, min_t, occluded0, *,
-                     sub_nodes: int, sub_tris: int, top_depth: int, sub_depth: int):
-    """K4: shadow any-hit against the two-level streaming tables; (N,) bool."""
+                     sub_nodes: int, sub_tris: int, top_depth: int, sub_depth: int,
+                     subt12=None, blocks=None):
+    """K4: shadow any-hit against the two-level streaming tables; (N,) bool.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    needs `subt12` and `blocks` (`_check_walk_tables`).
+    """
     global occlusion_launches
-    _check_depths(top_depth, sub_depth)
+    _check_walk_depth(top_depth, sub_depth)
     _check_tables(base, sub_nodes, sub_tris, topf=topf, topl=topl, subf=subf, subi=subi,
                   subt=subt)
     _rays(o, d)
@@ -463,20 +478,23 @@ def occlusion_stream(topf, topl, subf, subi, subt, base, o, d, min_t, occluded0,
                                       occluded0, sub_nodes=sub_nodes, sub_tris=sub_tris)
     if o.device.type != "cuda":
         raise ValueError(f"occlusion_stream runs on cpu or cuda tensors, not {o.device}")
+    _check_walk_tables("occlusion_stream", base, sub_nodes, sub_tris, subt12, blocks)
     f32, i32 = torch.float32, torch.int32
     _check_cuda_args(
-        dict(topf=topf, topl=topl, subf=subf, subi=subi, subt=subt, o=o, d=d, min_t=min_t,
-             occluded0=occluded0),
-        dict(topf=f32, topl=i32, subf=f32, subi=i32, subt=f32, o=f32, d=f32, min_t=f32,
-             occluded0=torch.bool),
+        dict(topf=topf, topl=topl, subf=subf, subi=subi, subt12=subt12, blocks=blocks, o=o, d=d,
+             min_t=min_t, occluded0=occluded0),
+        dict(topf=f32, topl=i32, subf=f32, subi=i32, subt12=f32, blocks=i32, o=f32, d=f32,
+             min_t=f32, occluded0=torch.bool),
     )
+    _check_aligned(topf=topf, topl=topl, subf=subf, subi=subi, subt12=subt12, blocks=blocks)
     lib = _build.load_library()
     n = o.shape[0]
     occ = torch.empty((n,), dtype=torch.bool, device=o.device)
     rc = lib.pt_occlusion_stream(
-        topf.data_ptr(), topl.data_ptr(), subf.data_ptr(), subi.data_ptr(), subt.data_ptr(),
-        o.data_ptr(), d.data_ptr(), min_t.data_ptr(), occluded0.data_ptr(), occ.data_ptr(),
-        n, sub_nodes, sub_tris, torch.cuda.current_stream(o.device).cuda_stream,
+        topf.data_ptr(), topl.data_ptr(), subf.data_ptr(), subi.data_ptr(), subt12.data_ptr(),
+        blocks.data_ptr(), o.data_ptr(), d.data_ptr(), min_t.data_ptr(), occluded0.data_ptr(),
+        occ.data_ptr(), n, sub_nodes, sub_tris,
+        torch.cuda.current_stream(o.device).cuda_stream,
     )
     _build.check(rc, "occlusion_stream launch")
     occlusion_launches += 1

@@ -8,7 +8,7 @@ are what make triangle-id parity exact.  The fields carry the JAX names.
 A mesh within `resident_tables_fit` is walked through the wide tables
 (`bvh_w*`, `tri_pk`; kernels K1/K2); a larger one through the two-level
 streaming tables (`str_*`, `build_stream_tables`; kernels K3/K4, and K5,
-which also reads the blocks' root boxes `str_roots`; K3 reads the padded
+which also reads the blocks' root boxes `str_roots`; K3 and K4 read the padded
 triangle rows `str_subt12` and the per-block rows `str_blocks`: three tables
 only the port has, each derived from the stream tables once per scene).
 
@@ -74,8 +74,8 @@ class FlatScene:
     str_subt: torch.Tensor         # (n_sub*Tmax*9,) f32: v0, e1, e2 of block-local triangles
     str_base: torch.Tensor         # (n_sub,) i32: global id of each block's first triangle
     str_roots: torch.Tensor        # (n_sub*6,) f32: each block's root box (K5; `stream_roots`)
-    str_subt12: torch.Tensor       # (n_sub*Tmax*12,) f32: str_subt's rows padded to 48 bytes (K3)
-    str_blocks: torch.Tensor       # (n_sub*4,) i32: [base, s*Tmax, wrapped leaf lo, hi] (K3)
+    str_subt12: torch.Tensor       # (n_sub*Tmax*12,) f32: str_subt's rows padded to 48 bytes (K3, K4)
+    str_blocks: torch.Tensor       # (n_sub*4,) i32: [base, s*Tmax, wrapped leaf lo, hi] (K3, K4)
     mat_f32: torch.Tensor          # (8, M): albedo(3) roughness metallic ior pad(2)
     mat_i32: torch.Tensor          # (8, M): type atex mtex rtex ntex pad(3)
     atlas: torch.Tensor            # texture tables: placeholders (not ported)
@@ -342,8 +342,8 @@ def stream_roots(topf: np.ndarray, topl: np.ndarray, n_sub: int) -> np.ndarray:
 
 def stream_walk_tables(subi: np.ndarray, subt: np.ndarray, base: np.ndarray,
                        sub_nodes: int, sub_tris: int) -> tuple[np.ndarray, np.ndarray]:
-    """The two tables K3's walk reads beside the stream tables, derived from
-    them (`ops/traverse_stream_cuda.py closest_hit_stream`):
+    """The two tables K3's and K4's walks read beside the stream tables, derived
+    from them (`ops/traverse_stream_cuda.py closest_hit_stream`, `occlusion_stream`):
 
     - subt12 (n_sub*Tmax*12,) f32: `subt`'s rows [v0, e1, e2] padded with
       three zeros to 12 floats, so that a row is 48 bytes and 16-byte aligned

@@ -11,6 +11,9 @@
   versions on the same mesh: t and occlusion identical on every lane, tri
   identical (it may differ only on exact-t ties, which these rays do not
   have), since both walk the same boxes in the same per-ray order.
+- K4's wrapper with the tables its kernel reads on the card (padded rows,
+  per-block rows), and the port's `occlusion_test` on a streamed mesh against
+  the JAX package's: booleans, exactly.
 - The port's Renderer on the 576-triangle glass torus forced onto the
   streaming path, against the JAX Renderer, with test_torch_render.py's
   image tolerance, in all three modes, with STREAM_BLOCKMAJOR off (K3/K4)
@@ -239,6 +242,40 @@ class TestK4Plain:
                                      _t(min_t), _t(occ0))
         k4 = _k4(tflat, static, o, d, min_t, occ0)
         assert torch.equal(k2, k4)
+
+
+    def test_wrapper_takes_the_kernel_tables(self, stream_soup):
+        """occlusion_test hands K4 the derived tables on every device; on CPU
+        tensors the plain version answers from the stream tables alone."""
+        _, _, tflat, static = stream_soup
+        o, d, min_t, occ0 = _shadow_case(512, seed=39)
+        got = ts.occlusion_stream(
+            *_tables(tflat, static, closest=False), _t(o), _t(d), _t(min_t), _t(occ0),
+            **_sizes(static), top_depth=static.stream_top_depth,
+            sub_depth=static.stream_sub_depth, subt12=tflat.str_subt12, blocks=tflat.str_blocks)
+        assert torch.equal(got, _k4(tflat, static, o, d, min_t, occ0))
+        with pytest.raises(ValueError, match="stack"):
+            ts.occlusion_stream(*_tables(tflat, static, closest=False), _t(o), _t(d), _t(min_t),
+                                _t(occ0), **_sizes(static), top_depth=10, sub_depth=0)
+
+    @pytest.mark.parametrize("masked", [False, True], ids=["all lanes", "enabled mask"])
+    def test_occlusion_test_matches_jax(self, stream_soup, masked):
+        """The NEE shadow layer on a streamed mesh, port against JAX package."""
+        from pathtracer_tpu.ops import traverse as jtv
+
+        jflat, jstatic, tflat, tstatic = stream_soup
+        assert ttv.packet_mode(tstatic) == "stream"
+        o, d = random_rays(1024, seed=44)
+        des = o + d * np.random.default_rng(44).uniform(0.5, 9.0, size=(1024, 1)).astype(np.float32)
+        enabled = np.arange(1024) % 4 != 0 if masked else None
+        want = jtv.occlusion_test(jflat, jstatic, o, d, des,
+                                  enabled=None if enabled is None else jnp.asarray(enabled))
+        got = ttv.occlusion_test(tflat, tstatic, _t(o), _t(d), _t(des),
+                                 enabled=None if enabled is None else _t(enabled))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert 0 < got.sum() < 1024
+        if masked:
+            assert not got.numpy()[~enabled].any()
 
 
 def test_walk_counts_match_k1(stream_soup):

@@ -142,6 +142,21 @@ class TestOcclusionPlain:
         np.testing.assert_array_equal(got.numpy(), np.asarray(jtv.occlusion_test(flat, static, o, d, des)))
         assert 0 < got.sum() < 2048
 
+    @pytest.mark.parametrize("case", ["plain", "occluded0 every 7th", "25% at -FLT_MAX",
+                                      "min_t clamped short"])
+    def test_kernel_order_gives_the_same_lanes(self, soup, case):
+        """The kernel's walk (a node's leaf cuts before its inner children, out
+        at the first blocker), restated in numpy, against the plain version's
+        slot order on a resident mesh: the same bool on every lane."""
+        from tests.test_torch_walk_tables import WideTables, _shadow_rays, any_hit_walk
+
+        _, static, tflat = soup
+        o, d, min_t, occ0 = _shadow_rays(tflat, case, m=512)
+        got, _, deepest = any_hit_walk(WideTables(tflat), o, d, min_t, occ0)
+        np.testing.assert_array_equal(got, _k2(tflat, static, o, d, min_t, occ0).numpy())
+        assert 0 < got[~occ0].sum() < (~occ0).sum()
+        assert deepest <= 7 * static.wide_depth + 1
+
     def test_pre_occluded_preserved(self, soup):
         _, static, tflat = soup
         o, d = random_rays(1024, seed=25)
@@ -175,6 +190,13 @@ class TestWrappers:
         with pytest.raises(ValueError, match="stack"):
             tc.closest_hit_wbvh(tflat.bvh_wf, tflat.bvh_wi, tflat.bvh_wp, tflat.tri_pk,
                                 o, o, torch.zeros(2), wide_depth=tc.STACK // 7 + 1)
+
+    def test_occlusion_stack_depth_guard(self, soup):
+        _, _, tflat = soup
+        o = torch.zeros((2, 3))
+        with pytest.raises(ValueError, match="stack"):
+            tc.occlusion_wbvh(tflat.bvh_wf, tflat.bvh_wi, tflat.tri_pk, o, o, torch.zeros(2),
+                              torch.zeros(2, dtype=torch.bool), wide_depth=tc.STACK // 7 + 1)
 
     def test_cpu_tensors_never_count_a_launch(self, soup):
         _, static, tflat = soup

@@ -1,4 +1,5 @@
-"""What surrounds the redesigned closest-hit kernels K1 and K3, on the CPU.
+"""What surrounds the redesigned kernels K1/K3 (closest hit) and K2/K4 (shadow
+any-hit), on the CPU.
 
 The CUDA kernels run only on the card.  Here:
 
@@ -19,7 +20,15 @@ The CUDA kernels run only on the card.  Here:
 - the same restatement over the wide tables (K1's instantiation) against
   `closest_hit_wbvh_plain`, exactly;
 - the stack bound 7*(top_depth + sub_depth) + 1 of the tagged walk, against
-  the deepest stack the restatement reaches and against the wrapper's check.
+  the deepest stack the restatement reaches and against the wrapper's check;
+- `any_hit_walk`, a numpy restatement of K2's and K4's kernel
+  (csrc/walk_core.cuh any_hit_rays: the pass mask at min_t, a node's leaf
+  cuts before its inner children, out at the first blocker, the tagged stack
+  over `str_subt12`/`str_blocks` or the wide tables), against
+  `occlusion_stream_plain` and `occlusion_wbvh_plain`, which visit in slot
+  order, and against the JAX package's `occlusion_stream_pallas` and
+  `occlusion_wbvh_pallas` in interpret mode: booleans, exactly, on every
+  lane; its stack against the same bound, and K4's wrapper's checks.
 """
 
 import jax.numpy as jnp
@@ -31,12 +40,14 @@ import pathtracer_tpu.scene.flatscene as jfs
 import pathtracer_tpu_torch.scene.flatscene as tfs
 from pathtracer_tpu_torch.ops import traverse_cuda as tc
 from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
+from pathtracer_tpu.ops.traverse_pallas import occlusion_wbvh_pallas
 from pathtracer_tpu_torch.scene.parser import load_scene
 from tests.test_torch_stream import (
     DEAD_T,
     FLT_MAX,
     STR_FIELDS,
     _pallas_k3,
+    _pallas_k4,
     _sizes,
     _t,
     build_both,
@@ -201,6 +212,9 @@ class WideTables:
     def node(self, e):
         return self.wf[e], self.wi[e], self.wp[e]
 
+    def inner(self, e, link):
+        return int(link)
+
     def child(self, e, ints, slot, link):
         """("push", entry) or ("leaf", lo, hi)."""
         if link >= 0:
@@ -232,6 +246,9 @@ class StreamTables:
         if e < 0:
             return self.topf[~e], self.topl[~e], self.topp[~e]
         return self.subf[e], self.subi[e], self.subp[e]
+
+    def inner(self, e, link):
+        return ~int(link) if e < 0 else e // self.S * self.S + int(link)
 
     def child(self, e, ints, slot, link):
         if e < 0:
@@ -465,10 +482,195 @@ def test_wrapper_checks_the_one_stack(multi_block):
     ts.closest_hit_stream(*args, **_sizes(static), top_depth=5, sub_depth=4)
     with pytest.raises(ValueError, match="stack of 71"):
         ts.closest_hit_stream(*args, **_sizes(static), top_depth=5, sub_depth=5)
-    # K4 keeps its two stacks
-    ts._check_depths(5, 5)
+    # K5 has a block stack alone
+    ts._check_block_depth(5)
     # on a CUDA tensor the kernel needs the derived tables; the check comes
     # before any device work, so a meta tensor shows the order of the checks
     meta = [x.to("meta") for x in args[-3:]]
     with pytest.raises(ValueError, match="cpu or cuda"):
         ts.closest_hit_stream(*args[:-3], *meta, **_sizes(static), top_depth=1, sub_depth=1)
+
+
+# ---------------------------------------------------------------------------
+# the any-hit walk of K2 and K4
+
+
+def any_hit_walk(tb, o, d, min_t, occ0):
+    """csrc/walk_core.cuh any_hit_rays, ray by ray: the (N,) bool, the row of
+    the triangle that blocked each lane (-1: none, or blocked on entry) and
+    the deepest stack any ray reached."""
+    n = o.shape[0]
+    occ = occ0.copy()
+    blocker = np.full(n, -1, np.int64)
+    deepest = 0
+    for i in range(n):
+        mt = F(min_t[i])
+        if occ[i] or not mt >= 0:
+            continue
+        oi, di = o[i].astype(F), d[i].astype(F)
+        with np.errstate(divide="ignore"):
+            inv = F(1.0) / di
+        t_far = mt - F(1e-5)
+        stack, e = [], tb.root
+        while not occ[i]:
+            boxes, ints, _ = tb.node(e)  # the child order is never read
+            hit, te = _slab8(boxes, oi, inv)
+            passed = hit & (te <= mt)  # final: min_t never changes
+            inner = ints[:8] >= 0
+            for slot in np.flatnonzero(passed & ~inner):  # leaf cuts and block links first
+                kind, *what = tb.child(e, ints, slot, ints[slot])
+                if kind == "push":
+                    stack.append(what[0])
+                    deepest = max(deepest, len(stack))
+                    continue
+                lo, hi = what
+                if hi > lo:
+                    th, tt, _, _ = _moller_trumbore(tb.tri[lo:hi], oi, di)
+                    blocks = th & (t_far > tt) & (np.abs(tt - mt) > F(1e-4))
+                    if blocks.any():
+                        occ[i], blocker[i] = True, lo + int(np.argmax(blocks))
+                        break
+            if occ[i]:
+                break  # before anything else is pushed
+            for slot in np.flatnonzero(passed & inner):
+                stack.append(tb.inner(e, ints[slot]))
+            deepest = max(deepest, len(stack))
+            if not stack:
+                break
+            e = stack.pop()
+    return occ, blocker, deepest
+
+
+def _k4_plain(flat, static, o, d, min_t, occ0):
+    names = ("str_topf", "str_topl", "str_subf", "str_subi", "str_subt", "str_base")
+    return ts.occlusion_stream_plain(*(getattr(flat, n) for n in names), _t(o), _t(d), _t(min_t),
+                                     _t(occ0), **_sizes(static)).numpy()
+
+
+def _k2_plain(flat, o, d, min_t, occ0):
+    return tc.occlusion_wbvh_plain(flat.bvh_wf, flat.bvh_wi, flat.tri_pk, _t(o), _t(d),
+                                   _t(min_t), _t(occ0)).numpy()
+
+
+SHADOW_CASES = ["plain", "occluded0 every 7th", "25% at -FLT_MAX", "min_t clamped short",
+                "axis-aligned rays", "blocker in a wrapped leaf cut"]
+
+
+def _shadow_rays(flat, case, m=384):
+    """m shadow rays for `case`: (o, d, min_t, occluded0).  Every other ray is
+    aimed at a triangle and reaches past it (min_t in [0.5, 9))."""
+    seed = 91 + SHADOW_CASES.index(case)
+    o, d = _rays(flat, m, seed=seed)
+    min_t = np.random.default_rng(seed).uniform(0.5, 9.0, m).astype(F)
+    occ0 = np.zeros(m, bool)
+    if case == "occluded0 every 7th":
+        occ0 = np.arange(m) % 7 == 0
+    elif case == "25% at -FLT_MAX":
+        min_t = np.where(np.arange(m) % 4 == 1, DEAD_T, min_t).astype(F)
+    elif case == "min_t clamped short":
+        min_t = np.minimum(min_t, F(2.5))
+    elif case == "axis-aligned rays":
+        o, d = _axis_rays(flat, m)
+    return o, d, min_t, occ0
+
+
+def _check_shadow_case(case, got, blocker, full, o, d, min_t, occ0):
+    """What each case is there to show, beyond equality with the plain version."""
+    assert got[~occ0].any() and not got[~occ0].all()
+    if case == "occluded0 every 7th":
+        assert got[occ0].all() and (blocker[occ0] == -1).all()
+    if case == "25% at -FLT_MAX":
+        assert (min_t < 0).sum() == len(min_t) // 4 and not got[min_t < 0].any()
+    if case == "min_t clamped short":
+        # the cap cuts blockers off: lanes blocked within 9.0 (`full`) are clear now
+        assert (full & ~got).sum() > 5 and not (got & ~full).any()
+    if case == "axis-aligned rays":
+        assert (d == 0).sum() == 2 * len(d)
+
+
+@pytest.mark.parametrize("scene", ["multi_block", "deep", "forced_env"])
+@pytest.mark.parametrize("case", SHADOW_CASES)
+def test_any_hit_walk_equals_k4_plain(case, scene, request):
+    """K4's restated walk (leaf cuts first, out at the first blocker) against
+    occlusion_stream_plain (slot order): the same bool on every lane."""
+    flat, static = request.getfixturevalue(scene)[-2:]
+    o, d, min_t, occ0 = _shadow_rays(flat, case)
+    tb = StreamTables(flat, static)
+    got, blocker, deepest = any_hit_walk(tb, o, d, min_t, occ0)
+    np.testing.assert_array_equal(got, _k4_plain(flat, static, o, d, min_t, occ0))
+    assert deepest <= 7 * (static.stream_top_depth + static.stream_sub_depth) + 1
+    full = got
+    if case == "min_t clamped short":
+        full, _, _ = any_hit_walk(tb, o, d, np.full(len(o), 9.0, F), occ0)
+    _check_shadow_case(case, got, blocker, full, o, d, min_t, occ0)
+    if case == "blocker in a wrapped leaf cut" and scene != "forced_env":
+        # some lane's blocker lies in a block that wraps one leaf cut, tested
+        # off its top node; others inside blocks with nodes of their own
+        blocks = flat.str_blocks.numpy().reshape(-1, 4)
+        rows = blocker[blocker >= 0]
+        wrapped = blocks[rows // static.stream_sub_tris, 2] >= 0
+        assert wrapped.any() and not wrapped.all()
+
+
+@pytest.mark.parametrize("scene", ["multi_block", "deep"])
+@pytest.mark.parametrize("case", SHADOW_CASES)
+def test_any_hit_walk_over_wide_tables_equals_k2_plain(case, scene, request):
+    """K2's instantiation of the same walk against occlusion_wbvh_plain, and
+    K4's against it lane for lane (the stream split loses no triangle)."""
+    flat, static = request.getfixturevalue(scene)[-2:]
+    o, d, min_t, occ0 = _shadow_rays(flat, case)
+    got, blocker, deepest = any_hit_walk(WideTables(flat), o, d, min_t, occ0)
+    np.testing.assert_array_equal(got, _k2_plain(flat, o, d, min_t, occ0))
+    assert deepest <= 7 * static.wide_depth + 1
+    k4, _, _ = any_hit_walk(StreamTables(flat, static), o, d, min_t, occ0)
+    np.testing.assert_array_equal(got, k4)
+    full = got
+    if case == "min_t clamped short":
+        full, _, _ = any_hit_walk(WideTables(flat), o, d, np.full(len(o), 9.0, F), occ0)
+    _check_shadow_case(case, got, blocker, full, o, d, min_t, occ0)
+
+
+@pytest.mark.parametrize("scene", ["multi_block", "forced_env"])
+@pytest.mark.parametrize("tables", ["stream (K4)", "wide (K2)"])
+def test_any_hit_walk_matches_pallas_interpret(tables, scene, request):
+    """Against the JAX package's kernels in interpret mode, on the rays of
+    tests/test_torch_stream.py's comparison with dead lanes added: exact."""
+    jflat, jstatic, flat, static = request.getfixturevalue(scene)
+    m = 2048
+    o, d = random_rays(m, seed=34)
+    min_t = np.random.default_rng(34).uniform(0.5, 9.0, m).astype(F)
+    min_t = np.where(np.arange(m) % 4 == 1, DEAD_T, min_t).astype(F)
+    occ0 = np.arange(m) % 7 == 0
+    if tables.startswith("stream"):
+        want = _pallas_k4(jflat, jstatic, o, d, jnp.asarray(min_t), jnp.asarray(occ0))
+        tb = StreamTables(flat, static)
+    else:
+        want = occlusion_wbvh_pallas(jflat.bvh_wf, jflat.bvh_wi, jflat.tri_pk, o, d,
+                                     jnp.asarray(min_t), jnp.asarray(occ0),
+                                     leaf_k=jstatic.wide_leaf_k, interpret=True)
+        tb = WideTables(flat)
+    got, _, _ = any_hit_walk(tb, np.asarray(o), np.asarray(d), min_t, occ0)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    live = ~occ0 & (min_t >= 0)
+    assert got[live].any() and not got[live].all() and got[occ0].all()
+
+
+def test_k4_wrapper_checks_the_one_stack(multi_block):
+    """K4's wrapper holds top_depth + sub_depth against its one stack, as
+    K3's, before it looks at the device; a tensor that is on neither the CPU
+    nor the card is refused, not sent to the plain version."""
+    _, _, flat, static = multi_block
+    o, d, min_t, occ0 = _shadow_rays(flat, "plain", m=8)
+    names = ("str_topf", "str_topl", "str_subf", "str_subi", "str_subt", "str_base")
+    args = [getattr(flat, n) for n in names] + [_t(o), _t(d), _t(min_t), _t(occ0)]
+    got = ts.occlusion_stream(*args, **_sizes(static), top_depth=5, sub_depth=4)
+    np.testing.assert_array_equal(got.numpy(), _k4_plain(flat, static, o, d, min_t, occ0))
+    with pytest.raises(ValueError, match="stack of 71"):
+        ts.occlusion_stream(*args, **_sizes(static), top_depth=5, sub_depth=5)
+    with pytest.raises(ValueError, match="entries"):
+        ts.occlusion_stream(*args, sub_nodes=static.stream_sub_nodes + 1,
+                            sub_tris=static.stream_sub_tris, top_depth=1, sub_depth=1)
+    meta = [x.to("meta") for x in args[-4:]]
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ts.occlusion_stream(*args[:-4], *meta, **_sizes(static), top_depth=1, sub_depth=1,
+                            subt12=flat.str_subt12, blocks=flat.str_blocks)

@@ -16,13 +16,19 @@ old-new-new-old shows the run-to-run spread beside the difference.  A tree
 may carry compile-time defines for its kernels (`.:WALK_THREADS=64`): they
 are passed to nvcc as `-D`, and the libraries go into a build directory of
 their own.  In each turn the tree's own `chip_smoke.py` builds the three
-scenes' tables (glasstorus, glasstorus160k, glasstorus640k) and the
-800x800 frame's 640,000 continuation rays, checks K1 and K3 against the
-tree's plain versions on glasstorus and glasstorus160k (all four ray sets)
-and K3 against K1 on the two large meshes, and times K1, K3 and K5 on the
-continuation rays and K2 and K4 on the NEE shadow rays with CUDA events
-(median of `--runs`, 5 unless given, after a warm-up), the SM clock sampled
-over the mesh's turn.  `--meshes` keeps the turns to some of the three.
+scenes' tables (glasstorus, glasstorus160k, glasstorus640k) and calls the
+tree's kernels; the rays are those of this checkout's `chip_smoke.py
+ray_cases` for every tree (the 800x800 frame's 640,000 camera and
+continuation rays, and two sets of NEE shadow rays, from the camera rays'
+hits and from the continuation rays' hits), made with the tree's port.  A
+turn checks K1 and K3 (bit for bit, all four ray sets) and K2 and K4 (every
+lane, all four shadow sets) against the tree's plain versions on glasstorus
+and glasstorus160k, and K3 against K1 and K4 against K2 on the two large
+meshes, and times K1, K3 and K5 on the continuation rays and K2 and K4 on
+both shadow sets ("K2", "K4": from the camera rays' hits; "K2c", "K4c": from
+the continuation rays' hits) with CUDA events (median of `--runs`, 5 unless
+given, after a warm-up), the SM clock sampled over the mesh's turn.
+`--meshes` keeps the turns to some of the three.
 Prints the card's name and power limit, one
 line per turn and mesh, and a table of medians per tree; `--out FILE`
 writes the same as JSON.  Needs CUDA; the large OBJs are written once and
@@ -45,15 +51,18 @@ ROOT = Path(__file__).resolve().parent.parent
 # Runs with a tree's root as working directory; uses only what every tree's
 # chip_smoke.py has had since the streaming kernels landed.
 WORKER = r"""
-import json, sys
+import importlib.util, json, sys
 from pathlib import Path
-meshes, runs = sys.argv[1].split(","), int(sys.argv[2])
-defines = [a for a in sys.argv[3:] if a]
+meshes, runs, rays_from = sys.argv[1].split(","), int(sys.argv[2]), sys.argv[3]
+defines = [a for a in sys.argv[4:] if a]
 import torch
 import chip_smoke as cs
 from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops import traverse_cuda as tc
 from tools.cuda_timing import describe_clock, median_ms, sm_clock
+spec = importlib.util.spec_from_file_location("ray_source", rays_from)
+ray_source = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(ray_source)
 if defines:
     _build.NVCC_FLAGS = _build.NVCC_FLAGS + tuple("-D" + a for a in defines)
     _build.BUILD_DIR = _build.BUILD_DIR / ("variant_" + "_".join(defines).replace("=", "-"))
@@ -64,10 +73,13 @@ for scene in (cs.SCENE, cs.SCENE_160K, cs.SCENE_640K):
     if scene.stem not in meshes:
         continue
     r = cs.build_renderer(scene)[0]
-    closest, shadow = cs.ray_cases(r)
+    closest, shadow = ray_source.ray_cases(r)
     flat, static = r.flat, r.static
     wide = (flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)
+    k2_tables = (flat.bvh_wf, flat.bvh_wi, flat.tri_pk)
     k1 = lambda ro, rd, t0: tc.closest_hit_wbvh(*wide, ro, rd, t0, wide_depth=static.wide_depth)
+    k2 = lambda so, sd, mt, o0: tc.occlusion_wbvh(*k2_tables, so, sd, mt, o0,
+                                                  wide_depth=static.wide_depth)
     k = cs.stream_calls(flat, static) if static.stream_subs else None
     check = scene != cs.SCENE_640K  # the plain walks take minutes there
     same = True
@@ -83,19 +95,28 @@ for scene in (cs.SCENE, cs.SCENE_160K, cs.SCENE_640K):
                 if check:
                     want = k["K3_plain"](ro, rd, t0)
                     same &= all(torch.equal(a, b) for a, b in zip(got3, want))
+        for label, (so, sd, mt, o0) in shadow.items():
+            got2 = k2(so, sd, mt, o0)
+            if check:
+                same &= torch.equal(got2, tc.occlusion_wbvh_plain(*k2_tables, so, sd, mt, o0))
+            if k:
+                got4 = k["K4"](so, sd, mt, o0)
+                same &= torch.equal(got4, got2)
+                if check:
+                    same &= torch.equal(got4, k["K4_plain"](so, sd, mt, o0))
         ro, rd, t0 = closest["continuation"]
-        so, sd, mt, o0 = shadow["NEE"]
-        k2_tables = (flat.bvh_wf, flat.bvh_wi, flat.tri_pk)
-        ms = {"K1": median_ms(lambda: k1(ro, rd, t0), runs),
-              "K2": median_ms(lambda: tc.occlusion_wbvh(*k2_tables, so, sd, mt, o0,
-                                                        wide_depth=static.wide_depth), runs)}
+        ms = {"K1": median_ms(lambda: k1(ro, rd, t0), runs)}
         if k:
             ms["K3"] = median_ms(lambda: k["K3"](ro, rd, t0), runs)
-            ms["K4"] = median_ms(lambda: k["K4"](so, sd, mt, o0), runs)
             ms["K5"] = median_ms(lambda: k["K5"](ro, rd, t0), runs)
+        for tag, label in zip(("", "c"), ray_source.SHADOW_SETS):
+            so, sd, mt, o0 = shadow[label]
+            ms["K2" + tag] = median_ms(lambda: k2(so, sd, mt, o0), runs)
+            if k:
+                ms["K4" + tag] = median_ms(lambda: k["K4"](so, sd, mt, o0), runs)
     out["meshes"][scene.stem] = {"ms": ms, "bitwise_equal": bool(same), "clock": describe_clock(clock),
                                  "rays": ro.shape[0]}
-    del r, closest, flat, k
+    del r, closest, shadow, flat, k
     torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out))
 """
@@ -127,7 +148,8 @@ def main(argv=None) -> int:
             dst = root / "scenes" / "assets" / name
             if not dst.exists():
                 shutil.copy(ROOT / "scenes" / "assets" / name, dst)
-        proc = subprocess.run([sys.executable, "-c", WORKER, args.meshes, str(args.runs), *defs.split(",")], cwd=root,
+        proc = subprocess.run([sys.executable, "-c", WORKER, args.meshes, str(args.runs),
+                               str(ROOT / "chip_smoke.py"), *defs.split(",")], cwd=root,
                               env={**os.environ, "PYTHONPATH": str(root)},
                               capture_output=True, text=True)
         line = next((l for l in proc.stdout.splitlines() if l.startswith("RESULT ")), None)
@@ -141,9 +163,9 @@ def main(argv=None) -> int:
         for mesh, m in res["meshes"].items():
             ms = m["ms"]
             ratio = f", K3/K1 {ms['K3'] / ms['K1']:.3f}" if "K3" in ms else ""
-            print(f"{spec} {mesh} at {m['rays']} continuation rays: "
+            print(f"{spec} {mesh} at {m['rays']} rays: "
                   + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()) + ratio
-                  + f"; equal to the plain versions bit for bit: {m['bitwise_equal']}; {m['clock']}",
+                  + f"; K1-K4 equal to the plain versions on every lane: {m['bitwise_equal']}; {m['clock']}",
                   flush=True)
         if not all(m["bitwise_equal"] for m in res["meshes"].values()):
             raise SystemExit(f"{spec}: a kernel disagrees with its plain version")
