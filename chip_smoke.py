@@ -24,24 +24,30 @@ line):
    past the resident budget) at 800x800, on the same kinds of rays: K3
    (closest hit) and K4 (shadow any-hit) against their plain versions, and
    against K1/K2 on the same mesh's wide tables (t bitwise equal, occlusion
-   equal: a lost or doubled triangle of the split would show), K3 and K4
-   through the tables derived for them with the scene (padded triangle rows,
-   per-block rows), whose 16-byte alignment is asserted; K5
-   (block-major closest hit) against its plain version and against K3 (t
-   bitwise equal, exact-t tie lanes counted); median times of K1, K3, K5;
+   equal: a lost or doubled triangle of the split would show), K3, K4 and
+   K5 through the tables derived for them with the scene (padded triangle
+   rows, per-block rows, K5's padded root boxes and group boxes), whose
+   16-byte alignment is asserted; K5 (block-major closest hit) against its
+   plain version and against K3 (t bitwise equal, exact-t tie lanes
+   counted); median times of K1, K3, K5 on the camera and the continuation
+   rays, and the box tests per live lane of K5's walk (group, root and node
+   tests) beside K3's;
 5. the same K5-against-K3 check on scenes/glasstorus640k.txt (640,000
    triangles, stream tables past the L2), K4 against K2 there, the table
-   bytes, and median times of K1, K3, K5, K2 and K4 there;
+   bytes, and median times of K1, K3, K5 on both closest-hit ray sets and
+   of K2 and K4 on both shadow sets there;
 6. main paths, as a user calls them: Renderer(scene, MIS, device="cuda") at
-   800x800, depth 8, 8 spp, for glasstorus (must launch K1 and K2), for
-   glasstorus160k (must launch K3 and K4, and neither K1 nor K2), and for
-   glasstorus640k twice, with STREAM_BLOCKMAJOR off (K3 and K4 only) and on
-   (K5 and K4 only), the two images held to the slice tolerance; launch
-   counts are zeroed just before each path and read just after; each
-   scene's tables are built once and serve its kernel checks too;
-7. card against CPU: glasstorus and glasstorus160k (the latter with the flag
-   off and on) at 64x64, depth 8, 2 spp, MIS, rendered on "cuda" and on
-   "cpu", held to the CPU slice test's image tolerance;
+   800x800, depth 8, 8 spp, for scenes/cornell_spheres.txt (the analytic
+   Cornell box with all five materials: must launch none of K1-K5), for
+   glasstorus (must launch K1 and K2), for glasstorus160k (must launch K3
+   and K4, and neither K1 nor K2), and for glasstorus640k twice, with
+   STREAM_BLOCKMAJOR off (K3 and K4 only) and on (K5 and K4 only), the two
+   images held to the slice tolerance; launch counts are zeroed just before
+   each path and read just after; each scene's tables are built once and
+   serve its kernel checks too;
+7. card against CPU: cornell_spheres, glasstorus and glasstorus160k (the
+   latter with the flag off and on) at 64x64, depth 8, 2 spp, MIS, rendered
+   on "cuda" and on "cpu", held to the CPU slice test's image tolerance;
 8. the probes P1 and P2 against their plain versions (every P2 variant at a
    small pop count, from the probe's accumulator start and from a small
    one), and their ns per lap at the TPU probes' sizes.
@@ -64,6 +70,7 @@ from pathlib import Path
 from tools.cuda_timing import median_ms
 
 ROOT = Path(__file__).resolve().parent
+SCENE_CORNELL = ROOT / "scenes" / "cornell_spheres.txt"
 SCENE = ROOT / "scenes" / "glasstorus.txt"
 SCENE_160K = ROOT / "scenes" / "glasstorus160k.txt"
 SCENE_640K = ROOT / "scenes" / "glasstorus640k.txt"
@@ -86,14 +93,17 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # additions or subtractions, 1 division, 1 select, 6 comparisons, and the
 # comparison with the ray's best t or window).
 BOX_OPS, TRI_OPS = 25, 55
-# The kernels of csrc/walk_core.cuh, K1, K3 (closest hit) and K2, K4 (any hit),
-# with the 16-byte loads each must hold at least: 12 for a node's boxes, 2 for
-# its links, 3 for a triangle row, of which the compiler may narrow the third
-# to the one float of it that counts (e2z), as it does in the any-hit walk
+# The kernels of csrc/walk_core.cuh, K1, K3, K5 (closest hit) and K2, K4 (any
+# hit), with the 16-byte loads each must hold at least: 12 for a node's boxes,
+# 2 for its links, 3 for a triangle row, of which the compiler may narrow the
+# third to the one float of it that counts (e2z), as it does in the any-hit walk
 WALK_KERNELS = {"closest_hit_wbvh_kernel": 17, "closest_hit_stream_kernel": 17,
+                "closest_hit_blockmajor_kernel": 17,
                 "occlusion_wbvh_kernel": 16, "occlusion_stream_kernel": 16}
-# convergence regions of the two any-hit kernels before they took the shared walk
-BSSY_BEFORE = {"occlusion_wbvh_kernel": 29, "occlusion_stream_kernel": 61}
+# convergence regions of K2, K4 and K5 before they took the shared walk
+BSSY_BEFORE = {"occlusion_wbvh_kernel": 29, "occlusion_stream_kernel": 61,
+               "closest_hit_blockmajor_kernel": 31}
+CLOSEST_SETS = ("camera", "continuation")  # the kernels line's times are the second set's
 SHADOW_SETS = ("NEE", "NEE continuation")  # the kernels line's times are the first set's
 SRC_RESIDENT = "pathtracer_tpu_torch/csrc/wbvh_traverse.cu"
 SRC_STREAM = "pathtracer_tpu_torch/csrc/stream_traverse.cu"
@@ -132,7 +142,7 @@ def phase_device():
     log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
     log(f"nvidia-smi: {smi}")
-    return name
+    return name, smi
 
 
 def phase_build():
@@ -301,6 +311,22 @@ def time_shadow(kname, mesh, kernel, plain, table_bytes, shadow, also=None):
     return first
 
 
+def time_closest(k, closest, mesh) -> dict:
+    """K5, K3 and K1 on the camera and the continuation rays: CUDA-event
+    medians of 5, printed with the ratios; returns {"K5 camera": ms, ...}."""
+    ms = {}
+    for label in CLOSEST_SETS:
+        ro, rd, t0 = closest[label]
+        for name in ("K5", "K3", "K1"):
+            ms[f"{name} {label}"] = median_ms(lambda name=name: k[name](ro, rd, t0))
+        log(f"{mesh} closest hit at {ro.shape[0]} {label} rays (median of 5): "
+            + ", ".join(f"{name} {ms[f'{name} {label}']:.4f} ms" for name in ("K5", "K3", "K1"))
+            + f"; K5/K3 {ms[f'K5 {label}'] / ms[f'K3 {label}']:.3f}, "
+            f"K5/K1 {ms[f'K5 {label}'] / ms[f'K1 {label}']:.3f}, "
+            f"K3/K1 {ms[f'K3 {label}'] / ms[f'K1 {label}']:.3f}")
+    return ms
+
+
 def check_k5_k3(label, k5, k3):
     """K5 against K3 on the same rays: t bitwise equal on every lane; tri,
     u, v may differ only on exact-t ties (the block of lower index wins in
@@ -330,6 +356,8 @@ def stream_calls(flat, static):
                  flat.str_base)
     k5_tables = (flat.str_roots, flat.str_subf, flat.str_subi, flat.str_subp, flat.str_subt,
                  flat.str_base)
+    k5_derived = dict(subt12=flat.str_subt12, blocks=flat.str_blocks, roots8=flat.str_roots8,
+                      groups=flat.str_groups)
     k1_tables = (flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)
     k2_tables = (flat.bvh_wf, flat.bvh_wi, flat.tri_pk)
     depths = dict(top_depth=static.stream_top_depth, sub_depth=static.stream_sub_depth)
@@ -345,8 +373,10 @@ def stream_calls(flat, static):
             blocks=flat.str_blocks),
         K4_plain=lambda so, sd, mt, o0, **kw: ts.occlusion_stream_plain(*k4_tables, so, sd, mt, o0, **sizes, **kw),
         K5=lambda ro, rd, t0: ts.closest_hit_blockmajor(
-            *k5_tables, ro, rd, t0, **sizes, sub_depth=static.stream_sub_depth),
-        K5_plain=lambda ro, rd, t0, **kw: ts.closest_hit_blockmajor_plain(*k5_tables, ro, rd, t0, **sizes, **kw),
+            *k5_tables, ro, rd, t0, **sizes, sub_depth=static.stream_sub_depth, **k5_derived),
+        # with the kernel's group cull, so that its counts are the kernel's tests
+        K5_plain=lambda ro, rd, t0, **kw: ts.closest_hit_blockmajor_plain(
+            *k5_tables, ro, rd, t0, **sizes, groups=flat.str_groups, **kw),
         K1=lambda ro, rd, t0: tc.closest_hit_wbvh(*k1_tables, ro, rd, t0, **wide),
         K2=lambda so, sd, mt, o0: tc.occlusion_wbvh(*k2_tables, so, sd, mt, o0, **wide),
     )
@@ -358,16 +388,17 @@ def describe_stream(label, flat, static):
         f"{static.stream_sub_nodes} nodes / {static.stream_sub_tris} triangles, walk depths "
         f"top {static.stream_top_depth} block {static.stream_sub_depth}; stream tables "
         f"{nbytes(flat.str_topf, flat.str_topl, flat.str_topp, flat.str_subf, flat.str_subi, flat.str_subp, flat.str_subt, flat.str_base)} "
-        f"bytes, K3's and K4's derived tables {nbytes(flat.str_subt12, flat.str_blocks)} bytes, wide tables "
+        f"bytes, K3's to K5's derived tables {nbytes(flat.str_subt12, flat.str_blocks)} bytes, K5's "
+        f"cull tables {nbytes(flat.str_roots8, flat.str_groups)} bytes, wide tables "
         f"{nbytes(flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)} bytes")
     if static.stream_subs == 0:
         raise AssertionError(f"{label} did not take the streaming tables")
     assert_aligned(flat, ("str_topf", "str_topl", "str_subf", "str_subi", "str_subt12",
-                          "str_blocks", "bvh_wf", "bvh_wi", "tri_pk"))
+                          "str_blocks", "str_roots8", "str_groups", "bvh_wf", "bvh_wi", "tri_pk"))
 
 
 def assert_aligned(flat, names) -> None:
-    """The tables K1-K4 read in 16-byte loads start on 16-byte bounds."""
+    """The tables K1-K5 read in 16-byte loads start on 16-byte bounds."""
     for name in names:
         if getattr(flat, name).data_ptr() % 16:
             raise AssertionError(f"{name} is not 16-byte aligned")
@@ -423,7 +454,7 @@ def phase_stream_kernels(r):
     k = stream_calls(flat, static)
 
     k3_err = k5_err = 0.0
-    c5 = {"box": 0, "tri": 0}
+    c5 = {"box": 0, "tri": 0, "group": 0, "root": 0}
     for label, (ro, rd, t0) in closest.items():
         got = k["K3"](ro, rd, t0)
         k3_err = max(k3_err, check_closest(label, "K3", got, k["K3_plain"](ro, rd, t0), ro.shape[0]))
@@ -452,38 +483,37 @@ def phase_stream_kernels(r):
         if not same:
             raise AssertionError(f"K4 and K2 disagree ({label})")
 
+    ms = time_closest(k, closest, "glasstorus160k")
     ro, rd, t0 = closest["continuation"]
     n = ro.shape[0]
-    k3_ms = median_ms(lambda: k["K3"](ro, rd, t0))
+    k3_ms, k5_ms = ms["K3 continuation"], ms["K5 continuation"]
     k3_plain_ms = median_ms(lambda: k["K3_plain"](ro, rd, t0))
-    k5_ms = median_ms(lambda: k["K5"](ro, rd, t0))
     # the plain K5 walks block after block (seconds a call): one timed run,
     # warm from the checks above
     k5_plain_ms = median_ms(lambda: k["K5_plain"](ro, rd, t0), runs=1, warmup=False)
-    k1_ms = median_ms(lambda: k["K1"](ro, rd, t0))
     c3 = {"box": 0, "tri": 0}
     k["K3_plain"](ro, rd, t0, counts=c3)
     tables = k["tables"]
     b3 = bound(nbytes(*tables["K3"], ro, rd, t0) + 16 * n, c3)
     # K5 computes K3's function, the closest hit: its bound is K5's bytes and
-    # the tests K3's walk needs on these rays.  K5's own walk (c5: a root test
-    # per live lane and block, blocks K3's upper boxes reject, caps that
-    # shrink later) is the cost of its schedule, printed beside the bound.
+    # the tests K3's walk needs on these rays.  K5's own walk (c5: a group
+    # test per live lane and group, a root test per block of a passing group,
+    # blocks K3's upper boxes reject, caps that shrink later) is the cost of
+    # its schedule, printed beside the bound.
     b5 = bound(nbytes(*tables["K5"], ro, rd, t0) + 16 * n, c3)
-    live = int((t0 >= 0).sum())
-    roots = live * static.stream_subs
-    log(f"K3 time at {n} continuation rays of glasstorus160k: kernel {k3_ms:.4f} ms, plain "
-        f"{k3_plain_ms:.4f} ms (median of 5); walk {c3['box']} box + {c3['tri']} triangle tests, "
-        f"bound {b3[0]:.4f} ms ({b3[1]}); K1 on the same rays and mesh {k1_ms:.4f} ms")
+    live = max(int((t0 >= 0).sum()), 1)
+    nodes5 = c5["box"] - c5["group"] - c5["root"]
+    log(f"K3 at {n} continuation rays of glasstorus160k: plain {k3_plain_ms:.4f} ms (median of 5); "
+        f"walk {c3['box']} box + {c3['tri']} triangle tests, bound {b3[0]:.4f} ms ({b3[1]})")
     # K4's bytes: the stream tables it computes on, as K3's (not the padded copy)
     k4_ms, k4_plain_ms, b4 = time_shadow("K4", "glasstorus160k", k["K4"], k["K4_plain"],
                                          nbytes(*tables["K4"]), shadow, also=("K2", k["K2"]))
-    log(f"K5 time at {n} continuation rays of glasstorus160k: kernel {k5_ms:.4f} ms (median of 5), "
-        f"plain {k5_plain_ms:.4f} ms (one run); bound {b5[0]:.4f} ms ({b5[1]}; K5's bytes, K3's "
-        f"walk); K5's own walk, the cost of its schedule: {c5['box']} box tests ({roots} root "
-        f"tests: {live} live lanes x {static.stream_subs} blocks) + {c5['tri']} triangle tests, "
-        f"against K3's {c3['box']} + {c3['tri']}; K5/K3 {k5_ms / k3_ms:.3f}, "
-        f"K5/K1 {k5_ms / k1_ms:.3f}, K3/K1 {k3_ms / k1_ms:.3f}")
+    log(f"K5 at {n} continuation rays of glasstorus160k: plain {k5_plain_ms:.4f} ms (one run); "
+        f"bound {b5[0]:.4f} ms ({b5[1]}; K5's bytes, K3's walk); K5's own walk, the cost of its "
+        f"schedule: {c5['group']} group + {c5['root']} root + {nodes5} node box tests "
+        f"+ {c5['tri']} triangle tests; per live lane ({live}) {c5['group'] / live:.2f} group + "
+        f"{c5['root'] / live:.2f} root (against {static.stream_subs} blocks) + "
+        f"{nodes5 / live:.1f} node = {c5['box'] / live:.1f} box tests, K3's {c3['box'] / live:.1f}")
     return {
         "K3": ("closest_hit_stream", SRC_STREAM, "pathtracer_tpu/ops/traverse_pallas.py:871",
                k3_err, k3_ms, k3_plain_ms, b3),
@@ -511,15 +541,14 @@ def phase_640k_kernels(r):
         log(f"K4 vs K2 {label}: identical: {same}")
         if not same:
             raise AssertionError(f"K4 and K2 disagree on glasstorus640k ({label})")
-    ro, rd, t0 = closest["continuation"]
-    ms = {name: median_ms(lambda name=name: k[name](ro, rd, t0)) for name in ("K5", "K3", "K1")}
+    time_closest(k, closest, "glasstorus640k")
+    ms = {}
     for label in SHADOW_SETS:
         so, sd, mt, o0 = shadow[label]
         ms.update({f"{name} {label!r}": median_ms(lambda name=name: k[name](so, sd, mt, o0))
                    for name in ("K4", "K2")})
-    log(f"glasstorus640k times at {ro.shape[0]} rays (median of 5; K5/K3/K1 continuation, "
-        f"K4/K2 on both shadow sets): " + ", ".join(f"{name} {v:.4f} ms" for name, v in ms.items())
-        + f"; K5/K3 {ms['K5'] / ms['K3']:.3f}, K3/K1 {ms['K3'] / ms['K1']:.3f}, "
+    log(f"glasstorus640k shadow times at {so.shape[0]} rays (median of 5): "
+        + ", ".join(f"{name} {v:.4f} ms" for name, v in ms.items()) + "; "
         + ", ".join(f"K4/K2 {label!r} {ms[f'K4 {label!r}'] / ms[f'K2 {label!r}']:.3f}"
                     for label in SHADOW_SETS))
 
@@ -557,9 +586,10 @@ def blockmajor(on: bool):
         ts.STREAM_BLOCKMAJOR = was
 
 
-def phase_main_path(built, used: tuple, unused: tuple, label: str = ""):
+def phase_main_path(built, used: tuple, unused: tuple, card: str, label: str = ""):
     """The port's main path on a Renderer built by `build_renderer`, as a
-    user calls it: `step(SPP)` from a fresh accumulation.  The kernels in
+    user calls it: `step(SPP)` from a fresh accumulation, its rate printed
+    beside `card` (nvidia-smi's name and power limit).  The kernels in
     `used` must launch and those in `unused` must not.  Returns the launch
     counts and the image (the accumulated HDR sum)."""
     import numpy as np
@@ -578,7 +608,7 @@ def phase_main_path(built, used: tuple, unused: tuple, label: str = ""):
     r.save_png(out)
     log(f"main path: {r.static.image_name}{label} MIS {RES}x{RES} depth {DEPTH} {SPP} spp: "
         f"{stats.mrays_per_sec:.3f} Mrays/s, {stats.rays_traced} rays in "
-        f"{stats.wall_seconds:.3f} s wall over {stats.iterations_done - 1} timed iterations "
+        f"{stats.wall_seconds:.3f} s wall over {stats.iterations_done - 1} timed iterations on {card} "
         f"({statistics.mean(stats.per_iter_seconds):.4f} s/iteration; warm-up "
         f"{stats.compile_seconds:.3f} s); host set-up: parse {parse_s:.3f} s, tables (BVH, "
         f"wide collapse, stream split, upload) {tables_s:.3f} s; launches {launches}, "
@@ -677,7 +707,7 @@ def phase_probes():
 
 def main() -> int:
     t_start = time.perf_counter()
-    name = phase_device()
+    name, smi = phase_device()
     import torch
 
     from tools.make_torus_obj import ensure_torus_obj
@@ -687,23 +717,31 @@ def main() -> int:
         t0 = time.perf_counter()
         ensure_torus_obj(*obj)
         log(f"{obj[0].relative_to(ROOT)}: ready in {time.perf_counter() - t0:.2f} s")
+    cornell = build_renderer(SCENE_CORNELL)
+    phase_main_path(cornell, used=(), unused=("K1", "K2", "K3", "K4", "K5"), card=smi)
+    if cornell[0].static.num_tris or len(cornell[0].static.material_types) != 5:
+        raise AssertionError("cornell_spheres must be triangle-free with all five materials")
+    del cornell
     resident = build_renderer(SCENE)
     kernels = phase_resident_kernels(resident[0])
     stream = build_renderer(SCENE_160K)
     kernels.update(phase_stream_kernels(stream[0]))
     big = build_renderer(SCENE_640K)
     phase_640k_kernels(big[0])
-    launches, _ = phase_main_path(resident, used=("K1", "K2"), unused=("K3", "K4", "K5"))
-    stream_launches, _ = phase_main_path(stream, used=("K3", "K4"), unused=("K1", "K2", "K5"))
+    launches, _ = phase_main_path(resident, used=("K1", "K2"), unused=("K3", "K4", "K5"),
+                                  card=smi)
+    stream_launches, _ = phase_main_path(stream, used=("K3", "K4"), unused=("K1", "K2", "K5"),
+                                         card=smi)
     launches.update(K3=stream_launches["K3"], K4=stream_launches["K4"])
-    _, img_k3 = phase_main_path(big, used=("K3", "K4"), unused=("K1", "K2", "K5"))
+    _, img_k3 = phase_main_path(big, used=("K3", "K4"), unused=("K1", "K2", "K5"), card=smi)
     with blockmajor(True):
         bm_launches, img_k5 = phase_main_path(big, used=("K5", "K4"), unused=("K1", "K2", "K3"),
-                                              label="_blockmajor")
+                                              card=smi, label="_blockmajor")
     launches.update(K5=bm_launches["K5"], P1=bm_launches["P1"], P2=bm_launches["P2"])
     compare_images(f"glasstorus640k STREAM_BLOCKMAJOR on (K5) vs off (K3), MIS {RES}x{RES} "
                    f"depth {DEPTH} {SPP} spp", img_k5, img_k3)
     del big, img_k3, img_k5
+    phase_card_vs_cpu(SCENE_CORNELL)
     phase_card_vs_cpu(SCENE)
     phase_card_vs_cpu(SCENE_160K)
     phase_card_vs_cpu(SCENE_160K, k5=True)

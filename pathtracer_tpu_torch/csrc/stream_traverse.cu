@@ -12,18 +12,21 @@
 //   subi (n_sub*S*24,)  i32  block node [local link x8 | start x8 | end x8];
 //                            [start, end) indexes the block's triangles
 //   subp (n_sub*S*8,)   i32  block node child order (K3, K5)
-//   subt (n_sub*Tmax*9,) f32 block triangle rows [v0, e1, e2] (stride 9; K5)
+//   subt (n_sub*Tmax*9,) f32 block triangle rows [v0, e1, e2] (stride 9; the
+//                            plain versions' rows, no kernel reads it)
 //   base (n_sub,)       i32  global id of block s's first triangle
-//   rootf (n_sub*6,)    f32  K5 only: block s's root box, the top slot that
-//                            links it (scene/flatscene.py stream_roots)
-// and, derived from them once per scene for K3 and K4 (scene/flatscene.py
-// stream_walk_tables):
+// and, derived from them once per scene (scene/flatscene.py
+// stream_walk_tables, stream_cull_tables):
 //   subt12 (n_sub*Tmax*12,) f32  subt's rows padded to [v0, e1, e2, 0 0 0]: 48
 //                            bytes, 3 loads of 16 bytes (a stride-9 row is
-//                            never 16-byte aligned)
+//                            never 16-byte aligned); K3-K5
 //   blocks (n_sub*4,)   i32  block s: [base[s], s*Tmax, lo, hi]; a block that
 //                            wraps one leaf cut has its rows [lo, hi) of
-//                            subt12, any other block lo = hi = -1
+//                            subt12, any other block lo = hi = -1; K3-K5
+//   roots8 (n_sub*8,)   f32  K5: block s's root box (the top slot that links
+//                            it) [bmin, bmax, 0, 0]
+//   groups (n_grp*8,)   f32  K5: the union of G consecutive root boxes, as
+//                            roots8
 //
 // The TPU kernels stream each block into on-chip memory through a DMA ring.
 // Here the tables simply stay in device memory (22 MB for 160k triangles,
@@ -43,87 +46,16 @@
 // exact-t ties included).
 //
 // Built with -fmad=false and without fast math, as K1/K2.  The plain PyTorch
-// versions in ops/traverse_stream_cuda.py walk K3's and K5's per-ray order;
-// K4's result does not depend on the order (walk_core.cuh says why).
+// versions in ops/traverse_stream_cuda.py walk K3's and K5's per-ray order
+// (K5's without the group cull, which changes no result); K4's result does
+// not depend on the order (walk_core.cuh says why).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "walk_core.cuh"
 
-#define SUB_STACK 64  // K5: the wrapper checks 7*sub_depth+1 <= SUB_STACK
-#define THREADS 128   // K5: rays per block
-
 namespace {
-
-struct Closest {
-  float t, u, v;
-  int tri;
-};
-
-__device__ __forceinline__ bool child_box(const float* __restrict__ nf, int slot,
-                                          const Ray& r, float cap) {
-  float t_enter;
-  return slab(nf + slot * 6, r.ox, r.oy, r.oz, r.idx, r.idy, r.idz, &t_enter) &&
-         t_enter <= cap;
-}
-
-// K5: block s's node rows (boxes, ints) and triangle rows.
-struct Block {
-  const float* f;
-  const int* i;
-  const float* t;
-};
-
-__device__ __forceinline__ Block block(const float* __restrict__ subf,
-                                       const int* __restrict__ subi,
-                                       const float* __restrict__ subt, int s, int S, int Tmax) {
-  return {subf + (size_t)s * S * 48, subi + (size_t)s * S * 24, subt + (size_t)s * Tmax * 9};
-}
-
-// A block that wraps one leaf cut: its root has nothing in slot 1 (a real
-// wide node has at least two children).
-__device__ __forceinline__ bool wrapped_leaf(const int* __restrict__ root) {
-  return root[1] < 0 && root[16 + 1] <= root[8 + 1];
-}
-
-// Closest hit over block triangles [start, end), ids rebased by gbase; in cut
-// order, a hit wins only if strictly closer.
-__device__ __forceinline__ void leaf_closest(const float* __restrict__ rows, int start,
-                                             int end, int gbase, const Ray& r,
-                                             Closest& best) {
-  for (int k = start; k < end; ++k) {
-    float tt, tu, tv;
-    if (moller_trumbore(rows + 9 * k, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, &tt, &tu, &tv) &&
-        tt < best.t) {
-      best.t = tt;
-      best.tri = gbase + k;
-      best.u = tu;
-      best.v = tv;
-    }
-  }
-}
-
-// One node of K5's block walk (the per-ray order of K3's walk, child after
-// child):
-// children far -> near in the ray's octant order (the nearest is pushed
-// last), child nodes onto the block stack, leaf cuts tested at once.
-__device__ __forceinline__ void block_node_closest(const Block& b, const int* __restrict__ bp,
-                                                   int node, int oct, int gbase, const Ray& r,
-                                                   Closest& best, int* bstack, int& bsp) {
-  const int perm = bp[node * 8 + oct];
-  const float* nf = b.f + node * 48;
-  const int* ni = b.i + node * 24;
-  for (int rank = 7; rank >= 0; --rank) {
-    const int slot = (perm >> (3 * rank)) & 7;
-    if (!child_box(nf, slot, r, best.t)) continue;
-    const int link = ni[slot];
-    if (link >= 0)
-      bstack[bsp++] = link;
-    else
-      leaf_closest(b.t, ni[8 + slot], ni[16 + slot], gbase, r, best);
-  }
-}
 
 // The stream tables as walk_core.cuh walks them, as one tree.  An entry is
 // ~t for top node t (so negative) or the flat row s*S + m of block s's node m
@@ -134,7 +66,7 @@ __device__ __forceinline__ void block_node_closest(const Block& b, const int* __
 struct StreamTables {
   const float* topf;
   const int* topl;
-  const int* topp;  // K3 alone reads topp and subp; K4 passes none
+  const int* topp;  // K3 reads topp and subp, K5 subp alone (no top entry); K4 neither
   const float* subf;
   const int* subi;
   const int* subp;
@@ -253,62 +185,79 @@ occlusion_stream_kernel(const float* __restrict__ topf, const int* __restrict__ 
 // _make_blockmajor_closest_kernel (pathtracer_tpu/ops/traverse_pallas.py:1120,
 // 993).  K3's result with the loops swapped: an outer loop over the blocks
 // in index order; a ray enters block s only if it passes the block's root
-// box under its current best t, and then walks it to its end as K3 does (a
-// wrapped one-node block has its triangles tested at once).  The top tree's
-// inner boxes are never tested, so every live ray pays n_sub root tests.
-// The closest t equals K3's (the minimum does not depend on the visit
-// order); on an exact-t tie the block of lower index wins, where K3's
+// box under its current best t, and then walks it to its end with K3's
+// closest-hit walk (walk_core.cuh closest_walk from entry s*S: the same
+// visits in the same order as K3 inside a block, so the plain version's
+// block steps); a wrapped one-node block has its rows of subt12 tested at
+// once.  The closest t equals K3's (the minimum does not depend on the
+// visit order); on an exact-t tie the block of lower index wins, where K3's
 // depth-first order may pick another.  Starts from t = t_init, tri = -1,
 // u = v = 0; lanes with t_init < 0 never enter a block.
-// What bounds it on this card: latency (dependent 4-byte loads, child after
-// child, from L2 or device memory; warps that diverge over the blocks' nodes).  The TPU
-// kernel's chunk of resident rays, DMA ring and per-packet root filter are
-// not carried over: the tables stay in device memory, and the block-outer
-// order is what gives the threads of a CTA the same block at about the same
-// time.  A whole block (311,296 bytes at 512 nodes / 4,096 triangles) does
-// not fit the 232,448 bytes of shared memory a CTA may use; only its node
-// part (163,840 bytes) would, which is the design question for making K5
-// fast.
-__global__ void __launch_bounds__(THREADS)
-closest_hit_blockmajor_kernel(const float* __restrict__ rootf, const float* __restrict__ subf,
-                              const int* __restrict__ subi, const int* __restrict__ subp,
-                              const float* __restrict__ subt, const int* __restrict__ base,
-                              const float* __restrict__ o, const float* __restrict__ d,
-                              const float* __restrict__ t_init,
+// The top tree's boxes are not tested.  In their place the blocks come in
+// groups of G consecutive ones (one depth-first split, so near in space),
+// and a ray that misses a group's union box under its best t skips the
+// group's root tests (scene/flatscene.py stream_cull_tables says why that
+// never skips a block the root test would pass).  Group and root boxes are
+// rows of 8 floats, 2 loads of 16 bytes, which every lane of a warp reads at
+// the same step: one broadcast.
+// What bounds it on this card: what bounds K3's walk (walk_core.cuh), plus
+// a root test per group and per block of a passing group, and the order:
+// the lanes of a warp that enter different blocks walk them in turns (a CTA's
+// lanes enter 21 blocks of 71, 36 of 470, on a bounce's continuation rays;
+// about 1 on camera rays).  Measured and dropped (PERF.md): one loop that
+// pops or tests a root each lap, so that such lanes pop together (as fast on
+// continuation rays, 20% slower on camera rays).  Shared memory for a block's
+// nodes was reckoned and not built: the staged bytes would be 2.4-12.8x the
+// sectors the walks fetch (tools/blockmajor_reckoning.py).  The TPU kernel's
+// chunk of resident rays, DMA ring and per-packet root filter are not
+// carried over: the tables stay in device memory.
+__device__ __forceinline__ bool box_row(const float4* __restrict__ row, const Ray& r, float cap) {
+  const float4 lo = __ldg(row), hi = __ldg(row + 1);
+  float t_enter;
+  return slab(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, r.ox, r.oy, r.oz, r.idx, r.idy, r.idz,
+              &t_enter) &&
+         t_enter <= cap;
+}
+
+__global__ void __launch_bounds__(WALK_THREADS)
+closest_hit_blockmajor_kernel(const float* __restrict__ groups, const float* __restrict__ roots8,
+                              const float* __restrict__ subf, const int* __restrict__ subi,
+                              const int* __restrict__ subp, const float* __restrict__ subt12,
+                              const int* __restrict__ blocks, const float* __restrict__ o,
+                              const float* __restrict__ d, const float* __restrict__ t_init,
                               float* __restrict__ t_out, int* __restrict__ tri_out,
-                              float* __restrict__ u_out, float* __restrict__ v_out,
-                              int n, int n_sub, int S, int Tmax) {
+                              float* __restrict__ u_out, float* __restrict__ v_out, int n,
+                              int n_sub, int G, int S, int Tmax) {
+  const StreamTables tb = {nullptr, nullptr, nullptr, subf, subi, subp,
+                           reinterpret_cast<const float4*>(subt12),
+                           reinterpret_cast<const int4*>(blocks), S, Tmax};
+  const float4* group_rows = reinterpret_cast<const float4*>(groups);
+  const float4* root_rows = reinterpret_cast<const float4*>(roots8);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Ray r = load_ray(o, d, i);
-  Closest best = {t_init[i], 0.0f, 0.0f, -1};
+  WalkHit best = {t_init[i], 0.0f, 0.0f, -1};
   if (best.t >= 0.0f) {
-    const int oct = (r.dx > 0.0f ? 1 : 0) | (r.dy > 0.0f ? 2 : 0) | (r.dz > 0.0f ? 4 : 0);
-    int bstack[SUB_STACK];
-    for (int s = 0; s < n_sub; ++s) {
-      if (!child_box(rootf, s, r, best.t)) continue;
-      const Block b = block(subf, subi, subt, s, S, Tmax);
-      const int gbase = base[s];
-      if (wrapped_leaf(b.i)) {
-        leaf_closest(b.t, b.i[8], b.i[16], gbase, r, best);
-        continue;
-      }
-      const int* bp = subp + (size_t)s * S * 8;
-      int bsp = 0;
-      bstack[bsp++] = 0;
-      while (bsp > 0) {
-        const int node = bstack[--bsp];
-        block_node_closest(b, bp, node, oct, gbase, r, best, bstack, bsp);
+    const Ray r = load_ray(o, d, i);
+    const int oct = octant(r);
+    int stack[WALK_STACK];
+    for (int g = 0, s0 = 0; s0 < n_sub; ++g, s0 += G) {
+      if (!box_row(group_rows + 2 * g, r, best.t)) continue;
+      const int s1 = min(s0 + G, n_sub);
+      for (int s = s0; s < s1; ++s) {
+        if (!box_row(root_rows + 2 * s, r, best.t)) continue;
+        const int4 b = __ldg(tb.blocks + s);
+        if (b.z >= 0)
+          closest_leaf(tb, r, b.z, b.w, best);
+        else
+          closest_walk(tb, r, oct, s * S, best, stack);
       }
     }
   }
   t_out[i] = best.t;
-  tri_out[i] = best.tri;
+  tri_out[i] = best.row < 0 ? -1 : tb.tri_id(best.row);
   u_out[i] = best.u;
   v_out[i] = best.v;
 }
-
-inline dim3 grid_for(int n) { return dim3((unsigned)((n + THREADS - 1) / THREADS)); }
 
 }  // namespace
 
@@ -328,16 +277,16 @@ extern "C" int pt_closest_hit_stream(const float* topf, const int* topl, const i
   return (int)cudaGetLastError();
 }
 
-extern "C" int pt_closest_hit_blockmajor(const float* rootf, const float* subf,
-                                         const int* subi, const int* subp, const float* subt,
-                                         const int* base, const float* o, const float* d,
-                                         const float* t_init, float* t_out, int* tri_out,
-                                         float* u_out, float* v_out, int n, int n_sub, int S,
-                                         int Tmax, void* stream) {
+extern "C" int pt_closest_hit_blockmajor(const float* groups, const float* roots8,
+                                         const float* subf, const int* subi, const int* subp,
+                                         const float* subt12, const int* blocks, const float* o,
+                                         const float* d, const float* t_init, float* t_out,
+                                         int* tri_out, float* u_out, float* v_out, int n,
+                                         int n_sub, int G, int S, int Tmax, void* stream) {
   if (n > 0)
-    closest_hit_blockmajor_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        rootf, subf, subi, subp, subt, base, o, d, t_init, t_out, tri_out, u_out, v_out, n,
-        n_sub, S, Tmax);
+    closest_hit_blockmajor_kernel<<<walk_grid(n), WALK_THREADS, 0, (cudaStream_t)stream>>>(
+        groups, roots8, subf, subi, subp, subt12, blocks, o, d, t_init, t_out, tri_out, u_out,
+        v_out, n, n_sub, G, S, Tmax);
   return (int)cudaGetLastError();
 }
 

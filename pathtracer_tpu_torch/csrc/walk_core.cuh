@@ -1,7 +1,8 @@
 // The two walks shared by the traversal kernels: the closest-hit walk of K1
-// (wbvh_traverse.cu, the resident wide BVH) and K3 (stream_traverse.cu, the
-// two-level stream tables), and the shadow any-hit walk of K2 and K4 over the
-// same two table types.  One thread per ray, one stack of node entries, and
+// (wbvh_traverse.cu, the resident wide BVH), K3 (stream_traverse.cu, the
+// two-level stream tables) and, one block at a time, K5 (the same tables,
+// blocks outer), and the shadow any-hit walk of K2 and K4 over the first two
+// table types.  One thread per ray, one stack of node entries, and
 // a table type that says where an entry's rows lie and what a child link
 // means.
 //
@@ -143,6 +144,26 @@ __device__ __forceinline__ void load_tri_row(const float4* __restrict__ tri, int
   a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
 }
 
+// Triangle rows [lo, hi) of a leaf cut against the best hit, in cut order: a
+// hit wins only if strictly closer.
+template <class Tables>
+__device__ __forceinline__ void closest_leaf(const Tables& tb, const Ray& r, int lo, int hi,
+                                             WalkHit& best) {
+  for (int k = lo; k < hi; ++k) {
+    float4 a, b, c;
+    load_tri_row(tb.tri, k, a, b, c);
+    float tt, tu, tv;
+    if (moller_trumbore(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, r.ox, r.oy, r.oz, r.dx,
+                        r.dy, r.dz, &tt, &tu, &tv) &&
+        tt < best.t) {
+      best.t = tt;
+      best.row = k;
+      best.u = tu;
+      best.v = tv;
+    }
+  }
+}
+
 // One pop of the closest-hit walk: tests the 8 children of entry `e`, runs
 // the passing leaf cuts and pushes the passing nodes, far to near.
 template <class Tables>
@@ -168,19 +189,19 @@ __device__ __forceinline__ void visit_node(const Tables& tb, const Ray& r, int o
       stack[sp++] = push;
       continue;
     }
-    for (int k = lo; k < hi; ++k) {
-      float4 a, b, c;
-      load_tri_row(tb.tri, k, a, b, c);
-      float tt, tu, tv;
-      if (moller_trumbore(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, r.ox, r.oy, r.oz,
-                          r.dx, r.dy, r.dz, &tt, &tu, &tv) &&
-          tt < best.t) {
-        best.t = tt;
-        best.row = k;
-        best.u = tu;
-        best.v = tv;
-      }
-    }
+    closest_leaf(tb, r, lo, hi, best);
+  }
+}
+
+// The closest-hit walk from entry `e` until the stack is empty again.
+template <class Tables>
+__device__ __forceinline__ void closest_walk(const Tables& tb, const Ray& r, int oct, int e,
+                                             WalkHit& best, int* stack) {
+  int sp = 0;
+  while (true) {
+    visit_node(tb, r, oct, e, best, stack, sp);
+    if (sp == 0) break;
+    e = stack[--sp];
   }
 }
 
@@ -198,13 +219,7 @@ __device__ __forceinline__ void closest_hit_rays(
     const Ray r = load_ray(o, d, i);
     const int oct = octant(r);
     int stack[WALK_STACK];
-    int sp = 0;
-    int e = Tables::kRoot;
-    while (true) {
-      visit_node(tb, r, oct, e, best, stack, sp);
-      if (sp == 0) break;
-      e = stack[--sp];
-    }
+    closest_walk(tb, r, oct, Tables::kRoot, best, stack);
   }
   t_out[i] = best.t;
   tri_out[i] = best.row < 0 ? -1 : tb.tri_id(best.row);

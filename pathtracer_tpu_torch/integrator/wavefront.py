@@ -101,8 +101,14 @@ class _Pool(NamedTuple):
 
 
 def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
-           iteration: int, depth: int, s: _Pool) -> tuple[_Pool, torch.Tensor]:
-    """One intersect + shade pass over the pool; returns (pool, rays emitted)."""
+           iteration: int, depth: int, s: _Pool,
+           trace: dict | None = None) -> tuple[_Pool, torch.Tensor]:
+    """One intersect + shade pass over the pool; returns (pool, rays emitted).
+    `trace`, if given, receives the pass's stage arrays by name (the hit, the
+    material parameters and shading normal, the scatter sample, the light
+    sample and the BSDF evaluations at its direction, the light-hit and NEE
+    terms before process_nan), as tools/stage_diff_torch.py compares them."""
+    note = trace.update if trace is not None else (lambda **_: None)
     present = static.material_types
     alive = s.alive
     pixel_idx = torch.arange(alive.shape[0], dtype=torch.int32, device=alive.device)
@@ -120,6 +126,7 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     sc_rand = rng.pixel_uniforms(key, iteration, depth, rng.STAGE_SCATTER, pixel_idx, 3)
     srec = scatter_sample(params, nrm, s.d, sc_rand, present=present)
     pdf_ok = srec.pdf != 0.0
+    note(hit=hit, params=params, nrm=nrm, srec=srec)
 
     if mode == SampleMode.DIRECT_LI:
         add_light = alive & is_light
@@ -137,6 +144,7 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
                 s.color * bsdf * lrec.emit
                 * (torch.clamp(m.dot(wi, nrm), min=0.0) / lrec.pdf)[..., None]
             )
+            note(lrec=lrec, li_bsdf=bsdf, nee=nee)
             add_nee = alive & ~is_light & (lrec.pdf > 0.0)
             contrib = contrib + torch.where(add_nee[..., None], m.process_nan(nee), 0.0)
         return s._replace(contrib=contrib, alive=torch.zeros_like(alive)), rays
@@ -149,6 +157,7 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
         light_color = light_color * weight[..., None]
     add_light = alive & pdf_ok & is_light
     contrib = contrib + torch.where(add_light[..., None], m.process_nan(light_color), 0.0)
+    note(light_color=light_color)
 
     cont = alive & pdf_ok & ~is_light
 
@@ -166,6 +175,7 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
                 w[..., None] * s.color * lrec.emit * li_bsdf
                 * (torch.clamp(m.dot(wi, nrm), min=0.0) / lrec.pdf)[..., None]
             )
+            note(lrec=lrec, b_pdf=b_pdf, li_bsdf=li_bsdf, nee=nee)
             add_nee = cont & ~is_delta
             contrib = contrib + torch.where(add_nee[..., None], m.process_nan(nee), 0.0)
 

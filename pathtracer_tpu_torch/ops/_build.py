@@ -41,7 +41,7 @@ ARGTYPES = {
     "pt_occlusion_wbvh": [_P] * 8 + [_I, _P],
     "pt_closest_hit_stream": [_P] * 15 + [_I, _I, _I, _P],
     "pt_occlusion_stream": [_P] * 11 + [_I, _I, _I, _P],
-    "pt_closest_hit_blockmajor": [_P] * 13 + [_I] * 4 + [_P],
+    "pt_closest_hit_blockmajor": [_P] * 14 + [_I] * 5 + [_P],
     "pt_probe_rowprim": [_P] * 3 + [_I, _I, _P],
     "pt_probe_pop": [_I] + [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
 }

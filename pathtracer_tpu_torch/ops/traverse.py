@@ -209,6 +209,8 @@ def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None) -> Hit:
             flat.str_roots, flat.str_subf, flat.str_subi, flat.str_subp,
             flat.str_subt, flat.str_base, o, d, t_init, sub_nodes=static.stream_sub_nodes,
             sub_tris=static.stream_sub_tris, sub_depth=static.stream_sub_depth,
+            subt12=flat.str_subt12, blocks=flat.str_blocks, roots8=flat.str_roots8,
+            groups=flat.str_groups,
         )
     elif packet_mode(static) == "stream":
         t_tri, tri, u, v = closest_hit_stream(

@@ -39,7 +39,15 @@ Sentinels as K1/K2: lanes with t_init < 0 never enter K3 or K5; K4 keeps
 K5 computes K3's result with the loops swapped: blocks outer, in index
 order, each entered by the rays that reach its root box (the top slot that
 links it; `FlatScene.str_roots`, built with the scene) under their current
-best t; the top tree's inner boxes are not tested.  `closest_hit` in `ops/traverse.py` takes it instead of K3 when
+best t, and walked with K3's block steps; the top tree's inner boxes are not
+tested.  Its kernel walks a block with K3's closest-hit walk from the
+block's root entry, reads K3's derived tables, and culls the root tests by
+group: a ray that misses the union box of `STREAM_CULL_GROUP` consecutive
+blocks skips their root tests (`str_roots8`, `str_groups`:
+scene/flatscene.py stream_cull_tables, which also says why that skips no
+block the root test passes).  Its plain version tests every root, or with
+`groups=` the group boxes first; either way the result is the same.
+`closest_hit` in `ops/traverse.py` takes it instead of K3 when
 `STREAM_BLOCKMAJOR` is true (read at call time, as the JAX package reads
 its flag of that name).
 """
@@ -49,6 +57,7 @@ from __future__ import annotations
 import torch
 
 from pathtracer_tpu_torch.ops import _build
+from pathtracer_tpu_torch.scene.flatscene import STREAM_CULL_GROUP
 from pathtracer_tpu_torch.ops.traverse_cuda import (
     _check_aligned,
     _check_cuda_args,
@@ -57,8 +66,7 @@ from pathtracer_tpu_torch.ops.traverse_cuda import (
     _slab,
 )
 
-# K5's block stack (csrc/stream_traverse.cu SUB_STACK), and K3's and K4's
-# one stack (csrc/walk_core.cuh WALK_STACK)
+# the one stack of K3's, K4's and K5's walks (csrc/walk_core.cuh WALK_STACK)
 STACK = 64
 # closest hits of a streamed mesh go through K5 instead of K3 (the
 # counterpart of pathtracer_tpu/ops/traverse_pallas.py STREAM_BLOCKMAJOR)
@@ -77,7 +85,8 @@ def reset_launch_counts() -> None:
 
 
 def _check_block_depth(sub_depth: int) -> None:
-    """K5 walks one block at a time: up to 7 pending siblings per level."""
+    """K5 walks one block at a time from its root entry: up to 7 pending
+    siblings per level, 7*sub_depth + 1 entries."""
     if 7 * int(sub_depth) + 1 > STACK:
         raise ValueError(
             f"streaming deepest block depth {sub_depth} needs a stack of "
@@ -107,7 +116,8 @@ def _check_tables(base, sub_nodes, sub_tris, **tables):
         topf=n_top * 48, topl=n_top * 8, topp=n_top * 8, roots=n_sub * 6,
         subf=n_sub * sub_nodes * 48, subi=n_sub * sub_nodes * 24,
         subp=n_sub * sub_nodes * 8, subt=n_sub * sub_tris * 9,
-        subt12=n_sub * sub_tris * 12, blocks=n_sub * 4,
+        subt12=n_sub * sub_tris * 12, blocks=n_sub * 4, roots8=n_sub * 8,
+        groups=-(-n_sub // STREAM_CULL_GROUP) * 8,
     )
     for name, table in tables.items():
         if table.numel() != want[name]:
@@ -118,14 +128,25 @@ def _check_tables(base, sub_nodes, sub_tris, **tables):
 
 
 def _check_walk_tables(who, base, sub_nodes, sub_tris, subt12, blocks):
-    """K3's and K4's kernels read the triangles from `subt12` and the blocks'
-    bases and wrapped leaf cuts from `blocks`, so on CUDA tensors they need
+    """K3's, K4's and K5's kernels read the triangles from `subt12` and the
+    blocks' bases and wrapped leaf cuts from `blocks`, so on CUDA tensors they need
     both (FlatScene.str_subt12 and str_blocks, derived from subt, subi and
     base once per scene by scene/flatscene.py stream_walk_tables)."""
     if subt12 is None or blocks is None:
         raise ValueError(f"{who} on CUDA tensors needs subt12 and blocks "
                          "(FlatScene.str_subt12, str_blocks)")
     _check_tables(base, sub_nodes, sub_tris, subt12=subt12, blocks=blocks)
+
+
+def _check_cull_tables(base, sub_nodes, sub_tris, roots8, groups):
+    """K5's kernel culls its root tests by group, so on CUDA tensors it needs
+    the padded root boxes and the group boxes (FlatScene.str_roots8 and
+    str_groups, derived from str_roots once per scene by scene/flatscene.py
+    stream_cull_tables)."""
+    if roots8 is None or groups is None:
+        raise ValueError("closest_hit_blockmajor on CUDA tensors needs roots8 and groups "
+                         "(FlatScene.str_roots8, str_groups)")
+    _check_tables(base, sub_nodes, sub_tris, roots8=roots8, groups=groups)
 
 
 # ---------------------------------------------------------------------------
@@ -302,38 +323,55 @@ def closest_hit_stream_plain(topf, topl, topp, subf, subi, subp, subt, base, o, 
 
 
 def closest_hit_blockmajor_plain(roots, subf, subi, subp, subt, base, o, d, t_init,
-                                 *, sub_nodes: int, sub_tris: int, counts: dict | None = None):
+                                 *, sub_nodes: int, sub_tris: int, counts: dict | None = None,
+                                 groups=None):
     """Plain PyTorch K5 (any device): returns (t, tri, u, v).  `roots` holds
     the blocks' root boxes (FlatScene.str_roots).  Blocks in index order;
     the live lanes that pass block s's root box under their best t test a
     wrapped one-node block's triangles at once, or walk the block to its
-    end with K3's block steps.  `counts` as K3's, plus one box test per live
-    lane per block root."""
+    end with K3's block steps.  `groups` (FlatScene.str_groups), if given,
+    is the kernel's cull: only lanes that pass the union box of a group of
+    STREAM_CULL_GROUP blocks under their best t test its roots (the result
+    is the same).  `counts` as K3's, plus one box test per root or group
+    test; where it holds the keys "root" and "group", those tests are also
+    counted there, and where it holds "visits", a list, each step of the
+    block walks appends its (lanes, block node rows) to it."""
     n_sub = base.numel()
     w = _StreamWalk(None, None, subf, subi, subt, base, o, d,
                     torch.zeros_like(t_init, dtype=torch.bool), sub_nodes, sub_tris, counts)
     best = _Closest(w, None, subp, d, t_init)
     roots = roots.view(n_sub, 6)
     live = torch.nonzero(t_init >= 0.0).squeeze(1)
-    ray = w.ray_inv(live)
-    for s in range(n_sub):
-        hit, te = _slab(roots[s].expand(live.numel(), 6), *ray)
+
+    def passing(lanes, box, what):
+        hit, te = _slab(box.expand(lanes.numel(), 6), *w.ray_inv(lanes))
         if counts is not None:
-            counts["box"] += live.numel()
-        lanes = live[hit & (te <= best.t[live])]
-        if lanes.numel() == 0:
-            continue
-        sv = torch.full_like(lanes, s)
-        if w.wrapped[s]:
-            root = w.sub_links[s * sub_nodes]
-            best.leaf(lanes, sv, root[1, 0].expand_as(lanes).long(),
-                      root[2, 0].expand_as(lanes).long())
-            continue
-        w.blk[lanes] = s
-        w.bstack[lanes, 0] = 0
-        w.bsp[lanes] = 1
-        while (popped := w.pop()) is not None:
-            best.node(False, *popped[1])
+            counts["box"] += lanes.numel()
+            if what in counts:
+                counts[what] += lanes.numel()
+        return lanes[hit & (te <= best.t[lanes])]
+
+    for s0 in range(0, n_sub, STREAM_CULL_GROUP):
+        tested = live
+        if groups is not None:
+            tested = passing(live, groups.view(-1, 8)[s0 // STREAM_CULL_GROUP, :6], "group")
+        for s in range(s0, min(s0 + STREAM_CULL_GROUP, n_sub)):
+            lanes = passing(tested, roots[s], "root")
+            if lanes.numel() == 0:
+                continue
+            sv = torch.full_like(lanes, s)
+            if w.wrapped[s]:
+                root = w.sub_links[s * sub_nodes]
+                best.leaf(lanes, sv, root[1, 0].expand_as(lanes).long(),
+                          root[2, 0].expand_as(lanes).long())
+                continue
+            w.blk[lanes] = s
+            w.bstack[lanes, 0] = 0
+            w.bsp[lanes] = 1
+            while (popped := w.pop()) is not None:
+                if counts is not None and "visits" in counts:
+                    counts["visits"].append(popped[1])
+                best.node(False, *popped[1])
     return best.result()
 
 
@@ -418,13 +456,16 @@ def closest_hit_stream(topf, topl, topp, subf, subi, subp, subt, base, o, d, t_i
 
 
 def closest_hit_blockmajor(roots, subf, subi, subp, subt, base, o, d, t_init, *,
-                           sub_nodes: int, sub_tris: int, sub_depth: int):
+                           sub_nodes: int, sub_tris: int, sub_depth: int, subt12=None,
+                           blocks=None, roots8=None, groups=None):
     """K5: K3's closest hit with blocks outer and rays inner.  `roots` is
     FlatScene.str_roots, the blocks' root boxes, built once per scene.
 
     Returns (t, tri, u, v) as K3: t equal to K3's, and tri/u/v too except
     on exact-t ties, where the block of lower index wins.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel.
+    the plain version; CUDA tensors launch the kernel, which needs K3's
+    derived tables `subt12` and `blocks` and its own cull tables `roots8`
+    and `groups` (FlatScene.str_subt12, str_blocks, str_roots8, str_groups).
     """
     global blockmajor_launches
     _check_block_depth(sub_depth)
@@ -436,13 +477,17 @@ def closest_hit_blockmajor(roots, subf, subi, subp, subt, base, o, d, t_init, *,
                                             t_init, sub_nodes=sub_nodes, sub_tris=sub_tris)
     if o.device.type != "cuda":
         raise ValueError(f"closest_hit_blockmajor runs on cpu or cuda tensors, not {o.device}")
+    _check_walk_tables("closest_hit_blockmajor", base, sub_nodes, sub_tris, subt12, blocks)
+    _check_cull_tables(base, sub_nodes, sub_tris, roots8, groups)
     f32, i32 = torch.float32, torch.int32
     _check_cuda_args(
-        dict(roots=roots, subf=subf, subi=subi, subp=subp, subt=subt, base=base,
-             o=o, d=d, t_init=t_init),
-        dict(roots=f32, subf=f32, subi=i32, subp=i32, subt=f32, base=i32,
+        dict(groups=groups, roots8=roots8, subf=subf, subi=subi, subp=subp, subt12=subt12,
+             blocks=blocks, o=o, d=d, t_init=t_init),
+        dict(groups=f32, roots8=f32, subf=f32, subi=i32, subp=i32, subt12=f32, blocks=i32,
              o=f32, d=f32, t_init=f32),
     )
+    _check_aligned(groups=groups, roots8=roots8, subf=subf, subi=subi, subt12=subt12,
+                   blocks=blocks)
     lib = _build.load_library()
     n, n_sub = o.shape[0], base.numel()
     t = torch.empty((n,), dtype=f32, device=o.device)
@@ -450,10 +495,10 @@ def closest_hit_blockmajor(roots, subf, subi, subp, subt, base, o, d, t_init, *,
     u = torch.empty((n,), dtype=f32, device=o.device)
     v = torch.empty((n,), dtype=f32, device=o.device)
     rc = lib.pt_closest_hit_blockmajor(
-        roots.data_ptr(), subf.data_ptr(), subi.data_ptr(), subp.data_ptr(), subt.data_ptr(),
-        base.data_ptr(), o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n, n_sub, sub_nodes, sub_tris,
-        torch.cuda.current_stream(o.device).cuda_stream,
+        groups.data_ptr(), roots8.data_ptr(), subf.data_ptr(), subi.data_ptr(),
+        subp.data_ptr(), subt12.data_ptr(), blocks.data_ptr(), o.data_ptr(), d.data_ptr(),
+        t_init.data_ptr(), t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n, n_sub,
+        STREAM_CULL_GROUP, sub_nodes, sub_tris, torch.cuda.current_stream(o.device).cuda_stream,
     )
     _build.check(rc, "closest_hit_blockmajor launch")
     blockmajor_launches += 1

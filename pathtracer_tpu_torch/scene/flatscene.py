@@ -8,9 +8,11 @@ are what make triangle-id parity exact.  The fields carry the JAX names.
 A mesh within `resident_tables_fit` is walked through the wide tables
 (`bvh_w*`, `tri_pk`; kernels K1/K2); a larger one through the two-level
 streaming tables (`str_*`, `build_stream_tables`; kernels K3/K4, and K5,
-which also reads the blocks' root boxes `str_roots`; K3 and K4 read the padded
-triangle rows `str_subt12` and the per-block rows `str_blocks`: three tables
-only the port has, each derived from the stream tables once per scene).
+whose plain version reads the blocks' root boxes `str_roots`; K3, K4 and K5
+read the padded triangle rows `str_subt12` and the per-block rows
+`str_blocks`, and K5 its cull tables `str_roots8` and `str_groups`: five
+tables only the port has, each derived from the stream tables once per
+scene).
 
 Not yet ported (each raises `NotImplementedError`): texture atlases and
 normal maps (ROADMAP Queue 1 item 11) and environment maps (item 12).  Their
@@ -20,6 +22,7 @@ fields hold the JAX package's one-row placeholder tables.
 from __future__ import annotations
 
 import os
+import warnings
 from dataclasses import dataclass, fields
 from typing import Mapping
 
@@ -46,6 +49,8 @@ RESIDENT_TRI_VMEM_BUDGET = 8_000_000
 # split; they mean nothing on the card, where the tables sit in device memory.
 STREAM_SMEM_BUDGET = 900_000
 STREAM_BUFS = 2
+# K5's cull: one union box per this many consecutive blocks (stream_cull_tables)
+STREAM_CULL_GROUP = 32
 
 
 @dataclass
@@ -75,7 +80,9 @@ class FlatScene:
     str_base: torch.Tensor         # (n_sub,) i32: global id of each block's first triangle
     str_roots: torch.Tensor        # (n_sub*6,) f32: each block's root box (K5; `stream_roots`)
     str_subt12: torch.Tensor       # (n_sub*Tmax*12,) f32: str_subt's rows padded to 48 bytes (K3, K4)
-    str_blocks: torch.Tensor       # (n_sub*4,) i32: [base, s*Tmax, wrapped leaf lo, hi] (K3, K4)
+    str_blocks: torch.Tensor       # (n_sub*4,) i32: [base, s*Tmax, wrapped leaf lo, hi] (K3-K5)
+    str_roots8: torch.Tensor       # (n_sub*8,) f32: str_roots padded to 32 bytes a block (K5)
+    str_groups: torch.Tensor       # (n_groups*8,) f32: union of STREAM_CULL_GROUP roots, padded (K5)
     mat_f32: torch.Tensor          # (8, M): albedo(3) roughness metallic ior pad(2)
     mat_i32: torch.Tensor          # (8, M): type atex mtex rtex ntex pad(3)
     atlas: torch.Tensor            # texture tables: placeholders (not ported)
@@ -368,6 +375,42 @@ def stream_walk_tables(subi: np.ndarray, subt: np.ndarray, base: np.ndarray,
     return subt12.reshape(-1), blocks.reshape(-1)
 
 
+def stream_cull_tables(roots: np.ndarray, group: int = STREAM_CULL_GROUP
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """The two tables K5's kernel culls blocks with, derived from the blocks'
+    root boxes `roots` (n_sub*6,) (`stream_roots`):
+
+    - roots8 (n_sub*8,) f32: block s's root box [bmin, bmax, 0, 0], padded
+      to 32 bytes, so that it is two loads of 16 bytes;
+    - groups (ceil(n_sub/group)*8,) f32: for each run of `group` consecutive
+      blocks the exact union of their root boxes, padded the same way.  A
+      group whose roots are all NaN (no top slot links them) keeps NaN.
+
+    The cull never rejects a block that its root test would pass.  On an
+    axis where the ray's direction is not 0, the slab test's near and far
+    distances are monotone in the bounds (rounding is monotone), so a
+    group's interval holds each member's.  Where the direction is exactly 0,
+    a member passes only if the origin lies strictly between its bounds
+    (on a bound, 0 * inf = NaN rejects it, ROADMAP "Decisions that stand";
+    outside them, +inf does); then it lies strictly inside the group's too,
+    and the group's distances on that axis are -inf and +inf, never NaN.
+    """
+    boxes = np.asarray(roots, np.float32).reshape(-1, 6)
+    n_sub = boxes.shape[0]
+    n_groups = -(-n_sub // group)
+    roots8 = np.zeros((n_sub, 8), np.float32)
+    roots8[:, 0:6] = boxes
+    members = np.full((n_groups * group, 6), np.nan, np.float32)
+    members[:n_sub] = boxes
+    members = members.reshape(n_groups, group, 6)
+    groups = np.zeros((n_groups, 8), np.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # all-NaN groups stay NaN
+        groups[:, 0:3] = np.nanmin(members[:, :, 0:3], axis=1)
+        groups[:, 3:6] = np.nanmax(members[:, :, 3:6], axis=1)
+    return roots8.reshape(-1), groups.reshape(-1)
+
+
 def _tree_depth(links: np.ndarray) -> np.ndarray:
     """Depth of the deepest node reachable from node 0 of each tree in
     `links` (B, nodes, 8), following links >= 0; returns (B,)."""
@@ -408,14 +451,17 @@ def _placeholder_tables() -> dict[str, np.ndarray]:
 
 def flat_from_arrays(arrays: Mapping[str, np.ndarray], device) -> FlatScene:
     """Tables as numpy arrays (for instance the JAX package's FlatScene
-    fields) -> the port's FlatScene on `device`.  `str_roots`, `str_subt12`
-    and `str_blocks`, which the JAX package does not hold, are built from the
-    stream tables when absent (the block sizes follow from the tables: 24
-    ints a node, 9 floats a triangle)."""
+    fields) -> the port's FlatScene on `device`.  `str_roots`, `str_subt12`,
+    `str_blocks`, `str_roots8` and `str_groups`, which the JAX package does
+    not hold, are built from the stream tables when absent (the block sizes
+    follow from the tables: 24 ints a node, 9 floats a triangle)."""
     base = np.asarray(arrays["str_base"])
     if "str_roots" not in arrays:
         arrays = {**arrays, "str_roots": stream_roots(arrays["str_topf"], arrays["str_topl"],
                                                       base.size)}
+    if "str_roots8" not in arrays:
+        roots8, groups = stream_cull_tables(arrays["str_roots"])
+        arrays = {**arrays, "str_roots8": roots8, "str_groups": groups}
     if "str_subt12" not in arrays:
         subi, subt = np.asarray(arrays["str_subi"]), np.asarray(arrays["str_subt"])
         subt12, blocks = stream_walk_tables(subi, subt, base, subi.size // (24 * base.size),

@@ -36,8 +36,9 @@ def _jax_arrays(flat):
 PORT_STATIC = {"stream_top_depth", "stream_sub_depth"}
 # FlatScene fields that only the port has, each derived from the stream
 # tables: K5's block root boxes, which the JAX package builds inside its
-# kernel's call, and K3's padded triangle rows and per-block rows
-PORT_FLAT = {"str_roots", "str_subt12", "str_blocks"}
+# kernel's call, K3's padded triangle rows and per-block rows, and K5's
+# padded root boxes and group boxes
+PORT_FLAT = {"str_roots", "str_subt12", "str_blocks", "str_roots8", "str_groups"}
 
 
 def test_tables_equal(scene_path):
@@ -49,6 +50,7 @@ def test_tables_equal(scene_path):
     want["str_subt12"], want["str_blocks"] = tfs.stream_walk_tables(
         want["str_subi"], want["str_subt"], want["str_base"], tfs.STREAM_SUB_NODES,
         tfs.STREAM_SUB_TRIS)
+    want["str_roots8"], want["str_groups"] = tfs.stream_cull_tables(want["str_roots"])
     for name, a in want.items():
         b = getattr(tflat, name).numpy()
         assert b.dtype == a.dtype and b.shape == a.shape, name

@@ -42,32 +42,46 @@ def scene(tmp_path_factory):
     return small_torus_scene(tmp_path_factory.mktemp("slice"))
 
 
-def render_and_compare(scene, mode) -> Renderer:
-    """Render `scene` with the JAX Renderer (XLA walk) and the port's on the
-    CPU, each with its own package's options, 64x64, depth 4, 2 spp, seed
-    0, and hold the port to the JAX image; returns the port's renderer."""
-    jax_mode = jax_config.SampleMode[mode.name]
-    ref = JaxRenderer(scene, opts=jax_config.RenderOptions(sample_mode=jax_mode),
+def jax_reference(scene, mode_name: str) -> dict:
+    """The JAX Renderer's (XLA walk) render of `scene` at 64x64, depth 4, 2
+    spp, seed 0, one iteration per dispatch (bit-identical to batched ones):
+    the accumulated HDR sum in pixel order, the LDR image, the rays traced
+    and the iteration count."""
+    jax_mode = jax_config.SampleMode[mode_name]
+    ref = JaxRenderer(scene, opts=jax_config.RenderOptions(sample_mode=jax_mode,
+                                                           iters_per_dispatch=1),
                       resolution=(64, 64), trace_depth=4)
     ref.set_seed(0)
-    ref_stats = ref.step(2)
+    stats = ref.step(2)
+    return {"img": ref._unswizzle(np.asarray(ref.img)).reshape(64, 64, 3),
+            "ldr": np.asarray(ref.ldr_image()), "rays": int(stats.rays_traced),
+            "iteration": int(ref.iteration)}
+
+
+def render_and_compare(scene, mode, ref: dict | None = None) -> Renderer:
+    """Render `scene` with the port on the CPU (64x64, depth 4, 2 spp, seed
+    0) and hold it to `ref`, the JAX package's render of it (`jax_reference`,
+    made here when not given); returns the port's renderer."""
+    if ref is None:
+        ref = jax_reference(scene, mode.name)
     port = Renderer(scene, opts=RenderOptions(sample_mode=mode), resolution=(64, 64),
                     trace_depth=4, device="cpu")
     port.set_seed(0)
     stats = port.step(2)
 
-    want = ref._unswizzle(np.asarray(ref.img)).reshape(64, 64, 3)
+    want = ref["img"]
     got = port.hdr_sum()
     ok = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(-1)
-    print(f"{mode.name}: {int((~ok).sum())} of {ok.size} pixels outside tolerance")
+    print(f"{mode.name}: {int((~ok).sum())} of {ok.size} pixels outside tolerance, "
+          f"{int((got == want).all(-1).sum())} bitwise equal")
     assert ok.mean() >= MIN_FRAC
     assert want.mean() > 0
-    assert port.iteration == ref.iteration == 2
+    assert port.iteration == ref["iteration"] == 2
     if mode == SampleMode.DIRECT_LI:
-        assert stats.rays_traced == ref_stats.rays_traced
+        assert stats.rays_traced == ref["rays"]
     else:
-        assert abs(stats.rays_traced - ref_stats.rays_traced) <= 1e-3 * ref_stats.rays_traced
-    np.testing.assert_allclose(port.ldr_image(), ref.ldr_image(), atol=1e-3)
+        assert abs(stats.rays_traced - ref["rays"]) <= 1e-3 * ref["rays"]
+    np.testing.assert_allclose(port.ldr_image(), ref["ldr"], atol=1e-3)
     return port
 
 
@@ -115,10 +129,13 @@ PORT_MODULES = [
     "pathtracer_tpu_torch.utils.image_io",
     "pathtracer_tpu_torch.utils.rng",
     "chip_smoke",
+    "tools.blockmajor_reckoning",
+    "tools.compare_walk_kernels",
     "tools.cuda_timing",
     "tools.kernel_microbench_torch",
     "tools.profile_torch_port",
     "tools.rowprim_probe_torch",
+    "tools.stage_diff_torch",
 ]
 
 

@@ -5,6 +5,9 @@ on both sides (see tests/test_torch_math.py): sqrt(1 - |p|^2) near the disc
 rim magnifies a last-bit sin/cos difference past the tolerance.
 """
 
+from pathlib import Path
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from pathtracer_tpu.scene.parser import (
 from pathtracer_tpu_torch.ops import lights as tl
 from pathtracer_tpu_torch.ops import materials as tmat
 from pathtracer_tpu_torch.ops import math as tm
+from pathtracer_tpu_torch.ops.traverse import closest_hit as tclosest_hit
 from pathtracer_tpu_torch.scene.flatscene import flat_from_arrays
 from tests.test_torch_render import small_torus_scene
 
@@ -154,3 +158,43 @@ def test_light_pdf(lit_box):
     got = tl.light_pdf(port, static, *map(torch.from_numpy, args))
     _close(got, want)
     assert (np.asarray(hit.tri) >= 0).any()
+
+
+def test_sphere_silhouettes_match_jax_op_by_op():
+    """The first stage at which the Cornell render (tests/test_torch_cornell.py)
+    leaves the JAX package's, with XLA's defaults: hits near a sphere's
+    silhouette.  There vdd^2 - (|o|^2 - r^2) cancels, and its root moves t by
+    up to 3e-4 for one ulp of the radicand.  The port rounds each operation
+    of the source once; the JAX package does too when its ops run one by one
+    (no jit), and the two agree at the shading tolerance.  Jitted, XLA fuses
+    a*b - c into one multiply-add and rewrites 1/sqrt into rsqrt, and its t
+    leaves the port's by far more than the tolerance on these rays (printed)."""
+    scene = Path(__file__).resolve().parent.parent / "scenes" / "cornell_spheres.txt"
+    flat, static = build_flat_scene(load_scene(scene))
+    port = flat_from_arrays({k: np.asarray(v) for k, v in flat._asdict().items()}, "cpu")
+    g = np.random.default_rng(13)
+    eye = np.array([0.0, 4.2, 9.5])
+    spheres = [gi for gi, gt in enumerate(static.geom_types) if gt == 0]
+    o, d = [], []
+    for gi in spheres:
+        xf = np.asarray(flat.geom_transform[gi], np.float64)
+        c, r = xf[:3, 3], 0.5 * np.linalg.norm(xf[:3, 0])
+        axis = (c - eye) / np.linalg.norm(c - eye)
+        side = np.cross(axis, g.normal(size=(N // len(spheres), 3)))
+        side /= np.linalg.norm(side, axis=1, keepdims=True)
+        # aimed within a few thousandths of the radius inside the rim
+        tgt = c + side * r * g.uniform(0.995, 1.0, (len(side), 1))
+        dd = tgt - eye
+        o.append(np.tile(eye, (len(side), 1)))
+        d.append(dd / np.linalg.norm(dd, axis=1, keepdims=True))
+    o, d = (np.concatenate(x).astype(np.float32) for x in (o, d))
+    with jax.disable_jit():
+        want = jax_closest_hit(flat, static, jnp.asarray(o), jnp.asarray(d))
+    got = tclosest_hit(port, static, torch.from_numpy(o), torch.from_numpy(d))
+    np.testing.assert_array_equal(got.geom.numpy(), np.asarray(want.geom))
+    assert np.isin(np.asarray(want.geom), spheres).mean() > 0.9
+    for name in ("t", "point", "normal"):
+        _close(getattr(got, name), getattr(want, name), err_msg=name)
+    fused = jax.jit(lambda a, b: jax_closest_hit(flat, static, a, b))(jnp.asarray(o), jnp.asarray(d))
+    print(f"jitted JAX against the port, max |dt| {float(np.abs(got.t.numpy() - np.asarray(fused.t)).max()):.3g}; "
+          f"op by op {float(np.abs(got.t.numpy() - np.asarray(want.t)).max()):.3g}")

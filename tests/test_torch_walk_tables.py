@@ -28,7 +28,15 @@ The CUDA kernels run only on the card.  Here:
   `occlusion_stream_plain` and `occlusion_wbvh_plain`, which visit in slot
   order, and against the JAX package's `occlusion_stream_pallas` and
   `occlusion_wbvh_pallas` in interpret mode: booleans, exactly, on every
-  lane; its stack against the same bound, and K4's wrapper's checks.
+  lane; its stack against the same bound, and K4's wrapper's checks;
+- `blockmajor_walk`, a numpy restatement of K5's kernel
+  (csrc/stream_traverse.cu closest_hit_blockmajor_kernel: groups of blocks
+  culled by their union box, the root test, and inside a block the tagged
+  walk of `tagged_walk` from the block's root entry), against
+  `closest_hit_blockmajor_plain` with and without its cull, bit for bit, and
+  against the JAX package's `closest_hit_blockmajor_pallas` in interpret
+  mode; the cull tables (`str_roots8`, `str_groups`) against `str_roots`,
+  and K5's wrapper's checks.
 """
 
 import jax.numpy as jnp
@@ -40,7 +48,10 @@ import pathtracer_tpu.scene.flatscene as jfs
 import pathtracer_tpu_torch.scene.flatscene as tfs
 from pathtracer_tpu_torch.ops import traverse_cuda as tc
 from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
-from pathtracer_tpu.ops.traverse_pallas import occlusion_wbvh_pallas
+from pathtracer_tpu.ops.traverse_pallas import (
+    closest_hit_blockmajor_pallas,
+    occlusion_wbvh_pallas,
+)
 from pathtracer_tpu_torch.scene.parser import load_scene
 from tests.test_torch_stream import (
     DEAD_T,
@@ -269,49 +280,76 @@ class StreamTables:
         return int(base) + row - int(row0)
 
 
+class _Ray:
+    """One ray as the kernels hold it: origin, direction, reciprocal, octant."""
+
+    def __init__(self, o, d):
+        self.o, self.d = o.astype(F), d.astype(F)
+        with np.errstate(divide="ignore"):
+            self.inv = F(1.0) / self.d
+        self.octant = int(self.d[0] > 0) | int(self.d[1] > 0) << 1 | int(self.d[2] > 0) << 2
+
+
+def closest_walk(tb, ray, e, best):
+    """csrc/walk_core.cuh closest_walk for one ray from entry `e` until the
+    stack is empty again; `best` is [t, row, u, v], updated in place.
+    Returns the deepest stack reached."""
+    stack, deepest = [], 0
+    while True:
+        boxes, ints, perms = tb.node(e)
+        perm = int(perms[ray.octant])
+        hit, te = _slab8(boxes, ray.o, ray.inv)
+        passed = hit & (te <= best[0])  # all eight, before any branch
+        for rank in range(7, -1, -1):  # far -> near
+            slot = (perm >> (3 * rank)) & 7
+            if not passed[slot] or not te[slot] <= best[0]:  # the cap as it is now
+                continue
+            kind, *what = tb.child(e, ints, slot, ints[slot])
+            if kind == "push":
+                stack.append(what[0])
+                deepest = max(deepest, len(stack))
+                continue
+            closest_leaf(tb, ray, *what, best)
+        if not stack:
+            return deepest
+        e = stack.pop()
+
+
+def closest_leaf(tb, ray, lo, hi, best):
+    """csrc/walk_core.cuh closest_leaf: rows [lo, hi), in cut order, strictly
+    closer wins."""
+    if hi > lo:
+        th, tt, tu, tv = _moller_trumbore(tb.tri[lo:hi], ray.o, ray.d)
+        for k in range(hi - lo):
+            if th[k] and tt[k] < best[0]:
+                best[:] = [tt[k], lo + k, tu[k], tv[k]]
+
+
+def _results(tb, t_init, bests):
+    n = len(bests)
+    out_t, out_tri = t_init.astype(F).copy(), np.full(n, -1, np.int32)
+    out_u, out_v = np.zeros(n, F), np.zeros(n, F)
+    for i, best in enumerate(bests):
+        if best is None:
+            continue
+        out_t[i], out_u[i], out_v[i] = best[0], best[2], best[3]
+        if best[1] >= 0:
+            out_tri[i] = tb.tri_id(best[1])
+    return out_t, out_tri, out_u, out_v
+
+
 def tagged_walk(tb, o, d, t_init):
     """csrc/walk_core.cuh closest_hit_rays, ray by ray: (t, tri, u, v) and the
     deepest stack any ray reached."""
-    n = o.shape[0]
-    out_t, out_tri = t_init.astype(F).copy(), np.full(n, -1, np.int32)
-    out_u, out_v = np.zeros(n, F), np.zeros(n, F)
-    deepest = 0
-    for i in range(n):
-        best_t, best_row, best_u, best_v = out_t[i], -1, F(0), F(0)
-        if not best_t >= 0:
+    bests, deepest = [], 0
+    for i in range(o.shape[0]):
+        if not t_init[i] >= 0:
+            bests.append(None)
             continue
-        oi, di = o[i].astype(F), d[i].astype(F)
-        with np.errstate(divide="ignore"):
-            inv = F(1.0) / di
-        octant = int(di[0] > 0) | int(di[1] > 0) << 1 | int(di[2] > 0) << 2
-        stack, e = [], tb.root
-        while True:
-            boxes, ints, perms = tb.node(e)
-            perm = int(perms[octant])
-            hit, te = _slab8(boxes, oi, inv)
-            passed = hit & (te <= best_t)  # all eight, before any branch
-            for rank in range(7, -1, -1):  # far -> near
-                slot = (perm >> (3 * rank)) & 7
-                if not passed[slot] or not te[slot] <= best_t:  # the cap as it is now
-                    continue
-                kind, *what = tb.child(e, ints, slot, ints[slot])
-                if kind == "push":
-                    stack.append(what[0])
-                    deepest = max(deepest, len(stack))
-                    continue
-                lo, hi = what
-                if hi > lo:
-                    th, tt, tu, tv = _moller_trumbore(tb.tri[lo:hi], oi, di)
-                    for k in range(hi - lo):  # in cut order, strictly closer wins
-                        if th[k] and tt[k] < best_t:
-                            best_t, best_row, best_u, best_v = tt[k], lo + k, tu[k], tv[k]
-            if not stack:
-                break
-            e = stack.pop()
-        out_t[i], out_u[i], out_v[i] = best_t, best_u, best_v
-        if best_row >= 0:
-            out_tri[i] = tb.tri_id(best_row)
-    return (out_t, out_tri, out_u, out_v), deepest
+        best = [F(t_init[i]), -1, F(0), F(0)]
+        deepest = max(deepest, closest_walk(tb, _Ray(o[i], d[i]), tb.root, best))
+        bests.append(best)
+    return _results(tb, t_init, bests), deepest
 
 
 def _k3_plain(flat, static, o, d, t_init):
@@ -674,3 +712,232 @@ def test_k4_wrapper_checks_the_one_stack(multi_block):
     with pytest.raises(ValueError, match="cpu or cuda"):
         ts.occlusion_stream(*args[:-4], *meta, **_sizes(static), top_depth=1, sub_depth=1,
                             subt12=flat.str_subt12, blocks=flat.str_blocks)
+
+
+# ---------------------------------------------------------------------------
+# K5: the block-major closest hit over the shared walk
+
+
+def blockmajor_walk(tb, roots8, groups, group, o, d, t_init, trace=None):
+    """csrc/stream_traverse.cu closest_hit_blockmajor_kernel, ray by ray:
+    groups of `group` consecutive blocks; a ray that passes a group's union
+    box under its best t tests the group's roots (every ray tests every root
+    where `groups` is None); one that passes block s's root enters it: a
+    wrapped leaf cut from its row of `blocks`, any other block by the
+    closest-hit walk from entry s*S.  Returns ((t, tri, u, v), the group
+    tests, the root tests); `trace`, if a list, gets each ray's entered
+    blocks."""
+    roots = roots8.reshape(-1, 8)[:, :6]
+    n_sub = roots.shape[0]
+    bests, n_group, n_root = [], 0, 0
+    for i in range(o.shape[0]):
+        entered = []
+        if trace is not None:
+            trace.append(entered)
+        if not t_init[i] >= 0:
+            bests.append(None)
+            continue
+        ray, best = _Ray(o[i], d[i]), [F(t_init[i]), -1, F(0), F(0)]
+        for g, s0 in enumerate(range(0, n_sub, group)):
+            if groups is not None:
+                n_group += 1
+                hit, te = _slab8(groups.reshape(-1, 8)[g:g + 1, :6], ray.o, ray.inv)
+                if not (hit[0] and te[0] <= best[0]):
+                    continue
+            for s in range(s0, min(s0 + group, n_sub)):
+                n_root += 1
+                hit, te = _slab8(roots[s:s + 1], ray.o, ray.inv)
+                if not (hit[0] and te[0] <= best[0]):
+                    continue
+                entered.append(s)
+                _, _, lo, hi = tb.blocks[s]
+                if lo >= 0:
+                    closest_leaf(tb, ray, int(lo), int(hi), best)
+                else:
+                    closest_walk(tb, ray, s * tb.S, best)
+        bests.append(best)
+    return _results(tb, t_init, bests), n_group, n_root
+
+
+BM_FIELDS = ("str_roots", "str_subf", "str_subi", "str_subp", "str_subt", "str_base")
+
+
+def _k5_plain(flat, static, o, d, t_init, **kw):
+    return ts.closest_hit_blockmajor_plain(*(getattr(flat, n) for n in BM_FIELDS), _t(o), _t(d),
+                                           _t(t_init), **_sizes(static), **kw)
+
+
+def _bound_axis_rays(flat, group, m):
+    """Rays along an axis (the other two direction components exactly 0)
+    whose origin lies exactly on a block's root bound on one still axis: on
+    even lanes a bound that is also its group's (the union's), on odd lanes
+    a member's own; inside the block's slab on the other still axis, and
+    outside the box on the moving axis, pointing at it."""
+    rng = np.random.default_rng(43)
+    roots = flat.str_roots.numpy().reshape(-1, 6)
+    unions = tfs.stream_cull_tables(flat.str_roots.numpy(), group)[1].reshape(-1, 8)
+    live = np.flatnonzero(~np.isnan(roots).any(1))
+    o, d = np.zeros((m, 3), F), np.zeros((m, 3), F)
+    on_union = 0
+    for i in range(m):
+        axis = rng.integers(0, 3)
+        still, other = (axis + 1) % 3, (axis + 2) % 3
+        side = rng.integers(0, 2)  # 0: lower bound, 1: upper bound
+        if i % 2 == 0:  # a block whose bound on `still` is its group's
+            g = rng.integers(0, unions.shape[0])
+            members = [s for s in live if s // group == g
+                       and roots[s, 3 * side + still] == unions[g, 3 * side + still]]
+            s = members[0] if members else rng.choice(live)
+            on_union += bool(members)
+        else:
+            s = rng.choice(live)
+        lo, hi = roots[s, 0:3], roots[s, 3:6]
+        o[i] = (lo + hi) * F(0.5)
+        o[i, still] = (lo, hi)[side][still]
+        sign = rng.choice(np.array([-1.0, 1.0], F))
+        d[i, axis] = sign
+        o[i, axis] = (lo[axis] if sign > 0 else hi[axis]) - sign * F(2.0)
+    assert on_union > m // 4
+    return o, d
+
+
+K5_CASES = ["multi-block", "dead lanes", "t cap", "wrapped leaf cuts", "rays on bounds", "deep"]
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+def test_blockmajor_walk_equals_k5_plain(case, request, monkeypatch):
+    """The restated K5 kernel (group cull, root test, the tagged walk inside
+    a block) against closest_hit_blockmajor_plain, bit for bit on t, tri, u
+    and v, with and without the plain version's own cull.  Groups of 4
+    blocks, so that the cull has several groups to skip on these small
+    meshes (the kernel's are 32; the rule does not depend on the size).
+    The cull changes no entered block: the same blocks, lane for lane, as
+    the restatement without it."""
+    scene = "deep" if case == "deep" else "multi_block"
+    flat, static = request.getfixturevalue(scene)[-2:]
+    group = 4
+    monkeypatch.setattr(ts, "STREAM_CULL_GROUP", group)
+    m = 384
+    o, d = _rays(flat, m, seed=61 + K5_CASES.index(case))
+    t_init = np.full(m, FLT_MAX, F)
+    if case == "dead lanes":
+        t_init = np.where(np.arange(m) % 3 == 0, DEAD_T, FLT_MAX).astype(F)
+    elif case == "t cap":
+        t_init = np.where(np.arange(m) % 4 == 0, DEAD_T, 6.0).astype(F)
+    elif case == "rays on bounds":
+        o, d = _bound_axis_rays(flat, group, m)
+    roots8, groups = tfs.stream_cull_tables(flat.str_roots.numpy(), group)
+    tb = StreamTables(flat, static)
+    culled, seen = [], []
+    got, n_group, n_root = blockmajor_walk(tb, roots8, groups, group, o, d, t_init, culled)
+    n_sub = static.stream_subs
+    full, _, n_all = blockmajor_walk(tb, roots8, None, group, o, d, t_init, seen)
+    assert culled == seen
+    for a, b in zip(got, full):
+        np.testing.assert_array_equal(a, b)
+    live = int((t_init >= 0).sum())
+    assert n_all == live * n_sub and n_group == live * -(-n_sub // group)
+    counts = {"box": 0, "tri": 0, "group": 0, "root": 0}
+    _assert_bitwise(got, _k5_plain(flat, static, o, d, t_init, groups=_t(groups), counts=counts))
+    _assert_bitwise(got, _k5_plain(flat, static, o, d, t_init))
+    assert (counts["group"], counts["root"]) == (n_group, n_root)
+    assert n_root < n_all  # the cull skipped some root tests
+    hits = got[1] >= 0
+    assert hits.sum() > (10 if case == "rays on bounds" else 50) and (~hits).sum() > 0
+    if case == "dead lanes":
+        dead = t_init < 0
+        assert (got[1][dead] == -1).all() and (got[0][dead] == F(DEAD_T)).all()
+    if case == "t cap":
+        assert (got[0][hits] < 6.0).all()
+    if case == "wrapped leaf cuts":
+        blocks = flat.str_blocks.numpy().reshape(-1, 4)
+        owner = np.searchsorted(np.sort(blocks[:, 0]), got[1][hits], side="right") - 1
+        wrapped = (blocks[np.argsort(blocks[:, 0]), 2] >= 0)[owner]
+        assert wrapped.any() and not wrapped.all()
+    if case == "rays on bounds":
+        assert (d == 0).sum() == 2 * m
+    # K5 agrees with K3's walk on t (these rays have no exact-t tie)
+    k3, _ = tagged_walk(tb, o, d, t_init)
+    np.testing.assert_array_equal(got[0], k3[0])
+
+
+def test_blockmajor_walk_matches_pallas_interpret(multi_block):
+    """Against the JAX package's block-major kernel in interpret mode:
+    triangle ids exactly, t/u/v within rtol 1e-5 (as the K3 comparison)."""
+    jflat, jstatic, flat, static = multi_block
+    m = 2048
+    o, d = random_rays(m, seed=33)
+    t_init = np.full(m, FLT_MAX, F)
+    pk = closest_hit_blockmajor_pallas(
+        *(getattr(jflat, n) for n in STR_FIELDS if n != "str_topp"), o, d, jnp.asarray(t_init),
+        leaf_k=jstatic.wide_leaf_k, **_sizes(jstatic), interpret=True, chunk_rows=16)
+    got, _, _ = blockmajor_walk(StreamTables(flat, static), flat.str_roots8.numpy(),
+                                flat.str_groups.numpy(), tfs.STREAM_CULL_GROUP,
+                                np.asarray(o), np.asarray(d), t_init)
+    np.testing.assert_array_equal(got[1], np.asarray(pk[1]))
+    hits = got[1] >= 0
+    assert hits.sum() > 50
+    for a, b in zip((got[0], got[2], got[3]), (pk[0], pk[2], pk[3])):
+        np.testing.assert_allclose(a[hits], np.asarray(b)[hits], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("scene", ["multi_block", "deep", "forced_env"])
+@pytest.mark.parametrize("group", [4, tfs.STREAM_CULL_GROUP])
+def test_cull_tables_are_unions_of_the_roots(scene, group, request):
+    """str_roots8 is str_roots padded with two zeros a row; each group row is
+    the exact union of its members' root boxes (so it contains each), NaN
+    only where every member is NaN; both 16-byte aligned as the kernel
+    reads them."""
+    flat, static = request.getfixturevalue(scene)[-2:]
+    roots = flat.str_roots.numpy().reshape(-1, 6)
+    n_sub = roots.shape[0]
+    if group == tfs.STREAM_CULL_GROUP:
+        roots8, groups = flat.str_roots8.numpy(), flat.str_groups.numpy()
+        for t in (flat.str_roots8, flat.str_groups):
+            assert t.dtype == torch.float32 and t.data_ptr() % 16 == 0
+    else:
+        roots8, groups = tfs.stream_cull_tables(flat.str_roots.numpy(), group)
+    roots8, groups = roots8.reshape(-1, 8), groups.reshape(-1, 8)
+    assert roots8.shape == (n_sub, 8) and groups.shape == (-(-n_sub // group), 8)
+    np.testing.assert_array_equal(roots8[:, :6], roots)
+    assert not roots8[:, 6:].any() and not groups[:, 6:].any()
+    for g in range(groups.shape[0]):
+        members = roots[g * group:(g + 1) * group]
+        members = members[~np.isnan(members).any(1)]
+        if not len(members):
+            assert np.isnan(groups[g, :6]).all()
+            continue
+        np.testing.assert_array_equal(groups[g, 0:3], members[:, 0:3].min(0))
+        np.testing.assert_array_equal(groups[g, 3:6], members[:, 3:6].max(0))
+        assert (groups[g, 0:3] <= members[:, 0:3]).all() and (groups[g, 3:6] >= members[:, 3:6]).all()
+
+
+def test_k5_wrapper_refuses(multi_block):
+    """K5's wrapper: the walk's depth against the one stack before anything
+    else; on CUDA tensors it needs K3's derived tables and its cull tables,
+    at their sizes and 16-byte aligned (the checks it runs there)."""
+    _, _, flat, static = multi_block
+    o, d = random_rays(8, seed=84)
+    tables = [getattr(flat, n) for n in BM_FIELDS]
+    rays = [_t(o), _t(d), _t(np.full(8, FLT_MAX, F))]
+    assert 7 * 9 + 1 == ts.STACK
+    ts.closest_hit_blockmajor(*tables, *rays, **_sizes(static), sub_depth=9)
+    with pytest.raises(ValueError, match="stack of 71"):
+        ts.closest_hit_blockmajor(*tables, *rays, **_sizes(static), sub_depth=10)
+    base, sizes = flat.str_base, (static.stream_sub_nodes, static.stream_sub_tris)
+    with pytest.raises(ValueError, match="needs subt12 and blocks"):
+        ts._check_walk_tables("closest_hit_blockmajor", base, *sizes, None, flat.str_blocks)
+    with pytest.raises(ValueError, match="needs roots8 and groups"):
+        ts._check_cull_tables(base, *sizes, flat.str_roots8, None)
+    with pytest.raises(ValueError, match="entries"):
+        ts._check_cull_tables(base, *sizes, flat.str_roots8[:-8], flat.str_groups)
+    with pytest.raises(ValueError, match="entries"):
+        ts._check_cull_tables(base, *sizes, flat.str_roots8, flat.str_groups[:-8])
+    ts._check_cull_tables(base, *sizes, flat.str_roots8, flat.str_groups)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tc._check_aligned(roots8=flat.str_roots8[1:])
+    meta = [x.to("meta") for x in rays]
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ts.closest_hit_blockmajor(*tables, *meta, **_sizes(static), sub_depth=1,
+                                  subt12=flat.str_subt12, blocks=flat.str_blocks,
+                                  roots8=flat.str_roots8, groups=flat.str_groups)

@@ -23,11 +23,14 @@ continuation rays, and two sets of NEE shadow rays, from the camera rays'
 hits and from the continuation rays' hits), made with the tree's port.  A
 turn checks K1 and K3 (bit for bit, all four ray sets) and K2 and K4 (every
 lane, all four shadow sets) against the tree's plain versions on glasstorus
-and glasstorus160k, and K3 against K1 and K4 against K2 on the two large
-meshes, and times K1, K3 and K5 on the continuation rays and K2 and K4 on
-both shadow sets ("K2", "K4": from the camera rays' hits; "K2c", "K4c": from
-the continuation rays' hits) with CUDA events (median of `--runs`, 5 unless
-given, after a warm-up), the SM clock sampled over the mesh's turn.
+and glasstorus160k, and K3 against K1, K5's t against K3's and K4 against K2
+on the two large meshes (K5 through the tree's own chip_smoke.py
+stream_calls, with whatever tables that tree's K5 takes), and times K1, K3
+and K5 on the continuation rays ("K1", "K3", "K5") and on the camera rays
+("K1cam", "K3cam", "K5cam") and K2 and K4 on both shadow sets ("K2", "K4":
+from the camera rays' hits; "K2c", "K4c": from the continuation rays' hits)
+with CUDA events (median of `--runs`, 5 unless given, after a warm-up), the
+SM clock sampled over the mesh's turn.
 `--meshes` keeps the turns to some of the three.
 Prints the card's name and power limit, one
 line per turn and mesh, and a table of medians per tree; `--out FILE`
@@ -92,6 +95,7 @@ for scene in (cs.SCENE, cs.SCENE_160K, cs.SCENE_640K):
             if k:
                 got3 = k["K3"](ro, rd, t0)
                 same &= all(torch.equal(a, b) for a, b in zip(got3, got1))
+                same &= torch.equal(k["K5"](ro, rd, t0)[0], got3[0])
                 if check:
                     want = k["K3_plain"](ro, rd, t0)
                     same &= all(torch.equal(a, b) for a, b in zip(got3, want))
@@ -104,11 +108,13 @@ for scene in (cs.SCENE, cs.SCENE_160K, cs.SCENE_640K):
                 same &= torch.equal(got4, got2)
                 if check:
                     same &= torch.equal(got4, k["K4_plain"](so, sd, mt, o0))
-        ro, rd, t0 = closest["continuation"]
-        ms = {"K1": median_ms(lambda: k1(ro, rd, t0), runs)}
-        if k:
-            ms["K3"] = median_ms(lambda: k["K3"](ro, rd, t0), runs)
-            ms["K5"] = median_ms(lambda: k["K5"](ro, rd, t0), runs)
+        ms = {}
+        for tag, label in (("", "continuation"), ("cam", "camera")):
+            ro, rd, t0 = closest[label]
+            ms["K1" + tag] = median_ms(lambda: k1(ro, rd, t0), runs)
+            if k:
+                ms["K3" + tag] = median_ms(lambda: k["K3"](ro, rd, t0), runs)
+                ms["K5" + tag] = median_ms(lambda: k["K5"](ro, rd, t0), runs)
         for tag, label in zip(("", "c"), ray_source.SHADOW_SETS):
             so, sd, mt, o0 = shadow[label]
             ms["K2" + tag] = median_ms(lambda: k2(so, sd, mt, o0), runs)
@@ -162,10 +168,12 @@ def main(argv=None) -> int:
             print(f"{spec} ptxas {kernel}: {props}", flush=True)
         for mesh, m in res["meshes"].items():
             ms = m["ms"]
-            ratio = f", K3/K1 {ms['K3'] / ms['K1']:.3f}" if "K3" in ms else ""
+            ratio = (f", K3/K1 {ms['K3'] / ms['K1']:.3f}, K5/K3 {ms['K5'] / ms['K3']:.3f}, "
+                     f"camera K5/K3 {ms['K5cam'] / ms['K3cam']:.3f}" if "K3" in ms else "")
             print(f"{spec} {mesh} at {m['rays']} rays: "
                   + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()) + ratio
-                  + f"; K1-K4 equal to the plain versions on every lane: {m['bitwise_equal']}; {m['clock']}",
+                  + f"; K1-K4 equal to the plain versions and K5's t to K3's on every lane: "
+                  f"{m['bitwise_equal']}; {m['clock']}",
                   flush=True)
         if not all(m["bitwise_equal"] for m in res["meshes"].values()):
             raise SystemExit(f"{spec}: a kernel disagrees with its plain version")
