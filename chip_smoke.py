@@ -45,10 +45,19 @@ line):
    images held to the slice tolerance; launch counts are zeroed just before
    each path and read just after; each scene's tables are built once and
    serve its kernel checks too;
-7. card against CPU: cornell_spheres, glasstorus and glasstorus160k (the
-   latter with the flag off and on) at 64x64, depth 8, 2 spp, MIS, rendered
-   on "cuda" and on "cpu", held to the CPU slice test's image tolerance;
-8. the probes P1 and P2 against their plain versions (every P2 variant at a
+7. textured and environment-lit main paths, as a user calls them, on the
+   procedural assets that tools/make_texture_assets.py writes at first use:
+   scenes/texcube.txt (albedo, metallic and roughness maps) and
+   scenes/envtorus.txt (a 2048x1024 HDR sky, with env_importance on, so that
+   the sky is a light whose shadow rays run through K2) at 800x800, depth 8,
+   8 spp, MIS: each must launch K1 and K2 and no stream kernel; and the
+   RGBE texel scale on the card equal to the CPU's for every exponent;
+8. card against CPU: cornell_spheres, glasstorus and glasstorus160k (the
+   latter with the flag off and on), texcube, normalcube (a normal map),
+   envtorus and envtorus with env_importance at 64x64, depth 8, 2 spp, MIS,
+   rendered on "cuda" and on "cpu", held to the CPU slice test's image
+   tolerance;
+9. the probes P1 and P2 against their plain versions (every P2 variant at a
    small pop count, from the probe's accumulator start and from a small
    one), and their ns per lap at the TPU probes' sizes.
 
@@ -74,6 +83,9 @@ SCENE_CORNELL = ROOT / "scenes" / "cornell_spheres.txt"
 SCENE = ROOT / "scenes" / "glasstorus.txt"
 SCENE_160K = ROOT / "scenes" / "glasstorus160k.txt"
 SCENE_640K = ROOT / "scenes" / "glasstorus640k.txt"
+SCENE_TEXCUBE = ROOT / "scenes" / "texcube.txt"
+SCENE_NORMALCUBE = ROOT / "scenes" / "normalcube.txt"
+SCENE_ENVTORUS = ROOT / "scenes" / "envtorus.txt"
 TORUS_160K = (ROOT / "scenes" / "assets" / "torus160k.obj", 400, 200)
 TORUS_640K = (ROOT / "scenes" / "assets" / "torus640k.obj", 800, 400)
 RES, DEPTH, SPP = 800, 8, 8
@@ -182,9 +194,10 @@ def _max_err(a, b):
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def build_renderer(scene_path):
+def build_renderer(scene_path, **options):
     """The main path's Renderer for `scene_path` (MIS, RES x RES, DEPTH, on
-    the card), with the host's parse and table seconds."""
+    the card, RenderOptions `options` besides), with the host's parse and
+    table seconds."""
     from pathtracer_tpu_torch.integrator.render import Renderer
     from pathtracer_tpu_torch.scene.parser import load_scene
     from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
@@ -192,7 +205,7 @@ def build_renderer(scene_path):
     t0 = time.perf_counter()
     scene = load_scene(scene_path)
     t1 = time.perf_counter()
-    r = Renderer(scene, RenderOptions(sample_mode=SampleMode.MIS),
+    r = Renderer(scene, RenderOptions(sample_mode=SampleMode.MIS, **options),
                  resolution=(RES, RES), trace_depth=DEPTH, device=DEVICE)
     return r, t1 - t0, time.perf_counter() - t1
 
@@ -208,7 +221,7 @@ def ray_cases(r):
     every 7th lane and 25% of lanes at -FLT_MAX."""
     import torch
 
-    from pathtracer_tpu_torch.integrator.wavefront import _Pool, bounce, camera_rays
+    from pathtracer_tpu_torch.integrator.wavefront import bounce, camera_rays, new_pool
     from pathtracer_tpu_torch.ops import traverse as tv
     from pathtracer_tpu_torch.utils.config import SampleMode
 
@@ -217,10 +230,7 @@ def ray_cases(r):
     n = o.shape[0]
     t_geo, *_ = tv._geoms_closest(flat, static, o, d)
     t_cam = tv._root_box_cull(static, o, d, t_geo)
-    pool = _Pool(o=o, d=d, color=torch.ones_like(o), contrib=torch.zeros_like(o),
-                 prev_pdf=torch.full((n,), -1.0, device=o.device),
-                 alive=torch.ones((n,), dtype=torch.bool, device=o.device))
-    pool, _ = bounce(flat, static, SampleMode.MIS, r.key, 1, 0, pool)
+    pool, _ = bounce(flat, static, SampleMode.MIS, r.key, 1, 0, new_pool(o, d))
     o2, d2 = pool.o, pool.d
     t_geo2, *_ = tv._geoms_closest(flat, static, o2, d2)
     t_cont = tv._root_box_cull(static, o2, d2, torch.where(pool.alive, t_geo2, tv.DEAD_T))
@@ -636,19 +646,34 @@ def compare_images(what, a, b) -> float:
     return float(ok.mean())
 
 
-def phase_card_vs_cpu(scene_path, k5: bool = False):
+def phase_card_vs_cpu(scene_path, k5: bool = False, **options):
     from pathtracer_tpu_torch.integrator.render import Renderer
     from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 
     imgs = {}
     with blockmajor(k5):
         for dev in (DEVICE, "cpu"):
-            r = Renderer(scene_path, RenderOptions(sample_mode=SampleMode.MIS),
+            r = Renderer(scene_path, RenderOptions(sample_mode=SampleMode.MIS, **options),
                          resolution=(64, 64), trace_depth=DEPTH, device=dev)
             r.step(2)
             imgs[dev] = r.hdr_sum()
-    compare_images(f"card vs cpu: {scene_path.name}{' (STREAM_BLOCKMAJOR)' if k5 else ''} MIS "
-                   f"64x64 depth {DEPTH} 2 spp", imgs[DEVICE], imgs["cpu"])
+    what = "".join([" (STREAM_BLOCKMAJOR)" if k5 else ""] + [f" ({k})" for k in options])
+    compare_images(f"card vs cpu: {scene_path.name}{what} MIS 64x64 depth {DEPTH} 2 spp",
+                   imgs[DEVICE], imgs["cpu"])
+
+
+def phase_rgbe_scale():
+    """The RGBE texel scale 2^(e - 136), built from its bits, on the card
+    against the CPU for every exponent byte."""
+    import torch
+
+    from pathtracer_tpu_torch.ops.texture import _rgbe_scale
+
+    e = torch.arange(256, dtype=torch.int32)
+    got, want = _rgbe_scale(e.to(DEVICE)).cpu(), _rgbe_scale(e)
+    log(f"RGBE scale: card equal to CPU for all 256 exponents: {torch.equal(got, want)}")
+    if not torch.equal(got, want):
+        raise AssertionError("the RGBE scale differs between the card and the CPU")
 
 
 def phase_probes():
@@ -710,6 +735,7 @@ def main() -> int:
     name, smi = phase_device()
     import torch
 
+    from tools.make_texture_assets import ensure_texture_assets
     from tools.make_torus_obj import ensure_torus_obj
 
     phase_build()
@@ -717,6 +743,10 @@ def main() -> int:
         t0 = time.perf_counter()
         ensure_torus_obj(*obj)
         log(f"{obj[0].relative_to(ROOT)}: ready in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    assets = ensure_texture_assets()
+    log(f"texture assets ({', '.join(p.name for p in assets)}): ready in "
+        f"{time.perf_counter() - t0:.2f} s")
     cornell = build_renderer(SCENE_CORNELL)
     phase_main_path(cornell, used=(), unused=("K1", "K2", "K3", "K4", "K5"), card=smi)
     if cornell[0].static.num_tris or len(cornell[0].static.material_types) != 5:
@@ -741,10 +771,19 @@ def main() -> int:
     compare_images(f"glasstorus640k STREAM_BLOCKMAJOR on (K5) vs off (K3), MIS {RES}x{RES} "
                    f"depth {DEPTH} {SPP} spp", img_k5, img_k3)
     del big, img_k3, img_k5
+    phase_rgbe_scale()
+    for scene_path, options in ((SCENE_TEXCUBE, {}), (SCENE_ENVTORUS, {"env_importance": True})):
+        textured = build_renderer(scene_path, **options)
+        phase_main_path(textured, used=("K1", "K2"), unused=("K3", "K4", "K5"), card=smi,
+                        label="".join(f"_{k}" for k in options))
+        del textured
     phase_card_vs_cpu(SCENE_CORNELL)
     phase_card_vs_cpu(SCENE)
     phase_card_vs_cpu(SCENE_160K)
     phase_card_vs_cpu(SCENE_160K, k5=True)
+    for scene_path in (SCENE_TEXCUBE, SCENE_NORMALCUBE, SCENE_ENVTORUS):
+        phase_card_vs_cpu(scene_path)
+    phase_card_vs_cpu(SCENE_ENVTORUS, env_importance=True)
     kernels.update(phase_probes())
     rows = [
         {"name": name_, "route": "cuda", "source": source, "replaces": replaces,

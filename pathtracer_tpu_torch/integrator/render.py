@@ -5,11 +5,11 @@ radiance sums across iterations; display and save divide by the iteration
 count, then apply ACES + gamma 1/2.2 and the save-time X mirror.
 
 Options the port does not honour yet raise `NotImplementedError`:
-`ray_regen > 1`, `devices > 1`, `env_importance`, `show_normal` and
-`use_bvh=False`.  These options only change scheduling on the TPU, not the
-image, so they are accepted and ignored: `compaction`, `pool_shrink`,
-`shadow_sort`, `shrink_levels`, `shrink_half`, `sort_every`, `packet_*`,
-`iters_per_dispatch`, `interpret` and `pallas_traversal`.
+`ray_regen > 1`, `devices > 1` and `use_bvh=False`.  These options only
+change scheduling on the TPU, not the image, so they are accepted and
+ignored: `compaction`, `pool_shrink`, `shadow_sort`, `shrink_levels`,
+`shrink_half`, `sort_every`, `packet_*`, `iters_per_dispatch`, `interpret`
+and `pallas_traversal`.
 """
 
 from __future__ import annotations
@@ -73,8 +73,6 @@ def _check_options(opts: RenderOptions, devices) -> None:
     unsupported = {
         "ray_regen > 1 (ROADMAP Queue 1 item 14)": int(opts.ray_regen) > 1,
         "devices > 1 (ROADMAP Queue 1 item 15)": devices is not None and int(devices) > 1,
-        "env_importance (ROADMAP Queue 1 item 12)": bool(opts.env_importance),
-        "show_normal": bool(opts.show_normal),
         "use_bvh=False": not opts.use_bvh,
     }
     for what, asked in unsupported.items():

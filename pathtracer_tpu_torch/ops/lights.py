@@ -11,7 +11,10 @@ Port of `pathtracer_tpu/ops/lights.py`, quirks included:
   nothing for them, and light_pdf returns -1 for them;
 - the shadow ray starts at viewPos + 1e-5 * dir and goes through
   ops/traverse.occlusion_test (the K2 kernel for triangles);
-- occluded => pdf = -1 and emit = 0.
+- occluded => pdf = -1 and emit = 0;
+- with `include_env` the environment is one more light, the last of
+  L + 1: importance-sampled (`ops/envmap.py`), its light position 1e7 out
+  along the sampled direction.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from pathtracer_tpu_torch.scene.parser import LIGHT, SPHERE
 from pathtracer_tpu_torch.utils.config import TWO_PI
 from pathtracer_tpu_torch.ops import math as m
+from pathtracer_tpu_torch.ops.envmap import sample_env
 from pathtracer_tpu_torch.ops.intersect import xform_point
 from pathtracer_tpu_torch.ops.traverse import occlusion_test
 from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
@@ -95,28 +99,33 @@ def _emit_by_geom(flat: FlatScene, static: SceneStatic, geom_idx):
 
 def light_sample(
     flat: FlatScene, static: SceneStatic, view_pos, rands, enabled=None,
+    include_env: bool = False,
 ) -> LightSampleRecord:
     """Sample one light per ray, with occlusion.  `rands` is (N, 3): col 0
-    the light pick, cols 1-2 the area/cone sample.  `enabled` masks lanes
-    whose NEE term is zero downstream: their shadow rays are not traced."""
+    the light pick, cols 1-2 the area/cone sample; (N, 4) with
+    `include_env`, col 3 the env texel jitter's second axis.  `enabled`
+    masks lanes whose NEE term is zero downstream: their shadow rays are not
+    traced."""
     N = view_pos.shape[0]
     dev = view_pos.device
     L = static.num_lights
-    if L == 0:
+    L_eff = L + (1 if include_env else 0)
+    if L_eff == 0:
         return LightSampleRecord(
             pos=torch.zeros((N, 3), device=dev),
             emit=torch.zeros((N, 3), device=dev),
             pdf=torch.full((N,), -1.0, device=dev),
         )
-    fl = float(L)
+    fl = float(L_eff)
     light_id = torch.clamp(rands[:, 0] * fl, max=fl - 1.0).to(torch.int32)
+    is_env = light_id >= L
     lid = light_id.clamp(0, flat.light_geom.shape[0] - 1).long()
     geom_id = flat.light_geom[lid]
-    tri_id = flat.light_tri[lid]
+    tri_id = torch.where(is_env, -1, flat.light_tri[lid])
     emit = _emit_by_geom(flat, static, geom_id)
 
     xi = rands[:, 1:3]
-    inv_l = _inv_count(L)
+    inv_l = _inv_count(L_eff)
 
     light_pos = torch.zeros((N, 3), device=dev)
     pdf = torch.zeros((N,), device=dev)
@@ -145,6 +154,13 @@ def light_sample(
         light_pos = torch.where(sel[..., None], p_i, light_pos)
         pdf = torch.where(sel, pdf_i * inv_l, pdf)
 
+    if include_env:
+        env_dir, env_le, env_pdf_w = sample_env(flat, static, xi[:, 0], xi[:, 1], rands[:, 3])
+        em = is_env[..., None]
+        light_pos = torch.where(em, view_pos + env_dir * 1e7, light_pos)
+        pdf = torch.where(is_env, env_pdf_w * inv_l, pdf)
+        emit = torch.where(em, env_le, emit)
+
     ray_dir = m.normalize(light_pos - view_pos)
     occ_on = pdf > 0.0 if enabled is None else (pdf > 0.0) & enabled
     occ = occlusion_test(
@@ -155,11 +171,13 @@ def light_sample(
     return LightSampleRecord(pos=light_pos, emit=emit, pdf=pdf)
 
 
-def light_pdf(flat: FlatScene, static: SceneStatic, view_pos, light_pos, normal, tri_id, geom_id):
+def light_pdf(flat: FlatScene, static: SceneStatic, view_pos, light_pos, normal, tri_id, geom_id,
+              include_env: bool = False):
     """Light pdf of a BSDF-sampled hit (the MIS weight's other term); -1 for
-    geometries with no sampling branch (cube lights)."""
+    geometries with no sampling branch (cube lights).  `include_env` counts
+    the environment as one more light."""
     N = view_pos.shape[0]
-    L = static.num_lights
+    L = static.num_lights + (1 if include_env else 0)
     pdf = torch.full((N,), -1.0, device=view_pos.device)
     if L == 0:
         return pdf

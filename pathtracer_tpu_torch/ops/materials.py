@@ -13,8 +13,8 @@ Port of `pathtracer_tpu/ops/materials.py`, quirks included:
 - roughness is clamped to [1e-3, 1] and metallic to [0, 1].
 
 Every lobe is evaluated over the whole wavefront and combined with masked
-selects.  Textured materials are not ported yet (scene/flatscene.py raises
-on them, ROADMAP Queue 1 item 11).
+selects.  A material may take its albedo, metallic, roughness and normal from
+textures (`ops/texture.py`), sampled at the hit's uv.
 """
 
 from __future__ import annotations
@@ -31,7 +31,11 @@ from pathtracer_tpu_torch.scene.parser import (
 )
 from pathtracer_tpu_torch.utils.config import INV_PI
 from pathtracer_tpu_torch.ops import math as m
-from pathtracer_tpu_torch.scene.flatscene import FlatScene
+from pathtracer_tpu_torch.ops.texture import (
+    bilinear_sample_u32_1ch_meta,
+    bilinear_sample_u32_meta,
+)
+from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
 
 ROUGHNESS_MIN = 1e-3
 ROUGHNESS_MAX = 1.0
@@ -46,6 +50,7 @@ class MatParams(NamedTuple):
     metallic: torch.Tensor     # (N,) clamped
     ior: torch.Tensor          # (N,)
     emit: torch.Tensor         # (N, 3) constant albedo (Light emission)
+    normal_map: torch.Tensor   # (N, 3) normal-map texel ((0.5, 0.5, 1) if none)
 
 
 class ScatterRecord(NamedTuple):
@@ -55,22 +60,51 @@ class ScatterRecord(NamedTuple):
     dir: torch.Tensor    # (N, 3)
 
 
-def material_by_geom(flat: FlatScene, geom_idx) -> MatParams:
-    """Material parameters of each ray's geom.  Rays that hit nothing
-    (geom -1) read an all-zero row, as the JAX select chain's default."""
+def material_by_geom(flat: FlatScene, static: SceneStatic, geom_idx, uv) -> MatParams:
+    """Material parameters of each ray's geom, textures sampled at `uv`.
+    Rays that hit nothing (geom -1) read an all-zero row and no texture, as
+    the JAX select chain's default.  A texture slot is sampled only when a
+    material some geom uses carries that map (the JAX package's pruning); a
+    lane's texture metadata is gathered from `tex_table`, where the JAX
+    package chains static immediates, with the same integers."""
     mid = flat.geom_mat.long()
     rows_f = torch.cat([flat.mat_f32[0:6].T[mid], flat.mat_f32.new_zeros((1, 6))])
-    rows_t = torch.cat([flat.mat_i32[0].long()[mid], mid.new_zeros((1,))])
+    rows_i = torch.cat([flat.mat_i32[0:5].T[mid], mid.new_full((1, 5), -1).to(torch.int32)])
     g = torch.where(geom_idx >= 0, geom_idx.long(), rows_f.shape[0] - 1)
-    f = rows_f[g]
-    albedo = f[:, 0:3]
+    f, i = rows_f[g], rows_i[g]
+    const_albedo = f[:, 0:3]
+    rough, metal = f[:, 3], f[:, 4]
+    mtype = torch.where(geom_idx >= 0, i[:, 0], 0)
+    nmap_const = torch.tensor([0.5, 0.5, 1.0], device=uv.device).expand(const_albedo.shape)
+
+    used = {int(m_) for m_ in static.geom_mats}
+
+    def sample(slot: int, channels: int, fallback):
+        """Texture slot `slot` (1 albedo, 2 metallic, 3 roughness, 4 normal)
+        where the lane's material has one, else `fallback`."""
+        tids = {static.mat_rows_i[m_][slot] for m_ in used} - {-1}
+        if not tids:
+            return fallback
+        tid = i[:, slot]
+        has = tid >= 0
+        meta = flat.tex_table[tid.clamp(min=0).long()]
+        off, w, h = meta[:, 0], meta[:, 1], meta[:, 2]
+        if channels == 1:
+            return torch.where(has, bilinear_sample_u32_1ch_meta(flat.atlas_u32, off, w, h, uv),
+                               fallback)
+        fmts = {static.tex_rows[t][3] for t in tids}
+        rgbe = fmts == {1} if len(fmts) == 1 else meta[:, 3] == 1
+        tex = bilinear_sample_u32_meta(flat.atlas_u32, off, w, h, rgbe, uv)
+        return torch.where(has[..., None], tex, fallback)
+
     return MatParams(
-        type=rows_t[g].to(torch.int32),
-        albedo=albedo,
-        roughness=torch.clamp(f[:, 3], ROUGHNESS_MIN, ROUGHNESS_MAX),
-        metallic=torch.clamp(f[:, 4], 0.0, 1.0),
+        type=mtype.to(torch.int32),
+        albedo=sample(1, 3, const_albedo),
+        roughness=torch.clamp(sample(3, 1, rough), ROUGHNESS_MIN, ROUGHNESS_MAX),
+        metallic=torch.clamp(sample(2, 1, metal), 0.0, 1.0),
         ior=f[:, 5],
-        emit=albedo,
+        emit=const_albedo,
+        normal_map=sample(4, 3, nmap_const),
     )
 
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from pathtracer_tpu_torch.utils.config import PI, TWO_PI
+from pathtracer_tpu_torch.utils.config import INV_PI, PI, TWO_PI
 
 # ---------------------------------------------------------------------------
 # small helpers
@@ -95,6 +95,22 @@ def onb_pixar(n):
 
 # ---------------------------------------------------------------------------
 # mappings and primitive samplers
+
+
+def _hypot(x1, x2):
+    """jnp.hypot's formula: max * sqrt(1 + (min / max)^2), 0 where both are 0."""
+    x1, x2 = torch.abs(x1), torch.abs(x2)
+    hi, lo = torch.maximum(x1, x2), torch.minimum(x1, x2)
+    q = lo / torch.where(hi == 0.0, 1.0, hi)
+    r = torch.where(hi == 0.0, hi, hi * torch.sqrt(1.0 + q * q))
+    return torch.where(torch.isinf(x1) | torch.isinf(x2), torch.inf, r)
+
+
+def sphere_to_plane(d):
+    """Equirect direction -> uv in [0, 1]^2."""
+    u = torch.remainder(torch.atan2(d[..., 2], d[..., 0]) * INV_PI * 0.5 + 1.0, 1.0)
+    v = torch.clamp(torch.atan2(d[..., 1], _hypot(d[..., 0], d[..., 2])) * INV_PI + 0.5, min=0.0)
+    return torch.stack([u, v], dim=-1)
 
 
 def sample_triangle_uniform(r):

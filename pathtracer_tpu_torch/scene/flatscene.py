@@ -14,9 +14,12 @@ read the padded triangle rows `str_subt12` and the per-block rows
 tables only the port has, each derived from the stream tables once per
 scene).
 
-Not yet ported (each raises `NotImplementedError`): texture atlases and
-normal maps (ROADMAP Queue 1 item 11) and environment maps (item 12).  Their
-fields hold the JAX package's one-row placeholder tables.
+Textures sit in one packed atlas (`atlas_u32`, one int32 word a texel, with
+`tex_table` rows [offset, width, height, format]); an environment map adds
+its luminance * sin(theta) CDF over all texels (`env_flat_cdf`) and the
+matching pdf table (`env_pdf`).  The JAX package's float planes (`atlas`)
+feed only its `gather_material`, which the port does not have, so the port
+holds no copy of them.
 """
 
 from __future__ import annotations
@@ -85,14 +88,13 @@ class FlatScene:
     str_groups: torch.Tensor       # (n_groups*8,) f32: union of STREAM_CULL_GROUP roots, padded (K5)
     mat_f32: torch.Tensor          # (8, M): albedo(3) roughness metallic ior pad(2)
     mat_i32: torch.Tensor          # (8, M): type atex mtex rtex ntex pad(3)
-    atlas: torch.Tensor            # texture tables: placeholders (not ported)
-    atlas_u32: torch.Tensor
-    tex_table: torch.Tensor
+    atlas_u32: torch.Tensor        # (P,) int32: packed texels, 8-bit RGB (+ RGBE exponent)
+    tex_table: torch.Tensor        # (Ntex, 4) int32: offset width height format(0 rgb8, 1 rgbe)
     light_geom: torch.Tensor       # (L,) int32
     light_tri: torch.Tensor        # (L,) int32 (-1 for analytic geoms)
     light_type: torch.Tensor       # (L,) int32
-    env_flat_cdf: torch.Tensor     # environment CDF: placeholder (not ported)
-    env_pdf: torch.Tensor
+    env_flat_cdf: torch.Tensor     # (H*W+1,) f32: CDF of luminance * sin(theta) over env texels
+    env_pdf: torch.Tensor          # (H, W) f32: the joint pdf over [0,1]^2
 
     @property
     def device(self) -> torch.device:
@@ -437,16 +439,68 @@ def stream_depths(topl: np.ndarray, subi: np.ndarray, sub_nodes: int) -> tuple[i
     return int(top.max()) + 1, int(sub.max())
 
 
-def _placeholder_tables() -> dict[str, np.ndarray]:
-    """The JAX package's one-row tables for the slices the port lacks:
-    textures (flatscene.py:225-231) and the environment CDF (:269-276)."""
-    return {
-        "atlas": np.zeros((3, 1), np.float32),
-        "atlas_u32": np.zeros((1,), np.uint32),
-        "tex_table": np.zeros((1, 4), np.int32),
-        "env_flat_cdf": np.zeros((1,), np.float32),
-        "env_pdf": np.zeros((1, 1), np.float32),
-    }
+# copied from pathtracer_tpu/scene/flatscene.py:225 _pack_textures
+def _pack_textures(scene: SceneData):
+    if not scene.textures:
+        return (
+            np.zeros((3, 1), np.float32),
+            np.zeros((1,), np.uint32),
+            np.zeros((1, 4), np.int32),
+        )
+    table = []
+    chunks = []
+    offset = 0
+    for img in scene.textures:
+        h, w, _ = img.shape
+        table.append((offset, w, h))
+        chunks.append(img.reshape(-1, 3))
+        offset += w * h
+    flat = np.concatenate(chunks, axis=0).astype(np.float32)
+    # LDR texels pack as plain 8-bit RGB; HDR texels as RGBE with a shared
+    # exponent (lossless against the .hdr file's own encoding)
+    fmt = []
+    packed = np.zeros(flat.shape[0], np.uint32)
+    pos = 0
+    for k, img in enumerate(scene.textures):
+        n = img.shape[0] * img.shape[1]
+        chunk = flat[pos : pos + n]
+        if chunk.max() > 1.0:  # HDR → RGBE
+            maxc = chunk.max(axis=-1)
+            with np.errstate(divide="ignore"):
+                e = np.where(maxc > 1e-32, np.floor(np.log2(maxc)) + 1, 0).astype(np.int32)
+            scale = np.where(maxc > 1e-32, np.ldexp(1.0, -e) * 256.0, 0.0)
+            q = np.clip(chunk * scale[:, None], 0, 255).astype(np.uint32)
+            eb = np.where(maxc > 1e-32, e + 128, 0).astype(np.uint32)
+            packed[pos : pos + n] = q[:, 0] | (q[:, 1] << 8) | (q[:, 2] << 16) | (eb << 24)
+            fmt.append(1)
+        else:
+            q = np.clip(chunk * 255.0 + 0.5, 0, 255).astype(np.uint32)
+            packed[pos : pos + n] = q[:, 0] | (q[:, 1] << 8) | (q[:, 2] << 16)
+            fmt.append(0)
+        pos += n
+    table = [(o, w, h, f) for (o, w, h), f in zip(table, fmt)]
+    return flat.T.copy(), packed, np.asarray(table, np.int32)
+
+
+# copied from pathtracer_tpu/scene/flatscene.py:269 _env_cdfs
+def _env_cdfs(scene: SceneData) -> tuple[np.ndarray, np.ndarray]:
+    """2D luminance·sin(θ) CDFs for env importance sampling: row weighting
+    lum(pixel) · sin((0.5+i)/H · π), one flat CDF over all texels."""
+    if scene.env_map_id < 0:
+        return np.zeros((1,), np.float32), np.zeros((1, 1), np.float32)
+    img = scene.textures[scene.env_map_id]
+    h, w, _ = img.shape
+    lum = 0.2126 * img[..., 0] + 0.7152 * img[..., 1] + 0.0722 * img[..., 2]
+    sin_t = np.sin((0.5 + np.arange(h)) / h * np.pi)
+    f = (lum * sin_t[:, None]).astype(np.float64)
+    flat_cdf = np.zeros(h * w + 1, np.float64)
+    np.cumsum(f.reshape(-1), out=flat_cdf[1:])
+    total = flat_cdf[-1] if flat_cdf[-1] > 0 else 1.0
+    flat_cdf /= total
+    # joint pdf over [0,1]²: f / mean(f)
+    mean_f = f.mean() if f.mean() > 0 else 1.0
+    pdf = (f / mean_f).astype(np.float32)
+    return flat_cdf.astype(np.float32), pdf
 
 
 def flat_from_arrays(arrays: Mapping[str, np.ndarray], device) -> FlatScene:
@@ -454,7 +508,11 @@ def flat_from_arrays(arrays: Mapping[str, np.ndarray], device) -> FlatScene:
     fields) -> the port's FlatScene on `device`.  `str_roots`, `str_subt12`,
     `str_blocks`, `str_roots8` and `str_groups`, which the JAX package does
     not hold, are built from the stream tables when absent (the block sizes
-    follow from the tables: 24 ints a node, 9 floats a triangle)."""
+    follow from the tables: 24 ints a node, 9 floats a triangle).  A uint32
+    `atlas_u32` is carried over as int32, bit for bit."""
+    atlas = np.asarray(arrays["atlas_u32"])
+    if atlas.dtype == np.uint32:
+        arrays = {**arrays, "atlas_u32": atlas.view(np.int32)}
     base = np.asarray(arrays["str_base"])
     if "str_roots" not in arrays:
         arrays = {**arrays, "str_roots": stream_roots(arrays["str_topf"], arrays["str_topl"],
@@ -478,15 +536,6 @@ def build_flat_scene(
 ) -> tuple[FlatScene, SceneStatic]:
     """Build the scene tables on `device`.  `opts` (RenderOptions) wires the
     build knobs use_sah/use_mtbvh/max_prim/bucket_num/vertex_normal."""
-    if scene.env_map_id >= 0:
-        raise NotImplementedError(
-            "environment maps (ENV) come with ROADMAP Queue 1 item 12"
-        )
-    if scene.textures:
-        raise NotImplementedError(
-            "textured scenes (materials with texture maps, normal maps) come "
-            "with ROADMAP Queue 1 item 11"
-        )
     use_sah = opts.use_sah if opts is not None else True
     use_mtbvh = opts.use_mtbvh if opts is not None else True
     max_prim = opts.max_prim if opts is not None else 1
@@ -602,7 +651,8 @@ def build_flat_scene(
             )
         top_depth, sub_depth = stream_depths(str_topl, str_subi, stream_sub_nodes)
 
-    placeholders = _placeholder_tables()
+    _, atlas_u32, tex_table = _pack_textures(scene)
+    env_flat_cdf, env_pdf = _env_cdfs(scene)
     arrays = dict(
         geom_type=geom_type, geom_mat=geom_mat, geom_transform=xf,
         geom_inv=inv, geom_invt=invt, tri_data=tri_data, tri_geom=tri_geom,
@@ -614,7 +664,7 @@ def build_flat_scene(
         str_roots=stream_roots(str_topf, str_topl, str_base.size),
         mat_f32=mat_f32.T.copy(), mat_i32=mat_i32.T.copy(),
         light_geom=light_geom, light_tri=light_tri, light_type=light_type,
-        **placeholders,
+        atlas_u32=atlas_u32, tex_table=tex_table, env_flat_cdf=env_flat_cdf, env_pdf=env_pdf,
     )
     static = SceneStatic(
         geom_types=tuple(int(g.type) for g in scene.geoms),
@@ -655,11 +705,14 @@ def build_flat_scene(
         num_lights=len(lg),
         num_materials=len(scene.materials),
         env_map_id=scene.env_map_id,
-        has_textures=False,
-        tex_slots=(False, False, False, False),
-        tex_rows=tuple(
-            tuple(int(v) for v in row) for row in placeholders["tex_table"]
+        has_textures=len(scene.textures) > 0,
+        tex_slots=(
+            any(m.albedo_tex >= 0 for m in scene.materials),
+            any(m.metallic_tex >= 0 for m in scene.materials),
+            any(m.roughness_tex >= 0 for m in scene.materials),
+            any(m.normal_tex >= 0 for m in scene.materials),
         ),
+        tex_rows=tuple(tuple(int(v) for v in row) for row in tex_table),
         width=scene.camera.resolution[0],
         height=scene.camera.resolution[1],
         trace_depth=scene.trace_depth,

@@ -48,6 +48,9 @@ SPHERE = 0
 CUBE = 1
 OBJ = 2
 
+# a material or ENV token with one of these suffixes names an image file
+IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".bmp", ".tga", ".hdr")
+
 ROUGHNESS_MIN = 1e-3  # load-time clamp (reference: src/scene.cpp:295)
 
 
@@ -186,6 +189,16 @@ class SceneParser:
     def load_texture(self, token: str, gamma: float = 1.0) -> int:
         path = _resolve_asset(token, self.scene_dir)
         if path is None:
+            # a token that is no file is a constant (ALBEDO .85 .85 .85); the
+            # JAX package reads a missing image's name as one too, 0, where
+            # the port refuses, naming the file, so that a missing
+            # (generated) texture never yields a black material
+            if Path(token.replace("\\", "/")).suffix.lower() in IMAGE_SUFFIXES:
+                raise FileNotFoundError(
+                    f"texture {token!r} not found (scene {self.path}; looked next to "
+                    "the scene and in its parent; tools/make_texture_assets.py writes "
+                    "the in-repo scenes' generated textures)"
+                )
             return -1
         key = str(path)
         if key in self._texture_ids:

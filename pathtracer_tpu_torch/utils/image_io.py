@@ -13,6 +13,10 @@ conventions:
   conversion, just /255
 - textures are flipped vertically at load
   (stbi_set_flip_vertically_on_load(true), reference: src/scene.cpp:56)
+
+Unlike the JAX package's copy, it decodes 8-bit non-interlaced PNGs itself
+(numpy and zlib; PIL only for other files), so that textures load where PIL
+is not installed, with the same values as PIL's decode.
 """
 
 from __future__ import annotations
@@ -30,10 +34,7 @@ def load_image(path: str | Path, gamma: float = 1.0, flip_vertical: bool = True)
     if path.suffix.lower() == ".hdr":
         img = read_hdr(path)
     else:
-        from PIL import Image
-
-        with Image.open(path) as im:
-            arr = np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
+        arr = read_png(path) if path.suffix.lower() == ".png" else _read_with_pil(path)
         if gamma != 1.0:
             arr = np.power(arr, gamma)
         img = arr
@@ -148,9 +149,87 @@ def write_png(path: str | Path, img: np.ndarray) -> None:
     Path(path).write_bytes(png)
 
 
-def read_png(path: str | Path) -> np.ndarray:
-    """Read a PNG as float32 (H, W, 3) in [0,1] (via PIL)."""
+def _read_with_pil(path) -> np.ndarray:
     from PIL import Image
 
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
+
+
+def _unfilter_sequential(kind: int, line: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
+    """PNG filters 3 (average) and 4 (Paeth), whose bytes depend on the
+    decoded bytes to their left: one byte at a time."""
+    cur = [0] * len(line)
+    ln, up = line.tolist(), prev.tolist()
+    for i in range(len(ln)):
+        a = cur[i - bpp] if i >= bpp else 0
+        b = up[i]
+        if kind == 3:
+            pred = (a + b) >> 1
+        else:
+            c = up[i - bpp] if i >= bpp else 0
+            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        cur[i] = (ln[i] + pred) & 255
+    return np.asarray(cur, np.uint8)
+
+
+def _decode_png(data: bytes) -> np.ndarray | None:
+    """(H, W, 3) uint8 of an 8-bit, non-interlaced PNG (grey, RGB, palette,
+    with or without alpha, which is dropped, as PIL's convert("RGB") does);
+    None for any other PNG."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        return None
+    pos, idat, hdr, plte = 8, [], None, None
+    while pos + 8 <= len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if hdr is None:
+        return None
+    w, h, depth, ctype, _, _, interlace = hdr
+    bpp = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
+    if depth != 8 or interlace or bpp is None or (ctype == 3 and plte is None):
+        return None
+    stride = w * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)[: h * (stride + 1)]
+    raw = raw.reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, line = int(raw[y, 0]), raw[y, 1:]
+        if kind == 0:
+            cur = line
+        elif kind == 1:
+            cur = np.cumsum(line.reshape(w, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:
+            cur = line + prev
+        elif kind in (3, 4):
+            cur = _unfilter_sequential(kind, line, prev, bpp)
+        else:
+            raise ValueError(f"PNG row {y} has an unknown filter type {kind}")
+        out[y] = cur
+        prev = out[y]
+    px = out.reshape(h, w, bpp)
+    if ctype == 3:
+        return plte[px[..., 0]]
+    if ctype in (0, 4):
+        return np.repeat(px[..., 0:1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., 0:3])
+
+
+def read_png(path: str | Path) -> np.ndarray:
+    """Read a PNG as float32 (H, W, 3) in [0,1] (PIL for a PNG that
+    `_decode_png` does not take)."""
+    rgb = _decode_png(Path(path).read_bytes())
+    if rgb is None:
+        return _read_with_pil(path)
+    return rgb.astype(np.float32) / 255.0

@@ -39,25 +39,41 @@ PORT_STATIC = {"stream_top_depth", "stream_sub_depth"}
 # kernel's call, K3's padded triangle rows and per-block rows, and K5's
 # padded root boxes and group boxes
 PORT_FLAT = {"str_roots", "str_subt12", "str_blocks", "str_roots8", "str_groups"}
+# FlatScene fields that only the JAX package has: the float texture planes,
+# which feed only its gather_material (the main path samples atlas_u32)
+JAX_FLAT = {"atlas"}
 
 
-def test_tables_equal(scene_path):
-    jflat, jstatic = jax_build(jax_load(scene_path))
-    tflat, tstatic = tfs.build_flat_scene(load_scene(scene_path), device="cpu")
+def _same_array(a: np.ndarray, b: np.ndarray) -> bool:
+    """Equal bit for bit; the port holds the packed atlas (uint32 in the JAX
+    package) as int32."""
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return b.dtype == a.dtype and b.shape == a.shape and np.array_equal(a, b, equal_nan=True)
+
+
+def _assert_tables_equal(path):
+    """Both packages' tables of the scene at `path`, field for field."""
+    jflat, jstatic = jax_build(jax_load(path))
+    tflat, tstatic = tfs.build_flat_scene(load_scene(path), device="cpu")
     want = _jax_arrays(jflat)
-    assert set(want) | PORT_FLAT == {f.name for f in dataclasses.fields(tfs.FlatScene)}
+    assert set(want) - JAX_FLAT | PORT_FLAT == {f.name for f in dataclasses.fields(tfs.FlatScene)}
     want["str_roots"] = tfs.stream_roots(want["str_topf"], want["str_topl"], want["str_base"].size)
     want["str_subt12"], want["str_blocks"] = tfs.stream_walk_tables(
         want["str_subi"], want["str_subt"], want["str_base"], tfs.STREAM_SUB_NODES,
         tfs.STREAM_SUB_TRIS)
     want["str_roots8"], want["str_groups"] = tfs.stream_cull_tables(want["str_roots"])
     for name, a in want.items():
-        b = getattr(tflat, name).numpy()
-        assert b.dtype == a.dtype and b.shape == a.shape, name
-        assert np.array_equal(a, b, equal_nan=True), name
+        if name not in JAX_FLAT:
+            assert _same_array(a, getattr(tflat, name).numpy()), name
     got = dataclasses.asdict(tstatic)
     assert set(got) - set(dataclasses.asdict(jstatic)) == PORT_STATIC
     assert {k: v for k, v in got.items() if k not in PORT_STATIC} == dataclasses.asdict(jstatic)
+    return tflat, tstatic
+
+
+def test_tables_equal(scene_path):
+    _, tstatic = _assert_tables_equal(scene_path)
     assert tstatic.stream_top_depth == tstatic.stream_sub_depth == 0  # resident scenes
 
 
@@ -66,9 +82,12 @@ def test_flat_from_arrays_round_trip(tmp_path):
     arrays = _jax_arrays(jflat)
     flat = tfs.flat_from_arrays(arrays, "cpu")
     for name, a in arrays.items():
+        if name in JAX_FLAT:
+            assert not hasattr(flat, name)
+            continue
         t = getattr(flat, name)
         assert isinstance(t, torch.Tensor) and t.device.type == "cpu"
-        assert np.array_equal(t.numpy(), a, equal_nan=True), name
+        assert _same_array(a, t.numpy()), name
 
 
 def test_glasstorus_takes_the_resident_kernels():
@@ -79,13 +98,17 @@ def test_glasstorus_takes_the_resident_kernels():
 
 
 def test_textured_scene_not_ported(tmp_path):
-    write_png(tmp_path / "tex.png", np.full((4, 4, 3), 0.5, np.float32))
+    """Textured scenes were refused until textures were ported: now the
+    packed atlas (8-bit RGB and RGBE words), the texture table and the
+    texture slots equal the JAX package's."""
+    write_png(tmp_path / "tex.png", np.linspace(0, 1, 4 * 5 * 3, dtype=np.float32).reshape(4, 5, 3))
+    write_hdr(tmp_path / "rough.hdr", np.linspace(0, 3, 3 * 2 * 3, dtype=np.float32).reshape(3, 2, 3))
     scene = write_scene(tmp_path, f"""
         MATERIAL tex
         TYPE\tLambertian
         ALBEDO      {tmp_path / 'tex.png'}
         METALLIC    0
-        ROUGHNESS   0
+        ROUGHNESS   {tmp_path / 'rough.hdr'}
         IOR         0
 
         CAMERA
@@ -105,12 +128,18 @@ def test_textured_scene_not_ported(tmp_path):
         ROTAT       0 0 0
         SCALE       1 1 1
         """)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tfs.build_flat_scene(load_scene(scene))
+    tflat, tstatic = _assert_tables_equal(scene)
+    assert tstatic.has_textures and tstatic.tex_slots == (True, False, True, False)
+    assert [row[3] for row in tstatic.tex_rows] == [0, 1]  # 8-bit RGB, RGBE
+    assert tflat.atlas_u32.dtype == torch.int32 and tflat.atlas_u32.numel() == 4 * 5 + 3 * 2
 
 
 def test_env_scene_not_ported(tmp_path):
-    write_hdr(tmp_path / "sky.hdr", np.ones((4, 8, 3), np.float32))
+    """Environment maps were refused until they were ported: now the sky's
+    RGBE texels, its flat CDF and its pdf table equal the JAX package's."""
+    sky = np.ones((4, 8, 3), np.float32) * np.arange(1, 5, dtype=np.float32)[:, None, None]
+    sky[0] = 0.0  # a row of zero luminance: a plateau of the CDF
+    write_hdr(tmp_path / "sky.hdr", sky)
     scene = write_scene(tmp_path, f"""
         MATERIAL white
         TYPE\tLambertian
@@ -138,8 +167,11 @@ def test_env_scene_not_ported(tmp_path):
         ROTAT       0 0 0
         SCALE       1 1 1
         """)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tfs.build_flat_scene(load_scene(scene))
+    tflat, tstatic = _assert_tables_equal(scene)
+    assert tstatic.env_map_id == 0 and tstatic.tex_rows[0][3] == 1
+    cdf = tflat.env_flat_cdf.numpy()
+    assert cdf.shape == (4 * 8 + 1,) and tflat.env_pdf.shape == (4, 8)
+    assert cdf[-1] == 1.0 and (cdf[1:] == cdf[:-1]).sum() >= 8
 
 
 def test_mesh_past_resident_budget_not_ported(tmp_path, monkeypatch):

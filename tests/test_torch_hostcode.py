@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's numpy-only host modules (config,
 image I/O, OBJ loader, scene parser, camera, BVH build and its native
-builder) against the originals, on the CPU: identical inputs must give equal
-results, arrays element for element and files byte for byte."""
+builder, the texture atlas and environment CDF builds) against the
+originals, on the CPU: identical inputs must give equal results, arrays
+element for element and files byte for byte.  Also the asset tools."""
 
 import dataclasses
 from pathlib import Path
@@ -11,6 +12,7 @@ import pytest
 
 from pathtracer_tpu.accel import bvh as jbvh
 from pathtracer_tpu.scene import camera as jcam
+from pathtracer_tpu.scene import flatscene as jflat
 from pathtracer_tpu.scene import obj_loader as jobj
 from pathtracer_tpu.scene import parser as jparser
 from pathtracer_tpu.utils import config as jconfig
@@ -18,6 +20,7 @@ from pathtracer_tpu.utils import image_io as jio
 from pathtracer_tpu_torch.accel import bvh as tbvh
 from pathtracer_tpu_torch.accel import native as tnative
 from pathtracer_tpu_torch.scene import camera as tcam
+from pathtracer_tpu_torch.scene import flatscene as tflat
 from pathtracer_tpu_torch.scene import obj_loader as tobj
 from pathtracer_tpu_torch.scene import parser as tparser
 from pathtracer_tpu_torch.utils import config as tconfig
@@ -25,6 +28,7 @@ from pathtracer_tpu_torch.utils import image_io as tio
 from tests.test_integrator import write_scene
 from tests.test_torch_render import small_torus_scene
 from tests.test_traverse import tri_soup_scene
+from tools import make_texture_assets as mta
 from tools.make_torus_obj import ensure_torus_obj
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -199,3 +203,65 @@ def test_ensure_torus_obj(tmp_path):
     assert not list(path.parent.glob("*.tmp"))
     big = (ROOT / "scenes" / "glasstorus160k.txt").read_text()
     assert "assets/torus160k.obj" in big and "--major 400 --minor 200" in big
+
+
+@pytest.mark.parametrize("name", ["texcube", "normalcube", "envtorus"])
+def test_texture_atlas_and_env_cdfs_agree(name):
+    """`_pack_textures` (LDR 8-bit and RGBE words, the texture table) and
+    `_env_cdfs` (the flat CDF over 2M sky texels, plateaus included) on the
+    new scenes, each package on its own parse."""
+    mta.ensure_texture_assets()
+    path = ROOT / "scenes" / f"{name}.txt"
+    got_scene, want_scene = tparser.load_scene(path), jparser.load_scene(path)
+    assert_same(tflat._pack_textures(got_scene), jflat._pack_textures(want_scene), "textures")
+    assert_same(tflat._env_cdfs(got_scene), jflat._env_cdfs(want_scene), "env cdfs")
+    assert got_scene.textures and (name != "envtorus" or got_scene.env_map_id >= 0)
+
+
+@pytest.mark.parametrize("mode", ["RGB", "L", "RGBA", "LA", "P"])
+def test_png_decoder_agrees_with_pil(tmp_path, mode):
+    """The port decodes 8-bit PNGs itself: every colour type, every filter
+    (PIL's `optimize` picks all five), equal to the JAX package's PIL read."""
+    from PIL import Image
+
+    g = np.random.default_rng(3)
+    img = (np.linspace(0, 255, 61 * 97 * 4).reshape(61, 97, 4)
+           + g.integers(0, 40, (61, 97, 4))).clip(0, 255).astype(np.uint8)
+    im = Image.fromarray(img, "RGBA") if mode == "RGBA" else Image.fromarray(img[..., :3]).convert(mode)
+    for optimize in (False, True):
+        path = tmp_path / f"{mode}{optimize}.png"
+        im.save(path, optimize=optimize)
+        assert tio._decode_png(path.read_bytes()) is not None
+        assert_same(tio.load_image(path), jio.load_image(path), f"{mode} png")
+
+
+def test_texture_assets_are_deterministic(tmp_path):
+    """Each ensure_* writes the same bytes on a second, fresh write, and
+    leaves an existing file alone; the PNGs and the HDR read back equal
+    through both packages' image_io; the committed UV cube is the tool's."""
+    assert mta.UV_CUBE.read_text() == mta.uv_cube_obj()
+    for ensure in (mta.ensure_uv_cube_obj, mta.ensure_albedo_png, mta.ensure_metallic_png,
+                   mta.ensure_roughness_png, mta.ensure_sky_hdr):
+        a, b = tmp_path / "a" / ensure.__name__, tmp_path / "b" / ensure.__name__
+        assert ensure(a) == a and ensure(b) == b
+        assert a.read_bytes() == b.read_bytes(), ensure.__name__
+        a.write_bytes(a.read_bytes() + b"#")
+        ensure(a)
+        assert a.read_bytes().endswith(b"#")
+        if ensure is not mta.ensure_uv_cube_obj:
+            suffix = ".hdr" if ensure is mta.ensure_sky_hdr else ".png"
+            c = b.rename(b.with_suffix(suffix))
+            assert_same(tio.load_image(c), jio.load_image(c), ensure.__name__)
+    assert not list(tmp_path.rglob("*.tmp"))
+    sky = mta.sky(256, 128)
+    assert sky.max() > 1.0 and not sky[64:].any() and sky[:64].min() > 0.0
+
+
+def test_missing_texture_error_names_the_file(tmp_path):
+    text = (ROOT / "scenes" / "normalcube.txt").read_text()
+    scene = tmp_path / "s.txt"
+    scene.write_text(text.replace("assets/wave_normal.png", "assets/nowhere.png")
+                     .replace("assets/uvcube.obj", str(ROOT / "scenes" / "assets" / "uvcube.obj")))
+    with pytest.raises(FileNotFoundError, match="nowhere.png"):
+        tparser.load_scene(scene)
+    assert jparser.load_scene(scene).materials[2].normal_tex == -1  # the JAX package reads on

@@ -42,14 +42,14 @@ def scene(tmp_path_factory):
     return small_torus_scene(tmp_path_factory.mktemp("slice"))
 
 
-def jax_reference(scene, mode_name: str) -> dict:
+def jax_reference(scene, mode_name: str, **options) -> dict:
     """The JAX Renderer's (XLA walk) render of `scene` at 64x64, depth 4, 2
-    spp, seed 0, one iteration per dispatch (bit-identical to batched ones):
-    the accumulated HDR sum in pixel order, the LDR image, the rays traced
-    and the iteration count."""
+    spp, seed 0, one iteration per dispatch (bit-identical to batched ones),
+    with RenderOptions `options` besides: the accumulated HDR sum in pixel
+    order, the LDR image, the rays traced and the iteration count."""
     jax_mode = jax_config.SampleMode[mode_name]
     ref = JaxRenderer(scene, opts=jax_config.RenderOptions(sample_mode=jax_mode,
-                                                           iters_per_dispatch=1),
+                                                           iters_per_dispatch=1, **options),
                       resolution=(64, 64), trace_depth=4)
     ref.set_seed(0)
     stats = ref.step(2)
@@ -58,13 +58,14 @@ def jax_reference(scene, mode_name: str) -> dict:
             "iteration": int(ref.iteration)}
 
 
-def render_and_compare(scene, mode, ref: dict | None = None) -> Renderer:
+def render_and_compare(scene, mode, ref: dict | None = None, **options) -> Renderer:
     """Render `scene` with the port on the CPU (64x64, depth 4, 2 spp, seed
-    0) and hold it to `ref`, the JAX package's render of it (`jax_reference`,
-    made here when not given); returns the port's renderer."""
+    0, RenderOptions `options` besides) and hold it to `ref`, the JAX
+    package's render of it (`jax_reference`, made here when not given);
+    returns the port's renderer."""
     if ref is None:
-        ref = jax_reference(scene, mode.name)
-    port = Renderer(scene, opts=RenderOptions(sample_mode=mode), resolution=(64, 64),
+        ref = jax_reference(scene, mode.name, **options)
+    port = Renderer(scene, opts=RenderOptions(sample_mode=mode, **options), resolution=(64, 64),
                     trace_depth=4, device="cpu")
     port.set_seed(0)
     stats = port.step(2)
@@ -111,11 +112,13 @@ PORT_MODULES = [
     "pathtracer_tpu_torch.integrator.wavefront",
     "pathtracer_tpu_torch.ops",
     "pathtracer_tpu_torch.ops._build",
+    "pathtracer_tpu_torch.ops.envmap",
     "pathtracer_tpu_torch.ops.intersect",
     "pathtracer_tpu_torch.ops.lights",
     "pathtracer_tpu_torch.ops.materials",
     "pathtracer_tpu_torch.ops.math",
     "pathtracer_tpu_torch.ops.probes",
+    "pathtracer_tpu_torch.ops.texture",
     "pathtracer_tpu_torch.ops.traverse",
     "pathtracer_tpu_torch.ops.traverse_cuda",
     "pathtracer_tpu_torch.ops.traverse_stream_cuda",
@@ -133,6 +136,7 @@ PORT_MODULES = [
     "tools.compare_walk_kernels",
     "tools.cuda_timing",
     "tools.kernel_microbench_torch",
+    "tools.make_texture_assets",
     "tools.profile_torch_port",
     "tools.rowprim_probe_torch",
     "tools.stage_diff_torch",
@@ -185,7 +189,7 @@ def test_no_hidden_cpu_fallback(scene, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("ray_regen", 4), ("env_importance", True), ("show_normal", True), ("use_bvh", False),
+    ("ray_regen", 4), ("use_bvh", False),
 ])
 def test_unported_options_raise(scene, field, value):
     with pytest.raises(NotImplementedError):

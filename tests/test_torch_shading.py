@@ -67,6 +67,7 @@ def _params(p):
         type=torch.from_numpy(p["type"]), albedo=torch.from_numpy(p["albedo"]),
         roughness=torch.from_numpy(p["roughness"]), metallic=torch.from_numpy(p["metallic"]),
         ior=torch.from_numpy(p["ior"]), emit=torch.from_numpy(p["albedo"]),
+        normal_map=torch.zeros((N, 3)),
     )
     return jp, tp
 
@@ -124,7 +125,7 @@ def test_material_by_geom(lit_box):
     flat, static, port = lit_box
     geom = np.arange(-1, static.num_geoms, dtype=np.int32).repeat(3)
     want = jmat.material_by_geom(flat, static, jnp.asarray(geom), jnp.zeros((geom.size, 2)))
-    got = tmat.material_by_geom(port, torch.from_numpy(geom))
+    got = tmat.material_by_geom(port, static, torch.from_numpy(geom), torch.zeros((geom.size, 2)))
     for name in tmat.MatParams._fields:
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)), name)
 

@@ -1,6 +1,7 @@
 """Where the time goes on the PyTorch port's main path, on one GPU.
 
     python tools/profile_torch_port.py scenes/glasstorus160k.txt
+    python tools/profile_torch_port.py scenes/envtorus.txt --env-importance
 
 Renders the scene MIS at 800x800, depth 8, through
 `Renderer(..., device="cuda")`, runs 3 iterations to warm up, times 2 on the
@@ -9,8 +10,10 @@ prints, per iteration: the wall time without and under the profiler, the
 device's busy time (sum of kernel times) and busy share, the number of
 kernel launches, and the 12 kernels that take the most device time, with
 the traversal kernels (K1-K5) named.  The card's name and power limit come
-first.  Needs CUDA.  The scene's assets must exist: for glasstorus160k,
-write its OBJ first with `tools/make_torus_obj.py` (see its docstring).
+first.  `--env-importance` renders with RenderOptions(env_importance=True)
+(the sky as a light).  Needs CUDA.  The scene's assets must exist: for
+glasstorus160k, write its OBJ first with `tools/make_torus_obj.py` (see its
+docstring); for the textured scenes, `tools/make_texture_assets.py`.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ TRAVERSAL = {
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("scene", type=Path)
+    p.add_argument("--env-importance", action="store_true")
     args = p.parse_args(argv)
 
     import torch
@@ -48,7 +52,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}")
-    r = Renderer(args.scene, RenderOptions(sample_mode=SampleMode.MIS),
+    r = Renderer(args.scene, RenderOptions(sample_mode=SampleMode.MIS,
+                                           env_importance=args.env_importance),
                  resolution=(RES, RES), trace_depth=DEPTH, device="cuda")
     r.step(WARM)
     torch.cuda.synchronize()

@@ -204,7 +204,7 @@ def pool_to(pool, device):
 
 def diff_scene(path: Path, res: int, depth: int, spp: int) -> dict:
     from pathtracer_tpu_torch.integrator.render import Renderer
-    from pathtracer_tpu_torch.integrator.wavefront import _Pool, bounce, camera_rays
+    from pathtracer_tpu_torch.integrator.wavefront import bounce, camera_rays, new_pool
     from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 
     mode = SampleMode.MIS
@@ -218,9 +218,7 @@ def diff_scene(path: Path, res: int, depth: int, spp: int) -> dict:
         o2, d2 = camera_rays(cpu._cam_arrays(), res, res, cpu.key, it, pixel_xy=cpu.pixel_xy)
         cam_lanes = int(lane_diff(d.cpu(), d2)[0].sum() + lane_diff(o.cpu(), o2)[0].sum())
         n = o.shape[0]
-        pool = _Pool(o=o, d=d, color=torch.ones_like(o), contrib=torch.zeros_like(o),
-                     prev_pdf=torch.full((n,), -1.0, device=o.device),
-                     alive=torch.ones((n,), dtype=torch.bool, device=o.device))
+        pool = new_pool(o, d)
         for lap in range(depth + 1):
             if not bool(pool.alive.any()):
                 break
@@ -252,9 +250,7 @@ def diff_scene(path: Path, res: int, depth: int, spp: int) -> dict:
         pools = {}
         for dev, r in rs.items():
             o, d = camera_rays(r._cam_arrays(), res, res, r.key, it, pixel_xy=r.pixel_xy)
-            pools[dev] = _Pool(o=o, d=d, color=torch.ones_like(o), contrib=torch.zeros_like(o),
-                               prev_pdf=torch.full((n,), -1.0, device=o.device),
-                               alive=torch.ones((n,), dtype=torch.bool, device=o.device))
+            pools[dev] = new_pool(o, d)
         for lap in range(depth + 1):
             if not bool(pools[CARD].alive.any() | pools["cpu"].alive.cpu().any()):
                 break
