@@ -59,7 +59,28 @@ line):
    tolerance;
 9. the probes P1 and P2 against their plain versions (every P2 variant at a
    small pop count, from the probe's accumulator start and from a small
-   one), and their ns per lap at the TPU probes' sizes.
+   one), and their ns per lap at the TPU probes' sizes;
+10. the kernels on the pools the scheduler hands them: K1/K2 (glasstorus)
+   and K3/K4 (glasstorus160k) against their plain versions on the sorted
+   continuation pool of lap 1, on its first shrink-ladder prefix (a view of
+   the sorted columns, not a copy), on a prefix of 40,001 lanes (not a
+   multiple of a CTA), and on the NEE shadow rays from its hits sorted as
+   the shadow sort sorts them (and a 40,001-lane prefix of those), and on
+   the same rays in lane order and in the pool's order, with median times
+   of each kernel on both orders; occlusion_test with the shadow sort equal
+   to it without;
+11. the scheduler and ray regeneration on the main paths of
+   cornell_spheres, glasstorus, glasstorus160k, texcube and envtorus (env
+   importance) at 800x800, depth 8, MIS, 1 + 8 spp, on the tables built for
+   the earlier phases: compaction=False (no sort, no ladder), the default
+   schedule (sort and ladder), and the shadow sort with the half level, whose
+   HDR sums must be bitwise equal; and ray_regen=8 (the warm-up, then one
+   batch of 8), within the image tolerance of them with the rays counted
+   exactly equal.  Per path: s/iteration, launches of K1-K5 per iteration
+   (counts zeroed just before the path, read just after; each path must
+   launch its scene's kernels), kernel launches in all and device-busy ms
+   per sample under torch.profiler over one more iteration (or batch of 8),
+   laps per sample and the pool's length at each lap.
 
 The line before the last is a JSON object with one entry per kernel (times,
 errors, launches, and the least time the card could take for the same work);
@@ -91,6 +112,11 @@ TORUS_640K = (ROOT / "scenes" / "assets" / "torus640k.obj", 800, 400)
 RES, DEPTH, SPP = 800, 8, 8
 DEVICE = "cuda"
 IMG_RTOL, IMG_ATOL, IMG_MIN_FRAC = 1e-4, 1e-5, 0.999  # tests/test_torch_render.py
+# the schedules held bitwise equal on the main paths, and the regeneration batch
+SCHEDULES = (("compaction=False", {"compaction": False}), ("default schedule", {}),
+             ("shadow_sort, shrink_half", {"shadow_sort": True, "shrink_half": True}))
+REGEN_K = 8
+ODD_PREFIX = 40_001  # lanes: not a multiple of the kernels' 128-thread CTAs
 KERNEL_RTOL = 1e-5
 PROBE_RTOL = 1e-6  # the probes repeat their plain versions' operations in order
 # P2: pops per parity check, and per timed call of the kernels line (the
@@ -414,22 +440,35 @@ def assert_aligned(flat, names) -> None:
             raise AssertionError(f"{name} is not 16-byte aligned")
 
 
-def phase_resident_kernels(r):
-    """K1/K2 against their plain versions at the glasstorus main path's shapes."""
+def resident_calls(r):
+    """Closures over renderer `r`'s wide tables: K1, its plain version, K2,
+    its plain version."""
     from pathtracer_tpu_torch.ops import traverse_cuda as tc
 
-    closest, shadow = ray_cases(r)
     flat, static = r.flat, r.static
+    k1_tables = (flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)
+    k2_tables = (flat.bvh_wf, flat.bvh_wi, flat.tri_pk)
+    return (
+        lambda ro, rd, t0: tc.closest_hit_wbvh(*k1_tables, ro, rd, t0, wide_depth=static.wide_depth),
+        lambda ro, rd, t0, **kw: tc.closest_hit_wbvh_plain(*k1_tables, ro, rd, t0, **kw),
+        lambda so, sd, mt, o0: tc.occlusion_wbvh(*k2_tables, so, sd, mt, o0,
+                                                 wide_depth=static.wide_depth),
+        lambda so, sd, mt, o0, **kw: tc.occlusion_wbvh_plain(*k2_tables, so, sd, mt, o0, **kw),
+    )
+
+
+def phase_resident_kernels(r):
+    """K1/K2 against their plain versions at the glasstorus main path's shapes."""
+    closest, shadow = ray_cases(r)
+    flat = r.flat
     assert_aligned(flat, ("bvh_wf", "bvh_wi", "tri_pk"))
     tables = (flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk)
-    k1 = lambda ro, rd, t0: tc.closest_hit_wbvh(*tables, ro, rd, t0, wide_depth=static.wide_depth)
+    k2_tables = (flat.bvh_wf, flat.bvh_wi, flat.tri_pk)
+    k1, k1_plain, k2, k2_plain = resident_calls(r)
     k1_err = 0.0
     for label, (ro, rd, t0) in closest.items():
-        k1_err = max(k1_err, check_closest(label, "K1", k1(ro, rd, t0),
-                                           tc.closest_hit_wbvh_plain(*tables, ro, rd, t0), ro.shape[0]))
-    k2_tables = (flat.bvh_wf, flat.bvh_wi, flat.tri_pk)
-    k2 = lambda so, sd, mt, o0: tc.occlusion_wbvh(*k2_tables, so, sd, mt, o0, wide_depth=static.wide_depth)
-    k2_plain = lambda so, sd, mt, o0, **kw: tc.occlusion_wbvh_plain(*k2_tables, so, sd, mt, o0, **kw)
+        k1_err = max(k1_err, check_closest(label, "K1", k1(ro, rd, t0), k1_plain(ro, rd, t0),
+                                           ro.shape[0]))
     k2_err = 0.0
     for label, (so, sd, mt, o0) in shadow.items():
         k2_err = max(k2_err, check_shadow(label, "K2", k2(so, sd, mt, o0), k2_plain(so, sd, mt, o0),
@@ -437,9 +476,9 @@ def phase_resident_kernels(r):
     ro, rd, t0 = closest["continuation"]
     n = ro.shape[0]
     k1_ms = median_ms(lambda: k1(ro, rd, t0))
-    k1_plain_ms = median_ms(lambda: tc.closest_hit_wbvh_plain(*tables, ro, rd, t0))
+    k1_plain_ms = median_ms(lambda: k1_plain(ro, rd, t0))
     c1 = {"box": 0, "tri": 0}
-    tc.closest_hit_wbvh_plain(*tables, ro, rd, t0, counts=c1)
+    k1_plain(ro, rd, t0, counts=c1)
     b1 = bound(nbytes(*tables, ro, rd, t0) + 16 * n, c1)
     log(f"K1 time at {n} continuation rays: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms "
         f"(median of 5); walk {c1['box']} box + {c1['tri']} triangle tests, bound {b1[0]:.4f} ms ({b1[1]})")
@@ -563,6 +602,103 @@ def phase_640k_kernels(r):
                     for label in SHADOW_SETS))
 
 
+def scheduled_ray_cases(r):
+    """The rays the scheduler hands the kernels on renderer `r`'s main path:
+    lap 1's continuation pool as the per-bounce sort orders it (camera pool
+    sorted, one bounce, sorted again), its first shrink-ladder prefix and a
+    prefix of ODD_PREFIX lanes, each a view of the sorted columns, and the
+    same rays put back in lane order; and the NEE shadow rays toward the
+    lamp from that pool's hits, ordered as occlusion_test's shadow sort
+    orders them, their ODD_PREFIX prefix, and the same rays in the pool's
+    order.
+    Also returns unsorted shadow rays for occlusion_test: the hit points,
+    the directions toward the lamp, destinations halfway there and the
+    lanes that take NEE."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator.wavefront import (
+        bounce, camera_rays, in_lane_order, new_pool, schedule, sort_pool)
+    from pathtracer_tpu_torch.ops import traverse as tv
+    from pathtracer_tpu_torch.utils.config import SampleMode
+
+    flat, static = r.flat, r.static
+    o, d = camera_rays(r._cam_arrays(), RES, RES, r.key, 1, pixel_xy=r.pixel_xy)
+    pool, _ = bounce(flat, static, SampleMode.MIS, r.key, 1, 0, sort_pool(static, new_pool(o, d)))
+    pool = sort_pool(static, pool)
+    o2, d2 = pool.o, pool.d
+    t_geo, *_ = tv._geoms_closest(flat, static, o2, d2)
+    t2 = tv._root_box_cull(static, o2, d2, torch.where(pool.alive, t_geo, tv.DEAD_T))
+    nxt = schedule(static, r.opts, RES * RES).shrink[0][0]
+    lane_order = in_lane_order(pool._replace(contrib=t2), ("o", "d", "contrib"))
+
+    def prefix(rays, k):
+        cut = tuple(a[:k] for a in rays)
+        if not all(c.data_ptr() == a.data_ptr() and c.is_contiguous() for c, a in zip(cut, rays)):
+            raise AssertionError("a pool prefix is not a view of the pool's columns")
+        return cut
+
+    rays2 = (o2, d2, t2)
+    closest = {"sorted continuation pool": rays2,
+               f"its ladder prefix of {nxt} lanes (a view)": prefix(rays2, nxt),
+               f"its prefix of {ODD_PREFIX} lanes (a view)": prefix(rays2, ODD_PREFIX),
+               "the same pool in lane order": (lane_order.o, lane_order.d, lane_order.contrib)}
+
+    hit = tv.closest_hit(flat, static, o2, d2, alive=pool.alive)
+    live = pool.alive & (hit.geom >= 0)
+    lamp = flat.geom_transform[static.analytic_lights[0][1]][:3, 3]
+    to_l = lamp[None, :] - hit.point
+    min_t = torch.sqrt((to_l * to_l).sum(1))
+    sd = to_l / min_t[:, None]
+    so = hit.point + 1e-5 * sd
+    mt = tv._root_box_cull(static, so, sd, torch.where(live, min_t, tv.DEAD_T))
+    key = torch.where(mt <= tv.DEAD_T, tv.DEAD_KEY, tv.octant_cell_key(static, so, sd))
+    perm = torch.sort(key, stable=True).indices
+    srt = tuple(a.index_select(0, perm) for a in (so, sd, mt)) + (
+        torch.zeros(mt.shape[0], dtype=torch.bool, device=DEVICE),)
+    shadow = {"shadow-sorted NEE set": srt,
+              f"its prefix of {ODD_PREFIX} lanes (a view)": prefix(srt, ODD_PREFIX),
+              "the NEE set in the pool's order": (so, sd, mt, srt[3])}
+    torch.cuda.synchronize()
+    # halfway to the lamp, so that the lamp's own sphere does not block them
+    return closest, shadow, (hit.point, sd, hit.point + 0.5 * to_l, live)
+
+
+def phase_scheduled_kernels(r, names, closest_fn, closest_plain, shadow_fn, shadow_plain):
+    """The closest-hit and any-hit kernels `names` of renderer `r`'s mesh
+    against their plain versions on scheduled_ray_cases, and occlusion_test
+    with the shadow sort (which launches the any-hit kernel) equal to it
+    without."""
+    import torch
+
+    from pathtracer_tpu_torch.ops import traverse as tv
+
+    closest, shadow, (p, sd, des, live) = scheduled_ray_cases(r)
+    for label, (ro, rd, t0) in closest.items():
+        check_closest(label, names[0], closest_fn(ro, rd, t0), closest_plain(ro, rd, t0), ro.shape[0])
+    for label, (so, sd_, mt, o0) in shadow.items():
+        check_shadow(label, names[1], shadow_fn(so, sd_, mt, o0), shadow_plain(so, sd_, mt, o0),
+                     mt, o0, so.shape[0])
+    # the same rays in two orders: what the sort does to the kernels
+    (a, ra), (b, rb) = [(k, closest[k]) for k in ("sorted continuation pool",
+                                                  "the same pool in lane order")]
+    (c, sa), (e, sb) = [(k, shadow[k]) for k in ("shadow-sorted NEE set",
+                                                 "the NEE set in the pool's order")]
+    times = {a: median_ms(lambda: closest_fn(*ra)), b: median_ms(lambda: closest_fn(*rb)),
+             c: median_ms(lambda: shadow_fn(*sa)), e: median_ms(lambda: shadow_fn(*sb))}
+    log(f"{names[0]} on {a}: {times[a]:.4f} ms, on {b}: {times[b]:.4f} ms "
+        f"({times[b] / times[a]:.3f}x); {names[1]} on {c}: {times[c]:.4f} ms, on {e}: "
+        f"{times[e]:.4f} ms ({times[e] / times[c]:.3f}x) (CUDA-event medians of 5)")
+    so = p + 1e-5 * sd
+    unsorted = tv.occlusion_test(r.flat, r.static, so, sd, des, enabled=live)
+    srt = tv.occlusion_test(r.flat, r.static, so, sd, des, enabled=live, shadow_sort=True)
+    torch.cuda.synchronize()
+    same = torch.equal(unsorted, srt)
+    log(f"occlusion_test through {names[1]} with the shadow sort vs without: {int(live.sum())} "
+        f"lanes enabled, {int(unsorted.sum())} blocked, identical: {same}")
+    if not same:
+        raise AssertionError("the shadow sort changed occlusion_test's result")
+
+
 def reset_launch_counts() -> None:
     from pathtracer_tpu_torch.ops import probes
     from pathtracer_tpu_torch.ops import traverse_cuda as tc
@@ -629,6 +765,72 @@ def phase_main_path(built, used: tuple, unused: tuple, card: str, label: str = "
     if not (np.isfinite(img).all() and img.mean() > 0 and stats.rays_traced > 0):
         raise AssertionError("main path image is not finite and positive")
     return launches, img
+
+
+def phase_schedules(built, card: str, used: tuple, unused: tuple, label: str = ""):
+    """The scheduler and ray regeneration on a main path, on the Renderer
+    (and tables) that `build_renderer` built: step(1 + REGEN_K) from a fresh
+    accumulation with each of SCHEDULES and with ray_regen=REGEN_K.  The
+    schedules' HDR sums must be bitwise equal and their rays equal; the
+    regeneration batch within the image tolerance of them, rays equal.
+    Prints, per path, the seconds and K1-K5 launches per iteration, the
+    laps per sample and the pool's length at each lap, then the kernel
+    launches and device-busy ms per sample under the profiler over one more
+    iteration (a batch of REGEN_K under regeneration).  Each path must
+    launch the kernels in `used` and none in `unused`."""
+    import dataclasses
+
+    import numpy as np
+
+    from pathtracer_tpu_torch.integrator.render import RenderStats
+    from tools.profile_torch_port import pool_runs, profile_step
+
+    r = built[0]
+    base = r.opts
+    name = f"{r.static.image_name}{label}"
+    results = {}
+    try:
+        for path, options in SCHEDULES + ((f"ray_regen={REGEN_K}", {"ray_regen": REGEN_K}),):
+            r.opts = dataclasses.replace(base, **options)
+            r.reset()
+            r.stats = RenderStats()
+            reset_launch_counts()
+            stats = r.step(1 + REGEN_K)
+            launches = launch_counts()
+            img, pools = r.hdr_sum(), list(r.lap_pools)
+            stats = dataclasses.replace(stats, per_iter_seconds=list(stats.per_iter_seconds))
+            samples = 1 + REGEN_K
+            prof = profile_step(r, REGEN_K if r.regen_k else 1)
+            per = REGEN_K if r.regen_k else 1
+            traversal = {k: launches[k] / samples for k in ("K1", "K2", "K3", "K4", "K5")}
+            log(f"schedule: {name} MIS {RES}x{RES} depth {DEPTH}, {path}: "
+                f"{statistics.mean(stats.per_iter_seconds):.4f} s/iteration over {REGEN_K} timed "
+                f"samples on {card} ({stats.mrays_per_sec:.3f} Mrays/s, {stats.rays_traced} rays); "
+                f"launches per iteration K1-K5 {traversal} (K1-K5 {sum(traversal.values()):.3f}), "
+                f"all kernels {prof['launches'] / per:.1f}, device busy "
+                f"{prof['busy_us'] / per / 1e3:.3f} ms, busy share "
+                f"{prof['busy_us'] / 1e6 / prof['wall']:.4f} (profiler, {per} sample(s)); laps per "
+                f"sample {stats.laps / REGEN_K:.3f}; pool length at each lap of the last "
+                f"{'batch' if r.regen_k else 'iteration'}: {pool_runs(pools)}")
+            if not all(launches[k] > 0 for k in used) or any(launches[k] for k in unused):
+                raise AssertionError(f"{name} {path} launched {launches}; needs {used} and none "
+                                     f"of {unused}")
+            if not (np.isfinite(img).all() and img.mean() > 0):
+                raise AssertionError(f"{name} {path}: the image is not finite and positive")
+            results[path] = (img, stats.rays_traced)
+    finally:
+        r.opts = base
+    (ref_path, (ref, ref_rays)), *rest = results.items()
+    for path, (img, rays) in rest:
+        same = np.array_equal(img, ref)
+        log(f"schedule: {name} {path} against {ref_path}: HDR sum bitwise equal: {same}, "
+            f"rays {rays} against {ref_rays}")
+        if rays != ref_rays:
+            raise AssertionError(f"{name}: {path} counted other rays than {ref_path}")
+        if path.startswith("ray_regen"):
+            compare_images(f"schedule: {name} {path} against {ref_path}", img, ref)
+        elif not same:
+            raise AssertionError(f"{name}: {path} changed the image")
 
 
 def compare_images(what, a, b) -> float:
@@ -751,6 +953,7 @@ def main() -> int:
     phase_main_path(cornell, used=(), unused=("K1", "K2", "K3", "K4", "K5"), card=smi)
     if cornell[0].static.num_tris or len(cornell[0].static.material_types) != 5:
         raise AssertionError("cornell_spheres must be triangle-free with all five materials")
+    phase_schedules(cornell, card=smi, used=(), unused=("K1", "K2", "K3", "K4", "K5"))
     del cornell
     resident = build_renderer(SCENE)
     kernels = phase_resident_kernels(resident[0])
@@ -758,11 +961,17 @@ def main() -> int:
     kernels.update(phase_stream_kernels(stream[0]))
     big = build_renderer(SCENE_640K)
     phase_640k_kernels(big[0])
+    phase_scheduled_kernels(resident[0], ("K1", "K2"), *resident_calls(resident[0]))
+    k = stream_calls(stream[0].flat, stream[0].static)
+    phase_scheduled_kernels(stream[0], ("K3", "K4"), k["K3"], k["K3_plain"], k["K4"], k["K4_plain"])
+    del k
     launches, _ = phase_main_path(resident, used=("K1", "K2"), unused=("K3", "K4", "K5"),
                                   card=smi)
     stream_launches, _ = phase_main_path(stream, used=("K3", "K4"), unused=("K1", "K2", "K5"),
                                          card=smi)
     launches.update(K3=stream_launches["K3"], K4=stream_launches["K4"])
+    phase_schedules(resident, card=smi, used=("K1", "K2"), unused=("K3", "K4", "K5"))
+    phase_schedules(stream, card=smi, used=("K3", "K4"), unused=("K1", "K2", "K5"))
     _, img_k3 = phase_main_path(big, used=("K3", "K4"), unused=("K1", "K2", "K5"), card=smi)
     with blockmajor(True):
         bm_launches, img_k5 = phase_main_path(big, used=("K5", "K4"), unused=("K1", "K2", "K3"),
@@ -774,8 +983,11 @@ def main() -> int:
     phase_rgbe_scale()
     for scene_path, options in ((SCENE_TEXCUBE, {}), (SCENE_ENVTORUS, {"env_importance": True})):
         textured = build_renderer(scene_path, **options)
+        label = "".join(f"_{k}" for k in options)
         phase_main_path(textured, used=("K1", "K2"), unused=("K3", "K4", "K5"), card=smi,
-                        label="".join(f"_{k}" for k in options))
+                        label=label)
+        phase_schedules(textured, card=smi, used=("K1", "K2"), unused=("K3", "K4", "K5"),
+                        label=label)
         del textured
     phase_card_vs_cpu(SCENE_CORNELL)
     phase_card_vs_cpu(SCENE)

@@ -6,9 +6,10 @@
 The flags are the JAX CLI's (`python -m pathtracer_tpu.cli`), plus
 `--device` (default `cuda`).  Asking for CUDA where there is none is an
 error: the port never moves to the CPU on its own (`--device cpu`, or the
-JAX CLI's `--cpu`, asks for the CPU).  Flags whose feature is not ported
-yet (`--devices N>1`, `--regen K>1`, `--checkpoint`, `--resume`) exit with
-an error.
+JAX CLI's `--cpu`, asks for the CPU).  `--regen K` renders K samples per
+pixel in one persistent pool (ray regeneration; BSDF and MIS).  Flags whose
+feature is not ported yet (`--devices N>1`, `--checkpoint`, `--resume`) exit
+with an error.
 """
 
 from __future__ import annotations
@@ -32,7 +33,10 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--no-tonemap", action="store_true", help="skip ACES+gamma on save")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--devices", type=int, default=None, help="not ported yet (must be 1)")
-    p.add_argument("--regen", type=int, default=0, metavar="K", help="not ported yet (must be <= 1)")
+    p.add_argument("--regen", type=int, default=0, metavar="K",
+                   help="ray regeneration: render up to K samples per pixel in one persistent "
+                        "pool, refilling a lane whose path ended with its pixel's next sample "
+                        "(BSDF and MIS; same samples and rays, float sums in another order)")
 
 
 def _parse_mode(s: str):

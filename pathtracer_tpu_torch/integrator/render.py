@@ -4,12 +4,20 @@ Port of `pathtracer_tpu/integrator/render.py`.  The image accumulates
 radiance sums across iterations; display and save divide by the iteration
 count, then apply ACES + gamma 1/2.2 and the save-time X mirror.
 
+Each iteration runs `integrator/wavefront.py render_iteration` with the
+options' schedule (the per-bounce sort, the shrink ladder, the shadow sort)
+and adds its contributions, in lane order, to the image: one add per
+iteration, so the image does not depend on the schedule.  With `ray_regen` K
+> 1, `step` renders batches of up to K samples per pixel in one persistent
+pool (the first, warm-up iteration alone); DIRECT_LI and `show_normal` paths
+end after one bounce, so there the option is ignored, as in the JAX package.
+
 Options the port does not honour yet raise `NotImplementedError`:
-`ray_regen > 1`, `devices > 1` and `use_bvh=False`.  These options only
-change scheduling on the TPU, not the image, so they are accepted and
-ignored: `compaction`, `pool_shrink`, `shadow_sort`, `shrink_levels`,
-`shrink_half`, `sort_every`, `packet_*`, `iters_per_dispatch`, `interpret`
-and `pallas_traversal`.
+`devices > 1` and `use_bvh=False`.  These only change how the TPU runs, not
+the image, so they are accepted and ignored: `packet_p`, `packet_q`,
+`packet_dense`, `packet_auto`, `iters_per_dispatch`, `interpret` and
+`pallas_traversal` (`packet_rows` sets the ladder's tile, as in the JAX
+package).
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import torch
 
 from pathtracer_tpu_torch.scene.camera import RenderCamera, derive_camera
 from pathtracer_tpu_torch.scene.parser import SceneData, load_scene
-from pathtracer_tpu_torch.utils.config import RenderOptions
+from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 from pathtracer_tpu_torch.utils.image_io import write_hdr, write_png
 from pathtracer_tpu_torch.integrator.wavefront import CameraArrays, render_iteration
 from pathtracer_tpu_torch.ops import math as m
@@ -51,6 +59,7 @@ class RenderStats:
     wall_seconds: float = 0.0
     compile_seconds: float = 0.0  # first iteration: kernel build + warm-up, not booked
     per_iter_seconds: list = field(default_factory=list)
+    laps: int = 0  # bounce laps run in the booked iterations
 
     @property
     def mrays_per_sec(self) -> float:
@@ -71,7 +80,6 @@ def resolve_device(device) -> torch.device:
 
 def _check_options(opts: RenderOptions, devices) -> None:
     unsupported = {
-        "ray_regen > 1 (ROADMAP Queue 1 item 14)": int(opts.ray_regen) > 1,
         "devices > 1 (ROADMAP Queue 1 item 15)": devices is not None and int(devices) > 1,
         "use_bvh=False": not opts.use_bvh,
     }
@@ -119,9 +127,19 @@ class Renderer:
             )
         self.seed = 0
         self.key = rng.base_key(0)
-        self.traced_depth = 0
+        self.traced_depth = 0  # laps of the last render_iteration
+        self.lap_pools = []    # its pool's length at each lap
         self.stats = RenderStats()
         self.reset()
+
+    @property
+    def regen_k(self) -> int:
+        """Samples per pixel per regeneration batch (0: one per iteration).
+        A DIRECT_LI or show_normal path ends after one bounce, so there is
+        nothing to refill."""
+        k = int(self.opts.ray_regen)
+        multi_bounce = self.opts.sample_mode != SampleMode.DIRECT_LI and not self.opts.show_normal
+        return k if k > 1 and multi_bounce else 0
 
     def set_seed(self, seed: int):
         self.seed = int(seed)
@@ -139,21 +157,23 @@ class Renderer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _run_iteration(self, cam):
-        contrib, rays, laps = render_iteration(
+    def _run_iteration(self, cam, nk: int = 1):
+        """`nk` samples per pixel: one classic iteration, or a regeneration
+        batch when regeneration is on."""
+        contrib, rays, self.lap_pools = render_iteration(
             self.flat, self.static, self.opts, cam, self.key, self.iteration + 1,
-            pixel_xy=self.pixel_xy,
+            pixel_xy=self.pixel_xy, nk=nk if self.regen_k else None,
         )
         self.img = self.img + contrib
-        self.iteration += 1
-        self.traced_depth = laps
+        self.iteration += nk
+        self.traced_depth = len(self.lap_pools)
         return rays
 
     def step(self, num_iterations: int = 1) -> RenderStats:
-        """Render `num_iterations` samples per pixel.  As in the JAX package,
-        the very first iteration is a warm-up (here: kernel build and CUDA
-        start-up): its time goes to compile_seconds and its rays are not
-        booked."""
+        """Render `num_iterations` samples per pixel, in batches of up to
+        `regen_k` under regeneration.  As in the JAX package, the very first
+        iteration is a warm-up (here: kernel build and CUDA start-up): its
+        time goes to compile_seconds and its rays are not booked."""
         cam = self._cam_arrays()
         if self.iteration == 0 and self.stats.compile_seconds == 0.0 and num_iterations > 0:
             t0 = time.perf_counter()
@@ -165,8 +185,12 @@ class Renderer:
 
         t0 = time.perf_counter()
         rays = torch.zeros((), dtype=torch.int64, device=self.device)
-        for _ in range(num_iterations):
-            rays = rays + self._run_iteration(cam)
+        left, laps = num_iterations, 0
+        while left > 0:
+            nk = min(left, max(self.regen_k, 1))
+            rays = rays + self._run_iteration(cam, nk)
+            laps += self.traced_depth
+            left -= nk
         rays_traced = int(rays)  # waits for the device
         self._sync()
         dt = time.perf_counter() - t0
@@ -174,6 +198,7 @@ class Renderer:
         self.stats.iterations_done += booked
         self.stats.rays_traced += rays_traced
         self.stats.wall_seconds += dt
+        self.stats.laps += laps
         if booked > 0:
             self.stats.per_iter_seconds.append(dt / booked)
         return self.stats

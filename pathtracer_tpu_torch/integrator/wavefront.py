@@ -1,11 +1,36 @@
 """Wavefront path-tracing integrator (BSDF / direct-light / MIS).
 
-Port of the classic fixed-pool iteration of
-`pathtracer_tpu/integrator/wavefront.py`: a pool of W*H lanes, one per pixel,
-advanced one bounce at a time by a Python loop over depth that stops as soon
-as no lane is alive.  Dead lanes are masked, not compacted.  Radiance
-accumulates on the lane (`contrib`) and folds into the image once per
-iteration.
+Port of `pathtracer_tpu/integrator/wavefront.py`: a pool of W*H lanes, one per
+pixel, advanced one bounce (a lap) at a time by a Python loop that stops as
+soon as no lane is alive.  Radiance accumulates on the lane (`contrib`) and
+folds into the image once per iteration.
+
+Each lane carries its own id (`lane`); the RNG keys on it, so lanes may move.
+The scheduler (`schedule`, `render_iteration`) moves them, as the JAX
+package's default does:
+- the per-bounce sort (`compaction`, on for meshes of 512 triangles or more
+  and for textured scenes): live lanes by direction octant, origin cell and
+  whether the ray meets the triangle root box, dead lanes behind them; at
+  lap 0, then every `sort_every` laps while more than a quarter of the pool
+  is alive;
+- the shrink ladder (`pool_shrink`, `shrink_levels`, `shrink_half`): once the
+  live lanes fit the next of a few static pool sizes, they are sorted to the
+  front and the laps go on over that prefix; the cut lanes wait in the full
+  pool and are merged back after.  The sizes are static per level;
+- the shadow sort (`shadow_sort`, with the sort only): ops/traverse.py
+  `occlusion_test`.
+The contributions are un-permuted by `lane` before the env resolve, so the
+returned contrib is bit for bit the unsorted pool's: no per-lane computation
+depends on a lane's position or on the pool's length.
+
+Ray regeneration (`nk`, RenderOptions.ray_regen): one persistent pool renders
+nk samples per pixel.  At the end of a lap, a lane whose path has ended is
+refilled with the camera ray of its pixel's next sample (`refill`), after
+cashing its deferred env radiance.  The `meta` column, (sample offset << 8) |
+depth, rides every sort and cut and keys the lane's RNG, so the sample set and
+the rays are the classic ones; only the order of the float additions changes.
+Dead lanes are therefore exhausted ones at every lap boundary, and the ladder
+fires only in the final drain.
 
 Physics conventions, as the JAX package:
 - camera AA jitter (r - 0.5) and the pixel -> direction mapping;
@@ -23,13 +48,8 @@ Physics conventions, as the JAX package:
 - a ray that misses everything in a scene with an environment map dies and
   is flagged; its frozen direction, throughput and pdf fetch the env radiance
   (MIS-weighted against the env's importance pdf with `env_importance`) once,
-  after the last bounce;
+  after the last bounce (or at its refill, under regeneration);
 - `show_normal`: every ray ends at its first hit with normalize(normal) + 1.
-
-Left out, because they only reorder lanes: the per-bounce sort, the pool
-shrink ladder and the shadow sort (ROADMAP Queue 1 item 10).  The RNG keys on
-the lane's pixel and contributions ride the lane, so the output is the same.
-Also left out: the ray-regeneration pool (item 14b).
 """
 
 from __future__ import annotations
@@ -50,7 +70,8 @@ from pathtracer_tpu_torch.ops.materials import (
     scatter_sample,
 )
 from pathtracer_tpu_torch.ops.texture import bilinear_sample_u32_meta
-from pathtracer_tpu_torch.ops.traverse import closest_hit
+from pathtracer_tpu_torch.ops.intersect import ray_aabb
+from pathtracer_tpu_torch.ops.traverse import DEAD_KEY, closest_hit, octant_cell_key
 from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
 from pathtracer_tpu_torch.utils import rng
 
@@ -63,6 +84,21 @@ class CameraArrays(NamedTuple):
     pixel_length: torch.Tensor  # (2,)
 
 
+def _lane_rays(cam: CameraArrays, width: int, height: int, key, iteration, lane, x, y):
+    """Camera rays of lanes `lane` through film positions (x, y): the AA
+    jitter from counter `lane` at `iteration` (an int or a per-lane tensor)."""
+    r = rng.pixel_uniforms(key, iteration, 0, rng.STAGE_CAMERA, lane, 2)
+    px = x + (r[:, 0] - 0.5) - width * 0.5
+    py = y + (r[:, 1] - 0.5) - height * 0.5
+    d = m.normalize(
+        cam.view[None, :]
+        - cam.right[None, :] * (cam.pixel_length[0] * px)[:, None]
+        - cam.up[None, :] * (cam.pixel_length[1] * py)[:, None]
+    )
+    o = cam.position.expand(lane.shape[0], 3).contiguous()
+    return o, d
+
+
 def camera_rays(cam: CameraArrays, width: int, height: int, key, iteration, pixel_xy=None):
     """Per-pixel AA-jittered primary rays for the whole frame.
 
@@ -71,23 +107,34 @@ def camera_rays(cam: CameraArrays, width: int, height: int, key, iteration, pixe
     swizzle is on (else pixel l).
     """
     n = width * height
-    dev = cam.position.device
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    if pixel_xy is not None:
-        x, y = pixel_xy
-    else:
-        x = (idx % width).to(torch.float32)
-        y = (idx // width).to(torch.float32)
-    r = rng.pixel_uniforms(key, iteration, 0, rng.STAGE_CAMERA, idx, 2)
-    px = x + (r[:, 0] - 0.5) - width * 0.5
-    py = y + (r[:, 1] - 0.5) - height * 0.5
-    d = m.normalize(
-        cam.view[None, :]
-        - cam.right[None, :] * (cam.pixel_length[0] * px)[:, None]
-        - cam.up[None, :] * (cam.pixel_length[1] * py)[:, None]
-    )
-    o = cam.position.expand(n, 3).contiguous()
-    return o, d
+    idx = torch.arange(n, dtype=torch.int32, device=cam.position.device)
+    x, y = pixel_xy if pixel_xy is not None else lane_xy(idx, width, height)
+    return _lane_rays(cam, width, height, key, iteration, idx, x, y)
+
+
+SWIZZLE_BLOCK = 32  # integrator/render.py swizzle_map's block
+
+
+def swizzle_xy_from_lane(lane, width: int, block: int = SWIZZLE_BLOCK):
+    """The film (x, y) of `lane` under render.swizzle_map, for a film that
+    tiles into block x block squares: there the swizzle key of lane l is l,
+    so unpacking it inverts the map without a table."""
+    b2 = block * block
+    blk, r = lane // b2, lane % b2
+    x = (blk % (width // block)) * block + r % block
+    y = (blk // (width // block)) * block + r // block
+    return x.to(torch.float32), y.to(torch.float32)
+
+
+def lane_xy(lane, width: int, height: int, pixel_xy=None):
+    """The film (x, y) that lanes `lane` render: pixel l, or `pixel_xy[l]`
+    under the spatial swizzle (unpacked arithmetically where the film tiles
+    into swizzle blocks)."""
+    if pixel_xy is None:
+        return (lane % width).to(torch.float32), (lane // width).to(torch.float32)
+    if width % SWIZZLE_BLOCK == 0 and height % SWIZZLE_BLOCK == 0:
+        return swizzle_xy_from_lane(lane, width)
+    return pixel_xy[0][lane.long()], pixel_xy[1][lane.long()]
 
 
 def nee_live(static: SceneStatic, env_nee: bool = False) -> bool:
@@ -109,10 +156,14 @@ class _Pool(NamedTuple):
     prev_pdf: torch.Tensor
     alive: torch.Tensor
     env_miss: torch.Tensor  # (N,) bool: the lane died by missing the scene
+    lane: torch.Tensor      # (N,) int32: the lane's id, its pixel's RNG counter
+    meta: torch.Tensor | None = None  # (N,) int32 under regeneration:
+    # (sample offset << 8) | depth of the lane's path
 
 
-def new_pool(o, d) -> _Pool:
-    """The pool of fresh camera rays (o, d)."""
+def new_pool(o, d, regen: bool = False) -> _Pool:
+    """The pool of fresh camera rays (o, d), lane l in position l; with the
+    regeneration column when `regen`."""
     n = o.shape[0]
     return _Pool(
         o=o, d=d,
@@ -121,7 +172,40 @@ def new_pool(o, d) -> _Pool:
         prev_pdf=torch.full((n,), -1.0, device=o.device),
         alive=torch.ones((n,), dtype=torch.bool, device=o.device),
         env_miss=torch.zeros((n,), dtype=torch.bool, device=o.device),
+        lane=torch.arange(n, dtype=torch.int32, device=o.device),
+        meta=torch.zeros((n,), dtype=torch.int32, device=o.device) if regen else None,
     )
+
+
+def _map_pool(s: _Pool, f) -> _Pool:
+    return _Pool(*(None if c is None else f(c) for c in s))
+
+
+def sort_pool(static: SceneStatic, s: _Pool) -> _Pool:
+    """The pool reordered, stably: live lanes by `octant_cell_key`, those
+    whose ray misses the triangle root box after those that meet it, dead
+    lanes last."""
+    key = octant_cell_key(static, s.o, s.d)
+    if static.num_tris > 0:
+        rb = torch.tensor(static.tri_root_box, dtype=torch.float32, device=s.o.device)
+        rb_hit, _ = ray_aabb(rb[0:3], rb[3:6], s.o, s.d)
+        key = key + (~rb_hit).to(torch.int32) * (1 << 12)
+    key = torch.where(s.alive, key, DEAD_KEY)
+    perm = torch.sort(key, stable=True).indices
+    return _map_pool(s, lambda c: c.index_select(0, perm))
+
+
+def in_lane_order(s: _Pool, names=("contrib",)) -> _Pool:
+    """The pool's columns `names` with lane l's entry in position l (`lane`
+    is a permutation, so the scatter is exact)."""
+    lane = s.lane.long()
+
+    def put(c):
+        out = torch.empty_like(c)
+        out[lane] = c
+        return out
+
+    return s._replace(**{k: put(getattr(s, k)) for k in names})
 
 
 def _apply_normal_map(hit, params):
@@ -141,10 +225,13 @@ def _apply_normal_map(hit, params):
 def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
            iteration: int, depth: int, s: _Pool,
            trace: dict | None = None, env_nee: bool = False,
-           show_normal: bool = False) -> tuple[_Pool, torch.Tensor]:
+           show_normal: bool = False, shadow_sort: bool = False) -> tuple[_Pool, torch.Tensor]:
     """One intersect + shade pass over the pool; returns (pool, rays emitted).
+    Lanes draw their random numbers at (`iteration`, `depth`), or under
+    regeneration at their own sample and depth from `meta`.
     `env_nee` samples the environment as one more light (`env_importance`
-    with an env map); `show_normal` ends every ray at its first hit.
+    with an env map); `show_normal` ends every ray at its first hit;
+    `shadow_sort` sorts the NEE shadow rays for the any-hit kernel.
     `trace`, if given, receives the pass's stage arrays by name (the hit, the
     material parameters and shading normal, the scatter sample, the light
     sample and the BSDF evaluations at its direction, the light-hit and NEE
@@ -152,7 +239,11 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     note = trace.update if trace is not None else (lambda **_: None)
     present = static.material_types
     alive = s.alive
-    pixel_idx = torch.arange(alive.shape[0], dtype=torch.int32, device=alive.device)
+    pixel_idx = s.lane
+    if s.meta is None:
+        rng_it, rng_dp = iteration, depth
+    else:
+        rng_it, rng_dp = iteration + (s.meta >> 8), s.meta & 0xFF
     contrib = s.contrib
     hit = closest_hit(flat, static, s.o, s.d, alive=alive)
     rays = alive.sum()
@@ -170,7 +261,7 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     is_light = params.type == LIGHT
     is_delta = params.type == DIELECTRIC
 
-    sc_rand = rng.pixel_uniforms(key, iteration, depth, rng.STAGE_SCATTER, pixel_idx, 3)
+    sc_rand = rng.pixel_uniforms(key, rng_it, rng_dp, rng.STAGE_SCATTER, pixel_idx, 3)
     srec = scatter_sample(params, nrm, s.d, sc_rand, present=present)
     pdf_ok = srec.pdf != 0.0
     note(hit=hit, params=params, nrm=nrm, srec=srec)
@@ -183,10 +274,10 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
         nee_on = alive & ~is_light & ~is_delta
         rays = rays + nee_on.sum()
         if nee_live(static, env_nee):
-            li_rand = rng.pixel_uniforms(key, iteration, depth, rng.STAGE_LIGHT, pixel_idx,
+            li_rand = rng.pixel_uniforms(key, rng_it, rng_dp, rng.STAGE_LIGHT, pixel_idx,
                                          4 if env_nee else 3)
             lrec = light_sample(flat, static, hit.point, li_rand, enabled=nee_on,
-                                include_env=env_nee)
+                                include_env=env_nee, shadow_sort=shadow_sort)
             wi = m.normalize(lrec.pos - hit.point)
             bsdf = bsdf_eval(params, nrm, s.d, wi, present=present)
             nee = (
@@ -214,10 +305,10 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     if mode == SampleMode.MIS:
         rays = rays + (cont & ~is_delta).sum()
         if nee_live(static, env_nee):
-            li_rand = rng.pixel_uniforms(key, iteration, depth, rng.STAGE_LIGHT, pixel_idx,
+            li_rand = rng.pixel_uniforms(key, rng_it, rng_dp, rng.STAGE_LIGHT, pixel_idx,
                                          4 if env_nee else 3)
             lrec = light_sample(flat, static, hit.point, li_rand, enabled=cont & ~is_delta,
-                                include_env=env_nee)
+                                include_env=env_nee, shadow_sort=shadow_sort)
             wi = m.normalize(lrec.pos - hit.point)
             b_pdf = pdf_eval(params, nrm, s.d, wi, present=present)
             li_bsdf = bsdf_eval(params, nrm, s.d, wi, present=present)
@@ -246,18 +337,18 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
         color=torch.where(cm, s.color * throughput, s.color),
         contrib=contrib,
         prev_pdf=prev_pdf,
-        alive=cont & (depth + 1 < static.trace_depth),
+        alive=cont & (rng_dp + 1 < static.trace_depth),
         env_miss=env_miss,
+        lane=s.lane,
+        meta=None if s.meta is None else torch.where(cont, s.meta + 1, s.meta),
     ), rays
 
 
-def resolve_env(flat: FlatScene, static: SceneStatic, mode: SampleMode, s: _Pool,
-                env_nee: bool = False):
-    """The pool's contributions with the env radiance of its env-missed
-    lanes added: the env texel along each lane's frozen direction, times
-    its frozen throughput, MIS-weighted in MIS mode with `env_nee`."""
-    if static.env_map_id < 0:
-        return s.contrib
+def _env_radiance(flat: FlatScene, static: SceneStatic, mode: SampleMode, s: _Pool,
+                  lanes, env_nee: bool):
+    """The env radiance of lanes `lanes` (0 elsewhere): the env texel along
+    each lane's frozen direction, times its frozen throughput, MIS-weighted
+    in MIS mode with `env_nee`."""
     eoff, ew, eh, efmt = static.tex_rows[static.env_map_id]
     env = bilinear_sample_u32_meta(flat.atlas_u32, eoff, ew, eh, bool(efmt),
                                    m.sphere_to_plane(s.d))
@@ -265,29 +356,144 @@ def resolve_env(flat: FlatScene, static: SceneStatic, mode: SampleMode, s: _Pool
     if mode == SampleMode.MIS and env_nee:
         ep = env_pdf(flat, static, s.d) / float(static.num_lights + 1)
         env_w = torch.where(s.prev_pdf > 0.0, m.power_heuristic(s.prev_pdf, ep), 1.0)[..., None]
-    env_scale = torch.where(s.env_miss[..., None], s.color, 0.0)
-    return s.contrib + m.process_nan(env_scale * env * env_w)
+    env_scale = torch.where(lanes[..., None], s.color, 0.0)
+    return m.process_nan(env_scale * env * env_w)
+
+
+def resolve_env(flat: FlatScene, static: SceneStatic, mode: SampleMode, s: _Pool,
+                env_nee: bool = False):
+    """The pool's contributions with the env radiance of its env-missed
+    lanes added."""
+    if static.env_map_id < 0:
+        return s.contrib
+    return s.contrib + _env_radiance(flat, static, mode, s, s.env_miss, env_nee)
+
+
+class Regen(NamedTuple):
+    """What a refill needs: the camera, the film, the lane -> pixel map and
+    the batch's sample count."""
+    cam: CameraArrays
+    width: int
+    height: int
+    pixel_xy: tuple | None
+    nk: int
+
+
+def refill(flat: FlatScene, static: SceneStatic, mode: SampleMode, key, iteration: int,
+           s: _Pool, rg: Regen, env_nee: bool = False) -> _Pool:
+    """Lanes whose path has ended and whose pixel has samples left start the
+    next one: its camera ray (sample `iteration` + offset + 1), throughput
+    1, meta (offset + 1) << 8.  An env-missed lane cashes its deferred env
+    radiance first, while its direction, throughput and pdf are still its
+    path's."""
+    it_ofs = s.meta >> 8
+    regen = ~s.alive & (it_ofs < rg.nk - 1)
+    contrib, env_miss = s.contrib, s.env_miss
+    if static.env_map_id >= 0:
+        contrib = contrib + _env_radiance(flat, static, mode, s, regen & env_miss, env_nee)
+        env_miss = env_miss & ~regen
+    x, y = lane_xy(s.lane, rg.width, rg.height, rg.pixel_xy)
+    ro, rd = _lane_rays(rg.cam, rg.width, rg.height, key, iteration + it_ofs + 1, s.lane, x, y)
+    rm = regen[..., None]
+    return _Pool(
+        o=torch.where(rm, ro, s.o),
+        d=torch.where(rm, rd, s.d),
+        color=torch.where(rm, 1.0, s.color),
+        contrib=contrib,
+        prev_pdf=torch.where(regen, -1.0, s.prev_pdf),
+        alive=s.alive | regen,
+        env_miss=env_miss,
+        lane=s.lane,
+        meta=torch.where(regen, (it_ofs + 1) << 8, s.meta),
+    )
+
+
+class Schedule(NamedTuple):
+    sort_rays: bool     # the per-bounce sort
+    shadow_sort: bool   # the shadow rays' sort (with the per-bounce sort only)
+    sort_every: int     # sort at lap 0 and at every sort_every-th lap after
+    shrink: tuple       # the ladder: ((pool size, divisor), ...); a level
+    # starts once alive * divisor <= the pool it leaves
+
+
+def schedule(static: SceneStatic, opts: RenderOptions, n: int) -> Schedule:
+    """The JAX package's scheduling rule (`pathtracer_tpu/integrator/
+    wavefront.py:236-272`) for a pool of n lanes.  The sort pays where the
+    walk is dear (512 triangles or more) or the shading taps textures per
+    lane; an analytic scene shrinks without sorting.  Ladder sizes are whole
+    tiles of `packet_rows` x 128 lanes, as the JAX package cuts them."""
+    sort_rays = bool(opts.compaction) and (static.num_tris >= 512 or any(static.tex_slots))
+    shrink_ok = bool(opts.pool_shrink) and (sort_rays or static.num_tris == 0)
+    tile = max(int(opts.packet_rows), 1) * 128
+    divs = [4] * max(int(opts.shrink_levels), 0)
+    if opts.shrink_half and sort_rays:
+        divs = [2] + divs
+    sizes, cur = [], n
+    for div in divs if shrink_ok else ():
+        nxt = -(-max(cur // div, 1) // tile) * tile
+        if not 0 < nxt < cur:
+            break
+        sizes.append((nxt, div))
+        cur = nxt
+    return Schedule(sort_rays, bool(opts.shadow_sort) and sort_rays,
+                    max(int(opts.sort_every), 1), tuple(sizes))
 
 
 def render_iteration(flat: FlatScene, static: SceneStatic, opts: RenderOptions,
-                     cam: CameraArrays, key, iteration: int, pixel_xy=None):
-    """One sample per pixel.  Returns (contrib (W*H, 3) in lane order,
-    rays emitted (int64 tensor), bounce laps run)."""
+                     cam: CameraArrays, key, iteration: int, pixel_xy=None, nk=None):
+    """One sample per pixel, or with `nk` the samples iteration ..
+    iteration + nk - 1 in one regeneration pool.  Returns (contrib
+    (W*H, 3) in lane order, rays emitted (int64 tensor), the pool's length
+    at each lap run).  One host read a lap: the live count, which serves
+    the loop, the sort's rule and the ladder."""
     if static.trace_depth > rng.MAX_DEPTH:
         raise ValueError(
             f"trace depth {static.trace_depth} does not fit the RNG counter's "
             f"8 depth bits (max {rng.MAX_DEPTH})"
         )
     w, h = static.width, static.height
+    n = w * h
+    mode, show_normal = opts.sample_mode, bool(opts.show_normal)
     env_nee = bool(opts.env_importance) and static.env_map_id >= 0
-    pool = new_pool(*camera_rays(cam, w, h, key, iteration, pixel_xy=pixel_xy))
+    sched = schedule(static, opts, n)
+    rg = None if nk is None else Regen(cam, w, h, pixel_xy, int(nk))
+    budget = (static.trace_depth + 1) * (1 if nk is None else int(nk))
     rays = torch.zeros((), dtype=torch.int64, device=flat.device)
-    laps = 0
-    for depth in range(static.trace_depth + 1):
-        if not bool(pool.alive.any()):
-            break
-        pool, r = bounce(flat, static, opts.sample_mode, key, iteration, depth, pool,
-                         env_nee=env_nee, show_normal=bool(opts.show_normal))
+    laps = []
+
+    def lap(s: _Pool, alive_n: int) -> _Pool:
+        nonlocal rays
+        depth, pool_n = len(laps), s.lane.shape[0]
+        if sched.sort_rays and (depth == 0 or (depth % sched.sort_every == 0
+                                               and alive_n * 4 > pool_n)):
+            s = sort_pool(static, s)
+        s, r = bounce(flat, static, mode, key, iteration, depth, s, env_nee=env_nee,
+                      show_normal=show_normal, shadow_sort=sched.shadow_sort)
+        if rg is not None:
+            s = refill(flat, static, mode, key, iteration, s, rg, env_nee)
         rays = rays + r
-        laps += 1
-    return resolve_env(flat, static, opts.sample_mode, pool, env_nee), rays, laps
+        laps.append(pool_n)
+        return s
+
+    def run(s: _Pool, ladder: tuple, alive_n: int) -> _Pool:
+        pool_n = s.lane.shape[0]
+        while alive_n > 0 and len(laps) < budget:
+            if ladder and alive_n * ladder[0][1] <= pool_n:
+                # the live lanes fit the next level: sort them to the front,
+                # go on over that prefix, then put the cut lanes back
+                nxt = ladder[0][0]
+                full = sort_pool(static, s)
+                small = run(_map_pool(full, lambda c: c[:nxt]), ladder[1:], alive_n)
+                return _Pool(*(None if a is None else torch.cat([a, b[nxt:]])
+                               for a, b in zip(small, full)))
+            s = lap(s, alive_n)
+            alive_n = int(s.alive.sum())
+        return s
+
+    pool = run(new_pool(*camera_rays(cam, w, h, key, iteration, pixel_xy=pixel_xy),
+                        regen=nk is not None), sched.shrink, n)
+    if sched.sort_rays or sched.shrink:
+        # the env resolve's columns too: on the CPU, atan2 rounds by position
+        env_cols = ("d", "color", "prev_pdf", "env_miss") if static.env_map_id >= 0 else ()
+        pool = in_lane_order(pool, ("contrib",) + env_cols)
+    return resolve_env(flat, static, mode, pool, env_nee), rays, laps

@@ -180,6 +180,25 @@ def _stream_args(static: SceneStatic) -> dict:
                 top_depth=static.stream_top_depth, sub_depth=static.stream_sub_depth)
 
 
+# The sort key of lanes that are dead or do not enter the walk: behind every
+# live key (octant and cell keys are below 2^12, the root-box bit adds 2^12).
+DEAD_KEY = 1 << 20
+
+
+def octant_cell_key(static: SceneStatic, o, d):
+    """((octant * 8 + cx) * 8 + cy) * 8 + cz: the direction's octant and the
+    origin's cell of an 8^3 grid over the scene bounds (the JAX package's
+    ray sort key, `pathtracer_tpu/integrator/wavefront.py:292-307`)."""
+    sb = static.scene_bounds
+    bmin = torch.tensor(sb[0:3], dtype=torch.float32, device=o.device)
+    bmax = torch.tensor(sb[3:6], dtype=torch.float32, device=o.device)
+    inv_ext = 7.999 / torch.clamp(bmax - bmin, min=1e-6)
+    cell = torch.clamp((o - bmin) * inv_ext, 0.0, 7.999).to(torch.int32)
+    octant = ((d[:, 0] > 0.0).to(torch.int32) + 2 * (d[:, 1] > 0.0).to(torch.int32)
+              + 4 * (d[:, 2] > 0.0).to(torch.int32))
+    return ((octant * 8 + cell[:, 0]) * 8 + cell[:, 1]) * 8 + cell[:, 2]
+
+
 def _root_box_cull(static: SceneStatic, o, d, t_cap):
     """Lanes whose ray cannot reach the triangle root box within `t_cap`
     get DEAD_T, so the kernels skip them (the JAX pre-test at
@@ -243,10 +262,16 @@ def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None) -> Hit:
     return Hit(t_min, geom, tri, point, normal, uv, tangent, bitangent)
 
 
-def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=None):
+def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=None,
+                   shadow_sort: bool = False):
     """Is the segment ori -> des blocked?  Analytic geoms with the window
     (t < minT-1e-5 && |t-minT| > 1e-2), then triangles through K2 (K4 for a
-    streamed mesh) with (t < minT-1e-5 && |t-minT| > 1e-4)."""
+    streamed mesh) with (t < minT-1e-5 && |t-minT| > 1e-4).
+
+    `shadow_sort` hands the kernel its rays sorted by `octant_cell_key`,
+    the lanes that do not enter the walk (disabled or culled by the root
+    box) behind them, and un-permutes the result: the same booleans, in
+    an order whose neighbouring lanes share nodes."""
     N = ori.shape[0]
     e = des - ori
     min_t = torch.sqrt(torch.clamp(e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2], min=0.0))
@@ -265,13 +290,25 @@ def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=
         return occluded
     min_t_eff = min_t if enabled is None else torch.where(enabled, min_t, DEAD_T)
     min_t_eff = _root_box_cull(static, ori, dir, min_t_eff)
+    perm = None
+    if shadow_sort:
+        key = torch.where(min_t_eff <= DEAD_T, DEAD_KEY, octant_cell_key(static, ori, dir))
+        perm = torch.sort(key, stable=True).indices
+        ori, dir, min_t_eff, occluded = (
+            a.index_select(0, perm) for a in (ori, dir, min_t_eff, occluded))
     if packet_mode(static) == "stream":
-        return occlusion_stream(
+        occluded = occlusion_stream(
             flat.str_topf, flat.str_topl, flat.str_subf, flat.str_subi, flat.str_subt,
             flat.str_base, ori, dir, min_t_eff, occluded, **_stream_args(static),
             subt12=flat.str_subt12, blocks=flat.str_blocks,
         )
-    return occlusion_wbvh(
-        flat.bvh_wf, flat.bvh_wi, flat.tri_pk, ori, dir, min_t_eff, occluded,
-        wide_depth=static.wide_depth,
-    )
+    else:
+        occluded = occlusion_wbvh(
+            flat.bvh_wf, flat.bvh_wi, flat.tri_pk, ori, dir, min_t_eff, occluded,
+            wide_depth=static.wide_depth,
+        )
+    if perm is not None:
+        out = torch.empty_like(occluded)
+        out[perm] = occluded
+        occluded = out
+    return occluded

@@ -189,7 +189,7 @@ def test_no_hidden_cpu_fallback(scene, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("ray_regen", 4), ("use_bvh", False),
+    ("use_bvh", False),
 ])
 def test_unported_options_raise(scene, field, value):
     with pytest.raises(NotImplementedError):

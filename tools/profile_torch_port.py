@@ -2,18 +2,25 @@
 
     python tools/profile_torch_port.py scenes/glasstorus160k.txt
     python tools/profile_torch_port.py scenes/envtorus.txt --env-importance
+    python tools/profile_torch_port.py scenes/texcube.txt --no-compaction
+    python tools/profile_torch_port.py scenes/texcube.txt --regen 8
 
 Renders the scene MIS at 800x800, depth 8, through
 `Renderer(..., device="cuda")`, runs 3 iterations to warm up, times 2 on the
 host's clock without the profiler, then traces 2 with torch.profiler and
 prints, per iteration: the wall time without and under the profiler, the
 device's busy time (sum of kernel times) and busy share, the number of
-kernel launches, and the 12 kernels that take the most device time, with
-the traversal kernels (K1-K5) named.  The card's name and power limit come
+kernel launches, the bounce laps and the pool's length at each lap of the
+last iteration, and the 12 kernels that take the most device time, with the
+traversal kernels (K1-K5) named.  The card's name and power limit come
 first.  `--env-importance` renders with RenderOptions(env_importance=True)
-(the sky as a light).  Needs CUDA.  The scene's assets must exist: for
-glasstorus160k, write its OBJ first with `tools/make_torus_obj.py` (see its
-docstring); for the textured scenes, `tools/make_texture_assets.py`.
+(the sky as a light); `--no-compaction` with compaction=False (no sort, no
+shrink ladder: every lap over the whole pool); `--regen K` with ray_regen=K,
+where each window (warm-up, timed, traced) is one batch of K samples per
+pixel after the 1-sample warm-up and every figure is per sample.  Needs CUDA.
+The scene's assets must exist: for glasstorus160k, write its OBJ first with
+`tools/make_torus_obj.py` (see its docstring); for the textured scenes,
+`tools/make_texture_assets.py`.
 """
 
 from __future__ import annotations
@@ -34,14 +41,50 @@ TRAVERSAL = {
 }
 
 
+def profile_step(r, samples: int) -> dict:
+    """`r.step(samples)` under torch.profiler: the wall seconds, and from
+    the profiler's raw device events (kernels, copies, fills; reading them
+    raw takes a fraction of a second where `key_averages()` takes minutes
+    for a few hundred thousand) the busy microseconds, the launch count and,
+    per name, (name, microseconds, launches) sorted by time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r.step(samples)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
+            us, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
+    kernels = sorted(((name, us, n) for name, (us, n) in by_name.items()), key=lambda k: -k[1])
+    return {"wall": wall, "kernels": kernels, "busy_us": sum(k[1] for k in kernels),
+            "launches": sum(k[2] for k in kernels)}
+
+
+def pool_runs(pools: list) -> str:
+    """A list of pool lengths, one per lap, as runs: "640000 x2, 160768"."""
+    runs = []
+    for n in pools:
+        if runs and runs[-1][0] == n:
+            runs[-1][1] += 1
+        else:
+            runs.append([n, 1])
+    return ", ".join(f"{n} x{k}" if k > 1 else str(n) for n, k in runs)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("scene", type=Path)
     p.add_argument("--env-importance", action="store_true")
+    p.add_argument("--no-compaction", action="store_true")
+    p.add_argument("--regen", type=int, default=0, metavar="K")
     args = p.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from pathtracer_tpu_torch.integrator.render import Renderer
     from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
@@ -53,40 +96,42 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}")
     r = Renderer(args.scene, RenderOptions(sample_mode=SampleMode.MIS,
-                                           env_importance=args.env_importance),
+                                           env_importance=args.env_importance,
+                                           compaction=not args.no_compaction,
+                                           ray_regen=args.regen),
                  resolution=(RES, RES), trace_depth=DEPTH, device="cuda")
-    r.step(WARM)
+    # a window is one batch of K samples under regeneration, else ITERS iterations
+    warm, iters = (1 + r.regen_k, r.regen_k) if r.regen_k else (WARM, ITERS)
+    r.step(warm)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r.step(ITERS)
+    r.step(iters)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        r.step(ITERS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    print(f"{args.scene.name} MIS {RES}x{RES} depth {DEPTH}, {ITERS} traced iterations "
-          f"after {WARM}: wall {plain_wall / ITERS * 1e3:.3f} ms/iteration without the profiler "
-          f"({ITERS} iterations before the traced ones), {wall / ITERS * 1e3:.3f} under it, device "
-          f"busy {busy_us / ITERS / 1e3:.3f} ms/iteration, busy share {busy_us / 1e6 / wall:.4f}, "
-          f"{launches / ITERS:.0f} kernel launches/iteration")
-    kernels.sort(key=lambda e: -e.self_device_time_total)
+    laps0 = r.stats.laps
+    prof = profile_step(r, iters)
+    laps = r.stats.laps - laps0
+    wall, kernels, busy_us, launches = prof["wall"], prof["kernels"], prof["busy_us"], prof["launches"]
+    what = ", ".join([f"ray_regen={r.regen_k}" if r.regen_k else "classic"]
+                     + (["compaction=False"] if args.no_compaction else [])
+                     + (["env_importance"] if args.env_importance else []))
+    print(f"{args.scene.name} MIS {RES}x{RES} depth {DEPTH} ({what}), {iters} traced samples/pixel "
+          f"after {warm}: wall {plain_wall / iters * 1e3:.3f} ms/iteration without the profiler "
+          f"({iters} iterations before the traced ones), {wall / iters * 1e3:.3f} under it, device "
+          f"busy {busy_us / iters / 1e3:.3f} ms/iteration, busy share {busy_us / 1e6 / wall:.4f}, "
+          f"{launches / iters:.0f} kernel launches/iteration, {laps / iters:.3f} laps/sample; "
+          f"pool length at each lap of the last {'batch' if r.regen_k else 'iteration'}: "
+          f"{pool_runs(r.lap_pools)}")
     trav = {}
-    for e in kernels:
-        tag = next((k for name, k in TRAVERSAL.items() if name in e.key), None)
+    for name, us, _ in kernels:
+        tag = next((k for kname, k in TRAVERSAL.items() if kname in name), None)
         if tag:
-            trav[tag] = trav.get(tag, 0.0) + e.self_device_time_total
-    for e in kernels[:TOP]:
-        tag = next((k for name, k in TRAVERSAL.items() if name in e.key), "")
-        print(f"  {e.self_device_time_total / ITERS / 1e3:9.3f} ms/iteration  {e.count / ITERS:7.1f} "
-              f"launches  {tag:2s} {e.key[:90]}")
+            trav[tag] = trav.get(tag, 0.0) + us
+    for name, us, count in kernels[:TOP]:
+        tag = next((k for kname, k in TRAVERSAL.items() if kname in name), "")
+        print(f"  {us / iters / 1e3:9.3f} ms/iteration  {count / iters:7.1f} launches  {tag:2s} {name[:90]}")
     for tag in sorted(trav):
-        print(f"{tag}: {trav[tag] / ITERS / 1e3:.3f} ms/iteration, {trav[tag] / busy_us:.4f} of device "
+        print(f"{tag}: {trav[tag] / iters / 1e3:.3f} ms/iteration, {trav[tag] / busy_us:.4f} of device "
               f"busy time, {trav[tag] / 1e6 / wall:.4f} of wall time")
     return 0
 

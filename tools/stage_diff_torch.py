@@ -19,7 +19,12 @@ Per lap it compares, lane by lane and bit for bit, the stage arrays that
     (o, d, color, prev_pdf, alive)
 
 and counts, for each stage, the lanes whose first difference lies there and
-the largest distance there in float32 ulps.  It also counts the discrete
+the largest distance there in float32 ulps.  The laps run on unsorted pools,
+as `compaction=False` runs them: the tool calls `bounce` itself, with no
+per-bounce sort, shrink ladder or regeneration, so position l of every
+stage array is lane l on both devices.  The scheduler only reorders lanes
+(its images are bitwise those of the unsorted pool: tests/test_torch_schedule.py),
+so what differs here differs under the default schedule too.  It also counts the discrete
 choices that came out differently: the geom hit, a lane's alive bit, the
 dielectric branch (is_delta), pdf != 0, a dielectric's reflect or refract,
 the shadow test (pdf < 0), and a term scrubbed to 0 by process_nan on one
