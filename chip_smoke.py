@@ -80,7 +80,30 @@ line):
    (counts zeroed just before the path, read just after; each path must
    launch its scene's kernels), kernel launches in all and device-busy ms
    per sample under torch.profiler over one more iteration (or batch of 8),
-   laps per sample and the pool's length at each lap.
+   laps per sample and the pool's length at each lap;
+12. checkpoint/resume on glasstorus (MIS, 800x800, depth 8): 3 spp,
+   save_checkpoint, 2 more, against a new Renderer that loads the file and
+   renders 2 (HDR sums bitwise equal, rays equal), the same with
+   ray_regen=8, held also to an uninterrupted 5 spp within the tolerance;
+13. the preview server (start_preview_thread on port 0) driven over HTTP:
+   the page, /frame.png decoded (800x800), /stats.json rising, /orbit,
+   /zoom and /pan each restarting accumulation, /mode?m=0 (the new
+   renderer on the card in BSDF mode, the old one freed), /save; frames per
+   second; K1 and K2 must launch;
+14. `cli bench` on glasstorus (MIS, 800x800, 8 spp): its JSON line beside the
+   card's name and power limit;
+15. the plain walks: the MTBVH walk's triangle ids against K1 (glasstorus),
+   K3 (glasstorus160k, six trees; glasstorus640k, one tree, checked beside
+   phase 6) on the camera rays and one bounce's continuation pool, the sweep's
+   against K1 on 4,077 of glasstorus's lanes (lanes that differ must be
+   exact-t ties); 128x128 MIS renders with pallas_traversal=False and with
+   use_bvh=False held to the default render, seconds per iteration each;
+16. pixel sharding over [cuda:0, cuda:0] against the one-device render with
+   the swizzle off, bitwise (glasstorus, cornell_spheres, and glasstorus at
+   800x799, which pads a row), with both steps' seconds; one
+   sample_parallel_step against the sequential iterations;
+17. profiling: a StageTimer report over one iteration's stages, and the top
+   10 device ops of a device_trace of one iteration (top_ops_from_trace).
 
 The line before the last is a JSON object with one entry per kernel (times,
 errors, launches, and the least time the card could take for the same work);
@@ -878,6 +901,377 @@ def phase_rgbe_scale():
         raise AssertionError("the RGBE scale differs between the card and the CPU")
 
 
+def timed_step(r, n: int) -> float:
+    """Seconds per iteration of `r.step(n)` after a warm-up iteration when
+    the renderer is fresh (host clock; the step ends in a synchronize)."""
+    if r.iteration == 0:
+        r.step(1)
+    r.stats.per_iter_seconds.clear()
+    r.step(n)
+    return statistics.mean(r.stats.per_iter_seconds)
+
+
+def phase_checkpoint(scene_path, card: str):
+    """Checkpoint/resume on the main path: 3 spp, save_checkpoint, 2 more; a
+    new Renderer loads the file and renders 2: the HDR sums bitwise equal
+    and the rays of the last 2 spp equal.  Then the same with ray_regen=8
+    (resumed against interrupted bitwise; both against an uninterrupted
+    5 spp within the image tolerance, as the batches move).  K1 and K2
+    must launch."""
+    import numpy as np
+
+    out = ROOT / "pathtracer_tpu_torch" / "_build" / "smoke_checkpoint.npz"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    for options in ({}, {"ray_regen": REGEN_K}):
+        label = "".join(f", {k}={v}" for k, v in options.items())
+        a = build_renderer(scene_path, **options)[0]
+        a.step(3)
+        a.save_checkpoint(out)
+        before = a.stats.rays_traced
+        a.step(2)
+        rays_a = a.stats.rays_traced - before
+        b = build_renderer(scene_path, **options)[0]
+        b.load_checkpoint(out)
+        if b.iteration != 3:
+            raise AssertionError(f"the checkpoint resumed at iteration {b.iteration}, not 3")
+        b.step(2)
+        img_a, img_b = a.hdr_sum(), b.hdr_sum()
+        same = np.array_equal(img_a, img_b)
+        log(f"checkpoint: {r_name(a)} MIS {RES}x{RES} depth {DEPTH}{label}: 3 spp, saved "
+            f"({out.stat().st_size} bytes), 2 more against a new Renderer resumed from the file "
+            f"for 2: HDR sum bitwise equal: {same}, rays {rays_a} against {b.stats.rays_traced}")
+        if not same or rays_a != b.stats.rays_traced:
+            raise AssertionError(f"the resumed render differs from the interrupted one{label}")
+        if options:
+            c = build_renderer(scene_path, **options)[0]
+            c.step(5)
+            compare_images(f"checkpoint: resumed{label} against uninterrupted 5 spp", img_b,
+                           c.hdr_sum())
+        del a, b
+    launches = launch_counts()
+    log(f"checkpoint phase: {time.perf_counter() - t0:.1f} s on {card}; launches {launches}")
+    if not (launches["K1"] and launches["K2"]):
+        raise AssertionError(f"the checkpoint phase launched {launches}; needs K1 and K2")
+
+
+def r_name(r) -> str:
+    return r.static.image_name
+
+
+def phase_preview(scene_path, card: str):
+    """The preview server on the card, driven over HTTP on port 0: the page,
+    /frame.png (decoded by the port's PNG reader), /stats.json rising,
+    /orbit, /zoom and /pan each raising accum_resets and restarting the
+    iteration count, /mode?m=0 (a new renderer on the card in BSDF mode; the
+    old one freed), /save.  K1 and K2 must launch."""
+    import gc
+    import os
+    import urllib.request
+    import weakref
+
+    import torch
+
+    from pathtracer_tpu_torch.preview.server import start_preview_thread
+    from pathtracer_tpu_torch.utils.config import SampleMode
+    from pathtracer_tpu_torch.utils.image_io import _decode_png
+
+    workdir = ROOT / "pathtracer_tpu_torch" / "_build"
+    here = Path.cwd()
+    os.chdir(workdir)  # /save writes <image name>.preview.png where it runs
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    state, server, loop = start_preview_thread(build_renderer(scene_path)[0], port=0, chunk=1)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as f:
+            return f.read()
+
+    def stats():
+        return json.loads(get("/stats.json") or b"{}")
+
+    def wait_for(pred, what, timeout=60.0):
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            if pred():
+                return
+            time.sleep(0.02)
+        raise AssertionError(f"preview: timed out waiting for {what}")
+
+    try:
+        if b"pathtracer_tpu" not in get("/"):
+            raise AssertionError("preview: the page is not served")
+        wait_for(lambda: stats().get("iteration", 0) >= 2, "two iterations")
+        frame = _decode_png(get("/frame.png"))
+        if frame is None or frame.shape != (RES, RES, 3):
+            raise AssertionError(f"preview: /frame.png is not a {RES}x{RES} PNG")
+        it0, t_it0 = stats()["iteration"], time.perf_counter()
+        wait_for(lambda: stats()["iteration"] >= it0 + 3, "the iteration count to rise")
+        fps = (stats()["iteration"] - it0) / (time.perf_counter() - t_it0)
+        events = []
+        for path in ("/orbit?dtheta=10&dphi=-15", "/zoom?dy=0.2", "/pan?dx=40&dy=-20"):
+            wait_for(lambda: state.renderer.iteration >= 3, "three iterations")
+            resets, before = state.accum_resets, state.renderer.iteration
+            get(path)
+            wait_for(lambda: state.accum_resets > resets, f"{path} to reset")
+            after = state.renderer.iteration
+            events.append(f"{path.split('?')[0]}: iteration {before} -> {after}")
+            if after >= before:
+                raise AssertionError(f"preview: {path} did not restart the iteration count")
+        old = weakref.ref(state.renderer)
+        get("/mode?m=0")
+        wait_for(lambda: stats().get("mode") == "BSDF", "the mode switch")
+        r = state.renderer
+        if r.device.type != torch.device(DEVICE).type or r.opts.sample_mode != SampleMode.BSDF or (
+                r.width, r.height, r.static.trace_depth) != (RES, RES, DEPTH):
+            raise AssertionError("preview: the mode switch left the card, the size or the depth")
+        del r
+        gc.collect()
+        freed = old() is None
+        saved = workdir / f"{state.renderer.static.image_name}.preview.png"
+        saved.unlink(missing_ok=True)
+        get("/save")
+        wait_for(lambda: saved.exists() and saved.stat().st_size > 0, "/save")
+        time.sleep(0.5)  # the loop thread finishes writing
+        png = _decode_png(saved.read_bytes())
+        if png is None or png.shape != (RES, RES, 3):
+            raise AssertionError("preview: /save did not write the frame")
+    finally:
+        state.running = False
+        server.shutdown()
+        loop.join(timeout=120)
+        os.chdir(here)
+    launches = launch_counts()
+    log(f"preview: {RES}x{RES} depth {DEPTH} MIS, 1 spp a frame, {fps:.3f} frames/s on {card}; "
+        f"{'; '.join(events)}; mode switch to BSDF on {state.renderer.device}, old renderer "
+        f"freed: {freed}, {torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated after; "
+        f"saved {saved.name}; {time.perf_counter() - t0:.1f} s; launches {launches}")
+    if not freed:
+        raise AssertionError("preview: the mode switch kept the old renderer's tables")
+    if not (launches["K1"] and launches["K2"]):
+        raise AssertionError(f"preview launched {launches}; needs K1 and K2")
+    del state
+
+
+def phase_bench(scene_path, card: str):
+    """`cli bench` as a user calls it: its JSON line, printed beside the card."""
+    import io
+
+    from pathtracer_tpu_torch import cli
+
+    buf = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", str(scene_path), "--mode", "mis", "--res", f"{RES}x{RES}",
+                       "--spp", str(SPP)])
+    line = buf.getvalue().strip().splitlines()[-1]
+    result = json.loads(line)
+    launches = launch_counts()
+    log(f"bench on {card}: {json.dumps(result)}; launches {launches}")
+    if rc != 0 or result["rays_traced"] <= 0 or result["spp"] != SPP:
+        raise AssertionError(f"bench failed: rc {rc}, {line}")
+    if not (launches["K1"] and launches["K2"]):
+        raise AssertionError(f"bench launched {launches}; needs K1 and K2")
+
+
+def compare_walk(label, got, ref):
+    """A walk's (t, tri, u, v) against a kernel's on the same rays: lanes
+    whose triangle differs, of which those with t bitwise equal are exact
+    ties; any other difference fails."""
+    import torch
+
+    torch.cuda.synchronize()
+    differ = got[1] != ref[1]
+    ties = differ & (got[0] == ref[0])
+    hit = ref[1] >= 0
+    t_err = _max_err(got[0][hit], ref[0][hit])
+    same_t = float((got[0][hit] == ref[0][hit]).float().mean()) if bool(hit.any()) else 1.0
+    log(f"{label}: {got[1].shape[0]} lanes, {int(hit.sum())} hits, triangle ids differ on "
+        f"{int(differ.sum())} lanes ({int(ties.sum())} exact-t ties), t max abs err {t_err:.3g}, "
+        f"t bitwise equal on {same_t:.6f} of the hits")
+    if int((differ & ~ties).sum()):
+        raise AssertionError(f"{label}: the walk found other triangles")
+    return int(differ.sum())
+
+
+def walk_rays(r):
+    """Camera rays and one bounce's continuation pool of renderer `r` at RES x
+    RES, with their analytic t (the walks' budget) and the pool's live lanes."""
+    from pathtracer_tpu_torch.integrator.wavefront import bounce, camera_rays, new_pool
+    from pathtracer_tpu_torch.ops import traverse as tv
+    from pathtracer_tpu_torch.utils.config import SampleMode
+
+    flat, static = r.flat, r.static
+    o, d = camera_rays(r._cam_arrays(), RES, RES, r.key, 1, pixel_xy=r.pixel_xy)
+    pool, _ = bounce(flat, static, SampleMode.MIS, r.key, 1, 0, new_pool(o, d))
+    cases = {}
+    for label, (ro, rd, live) in (("camera", (o, d, None)),
+                                  ("continuation", (pool.o, pool.d, pool.alive))):
+        t_geo, *_ = tv._geoms_closest(flat, static, ro, rd)
+        cases[label] = (ro, rd, t_geo, live)
+    return cases
+
+
+def check_mtbvh(r, kname: str) -> None:
+    """The MTBVH walk against the kernel `kname` that renderer `r`'s main
+    path runs, on walk_rays, timed on the host clock."""
+    import torch
+
+    from pathtracer_tpu_torch.ops import traverse as tv
+
+    flat, static = r.flat, r.static
+    for label, (ro, rd, t_geo, live) in walk_rays(r).items():
+        t0 = time.perf_counter()
+        got = tv.mtbvh_closest(flat, static, ro, rd, t_geo, live=live)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ref = tv._kernel_closest(flat, static, ro, rd, t_geo, live)
+        compare_walk(f"MTBVH walk ({static.num_bvh_trees} tree(s) of {static.num_bvh_nodes} "
+                     f"nodes, {secs:.3f} s) vs {kname}, {r_name(r)} {label} rays", got, ref)
+
+
+def phase_walks(resident, stream, card: str):
+    """The MTBVH walk (pallas_traversal=False) against K1 on glasstorus and
+    K3 on glasstorus160k (six trees each), on the camera rays and one
+    bounce's continuation pool at RES x RES lanes; the sweep (use_bvh=False)
+    against K1 on a few thousand of glasstorus's lanes; then 128x128 MIS
+    renders of glasstorus with each option against the default render,
+    with their seconds per iteration."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator.render import Renderer
+    from pathtracer_tpu_torch.ops import traverse as tv
+    from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
+
+    t_phase = time.perf_counter()
+    check_mtbvh(resident, "K1")
+    check_mtbvh(stream, "K3")
+    flat, static = resident.flat, resident.static
+    cases = walk_rays(resident)
+    for label, (ro, rd, t_geo, live) in cases.items():
+        pick = torch.arange(0, ro.shape[0], 157, device=DEVICE)  # 4,077 lanes
+        sub = (ro[pick], rd[pick], t_geo[pick], None if live is None else live[pick])
+        t0 = time.perf_counter()
+        got = tv.sweep_closest(flat, static, *sub[:3], live=sub[3])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        compare_walk(f"sweep ({static.num_tris} triangles, {secs:.3f} s) vs K1, {r_name(resident)} "
+                     f"{label} rays", got, tv._kernel_closest(flat, static, *sub[:3], sub[3]))
+    imgs, secs = {}, {}
+    for name, options in (("default", {}), ("pallas_traversal=False", {"pallas_traversal": False}),
+                          ("use_bvh=False", {"use_bvh": False})):
+        reset_launch_counts()
+        r = Renderer(SCENE, RenderOptions(sample_mode=SampleMode.MIS, **options),
+                     resolution=(128, 128), trace_depth=DEPTH, device=DEVICE)
+        secs[name] = timed_step(r, 1)
+        imgs[name] = r.hdr_sum()
+        launches = launch_counts()
+        log(f"walks: glasstorus MIS 128x128 depth {DEPTH}, {name}: {secs[name]:.4f} s/iteration "
+            f"on {card}; launches {launches}")
+        if name != "default" and any(launches.values()):
+            raise AssertionError(f"the {name} render launched a kernel: {launches}")
+    for name in ("pallas_traversal=False", "use_bvh=False"):
+        compare_images(f"walks: {name} against the default render (128x128, 2 spp)",
+                       imgs[name], imgs["default"])
+    log(f"walks phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_sharding(card: str):
+    """make_sharded_iteration over [cuda:0, cuda:0] against the one-device
+    render with swizzle=False: glasstorus at RES x RES and cornell_spheres
+    bitwise, and glasstorus at RES x (RES - 1), which pads one row; then one
+    sample_parallel_step against the sequential iterations."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.integrator.render import Renderer
+    from pathtracer_tpu_torch.integrator.wavefront import render_iteration
+    from pathtracer_tpu_torch.parallel import sharding as sh
+    from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
+
+    t_phase = time.perf_counter()
+    mesh = sh.make_mesh(2, [DEVICE, DEVICE])
+    for scene_path, res in ((SCENE, (RES, RES)), (SCENE_CORNELL, (RES, RES)),
+                            (SCENE, (RES, RES - 1))):
+        r = Renderer(scene_path, RenderOptions(sample_mode=SampleMode.MIS, swizzle=False),
+                     resolution=res, trace_depth=DEPTH, device=DEVICE)
+        single_s = timed_step(r, 1)  # iterations 1 and 2
+        want, rays_single = r.hdr_sum(), r.stats.rays_traced
+        step, _, ph = sh.make_sharded_iteration(r.static, r.opts, r.width, r.height, mesh)
+        img = sh.zeros_image(r.width, r.height, mesh)
+        cam = r._cam_arrays()
+        img, _, _ = step(r.flat, cam, img, 1, r.key)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, rays, depth = step(r.flat, cam, img, 2, r.key)
+        rays = int(rays)
+        sharded_s = time.perf_counter() - t0
+        got = sh.fetch_image(img, r.width, r.height)
+        same = np.array_equal(got, want)
+        log(f"sharding: {scene_path.name} MIS {res[0]}x{res[1]} depth {DEPTH}, 2 shards on "
+            f"{mesh}: rows padded to {ph}, HDR sum bitwise equal to one device (swizzle off): "
+            f"{same}; rays {rays} (one device {rays_single}); {depth} laps; s/iteration sharded "
+            f"{sharded_s:.4f}, one device {single_s:.4f} on {card}")
+        padded = ph != r.height
+        if not same or (rays != rays_single) != padded:
+            raise AssertionError(f"the sharded render of {scene_path.name} differs")
+    step, combine = sh.sample_parallel_step(r.static, r.opts, r.width, r.height, mesh)
+    img = [torch.zeros((r.width * r.height, 3), device=dev) for dev in mesh]
+    img, rays = step(r.flat, cam, img, 1, r.key)
+    got = combine(img).cpu().numpy()
+    seq = torch.zeros_like(img[0])
+    for it in (1, 2):
+        seq = seq + render_iteration(r.flat, r.static, r.opts, cam, r.key, it)[0]
+    compare_images(f"sharding: sample_parallel_step over {mesh} (iterations 1, 2) against "
+                   f"the sequential iterations", got, seq.cpu().numpy())
+    log(f"sharding phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_profiling(r, card: str):
+    """A StageTimer report over one iteration's stages (camera rays, then per
+    lap the sort and the bounce, each synchronized), and the top 10 device
+    ops of a device_trace of one step, read by top_ops_from_trace."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator.wavefront import (
+        bounce, camera_rays, new_pool, schedule, sort_pool)
+    from pathtracer_tpu_torch.utils.config import SampleMode
+    from pathtracer_tpu_torch.utils.profiling import StageTimer, device_trace, top_ops_from_trace
+
+    t_phase = time.perf_counter()
+    flat, static = r.flat, r.static
+    timer = StageTimer()
+    sched = schedule(static, r.opts, RES * RES)
+    with timer.stage("camera rays", sync=flat.tri_pk):
+        pool = new_pool(*camera_rays(r._cam_arrays(), RES, RES, r.key, 1, pixel_xy=r.pixel_xy))
+    for depth in range(DEPTH + 1):
+        if sched.sort_rays:
+            with timer.stage("sort", sync=flat.tri_pk):
+                pool = sort_pool(static, pool)
+        with timer.stage("bounce", sync=flat.tri_pk):
+            pool, _ = bounce(flat, static, SampleMode.MIS, r.key, 1, depth, pool,
+                             shadow_sort=sched.shadow_sort)
+        if not bool(pool.alive.any()):
+            break
+    log(f"profiling: StageTimer over one iteration of {r_name(r)} MIS {RES}x{RES} on {card}:\n"
+        + timer.report())
+    trace_dir = ROOT / "pathtracer_tpu_torch" / "_build" / "trace"
+    r.step(1)
+    with device_trace(str(trace_dir)):
+        r.step(1)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    top = top_ops_from_trace(str(trace_dir), top=10)
+    log(f"profiling: top 10 device ops of one iteration (top_ops_from_trace, "
+        f"{time.perf_counter() - t0:.1f} s to read):\n"
+        + "\n".join(f"{ms:10.3f} ms  {name[:100]}" for ms, name in top))
+    if not top or not any("kernel" in name for _, name in top):
+        raise AssertionError("profiling: the trace holds no device kernels")
+    log(f"profiling phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_probes():
     """P1 and P2 against their plain versions; ns per lap at the TPU probes'
     sizes; the kernels line's rows (P2's at P2_ROW_F pops of P2_ROW)."""
@@ -979,6 +1373,7 @@ def main() -> int:
     launches.update(K5=bm_launches["K5"], P1=bm_launches["P1"], P2=bm_launches["P2"])
     compare_images(f"glasstorus640k STREAM_BLOCKMAJOR on (K5) vs off (K3), MIS {RES}x{RES} "
                    f"depth {DEPTH} {SPP} spp", img_k5, img_k3)
+    check_mtbvh(big[0], "K3")  # one tree: the mesh is past the MTBVH budget
     del big, img_k3, img_k5
     phase_rgbe_scale()
     for scene_path, options in ((SCENE_TEXCUBE, {}), (SCENE_ENVTORUS, {"env_importance": True})):
@@ -996,6 +1391,15 @@ def main() -> int:
     for scene_path in (SCENE_TEXCUBE, SCENE_NORMALCUBE, SCENE_ENVTORUS):
         phase_card_vs_cpu(scene_path)
     phase_card_vs_cpu(SCENE_ENVTORUS, env_importance=True)
+    t_new = time.perf_counter()
+    phase_checkpoint(SCENE, card=smi)
+    phase_preview(SCENE, card=smi)
+    phase_bench(SCENE, card=smi)
+    phase_walks(resident[0], stream[0], card=smi)
+    phase_sharding(card=smi)
+    phase_profiling(resident[0], card=smi)
+    log(f"phases 12-17 (checkpoint, preview, bench, walks, sharding, profiling): "
+        f"{time.perf_counter() - t_new:.1f} s")
     kernels.update(phase_probes())
     rows = [
         {"name": name_, "route": "cuda", "source": source, "replaces": replaces,

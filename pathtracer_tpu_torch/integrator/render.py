@@ -1,8 +1,11 @@
-"""Progressive renderer: accumulation loop, tonemapped save.
+"""Progressive renderer: accumulation loop, tonemapped save, checkpointing.
 
 Port of `pathtracer_tpu/integrator/render.py`.  The image accumulates
 radiance sums across iterations; display and save divide by the iteration
-count, then apply ACES + gamma 1/2.2 and the save-time X mirror.
+count, then apply ACES + gamma 1/2.2 and the save-time X mirror.  The
+accumulator, the iteration count and the camera's orbit save to the JAX
+package's `.npz` checkpoint format and load from it, so a render resumes
+exactly (the RNG keys on the iteration), in either package.
 
 Each iteration runs `integrator/wavefront.py render_iteration` with the
 options' schedule (the per-bounce sort, the shrink ladder, the shadow sort)
@@ -12,16 +15,21 @@ iteration, so the image does not depend on the schedule.  With `ray_regen` K
 pool (the first, warm-up iteration alone); DIRECT_LI and `show_normal` paths
 end after one bounce, so there the option is ignored, as in the JAX package.
 
-Options the port does not honour yet raise `NotImplementedError`:
-`devices > 1` and `use_bvh=False`.  These only change how the TPU runs, not
-the image, so they are accepted and ignored: `packet_p`, `packet_q`,
-`packet_dense`, `packet_auto`, `iters_per_dispatch`, `interpret` and
-`pallas_traversal` (`packet_rows` sets the ladder's tile, as in the JAX
+`pallas_traversal=False` walks the triangles with the threaded MTBVH walk
+instead of the kernels, and `use_bvh=False` sweeps every triangle
+(ops/traverse.py; cross-checks, not fast paths).  `devices=N` renders pixel
+rows sharded over N devices (parallel/sharding.py: the first N CUDA devices,
+or N shards on the CPU with device="cpu"); as in the JAX package a sharded
+renderer turns the 32x32 swizzle off and ignores `ray_regen`.  These only
+change how the TPU runs, not the image, so they are accepted and ignored:
+`packet_p`, `packet_q`, `packet_dense`, `packet_auto`, `iters_per_dispatch`
+and `interpret` (`packet_rows` sets the ladder's tile, as in the JAX
 package).
 """
 
 from __future__ import annotations
 
+import json
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -78,18 +86,9 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_options(opts: RenderOptions, devices) -> None:
-    unsupported = {
-        "devices > 1 (ROADMAP Queue 1 item 15)": devices is not None and int(devices) > 1,
-        "use_bvh=False": not opts.use_bvh,
-    }
-    for what, asked in unsupported.items():
-        if asked:
-            raise NotImplementedError(f"the port does not support {what} yet")
-
-
 class Renderer:
-    """Scene tables, camera and accumulation state for one scene on one device."""
+    """Scene tables, camera and accumulation state for one scene on one
+    device, or pixel-sharded over `devices` of them."""
 
     def __init__(
         self,
@@ -101,8 +100,17 @@ class Renderer:
         device="cuda",
     ):
         self.opts = opts or RenderOptions()
-        _check_options(self.opts, devices)
-        self.device = resolve_device(device)
+        self.devices = int(devices) if devices else 1
+        if self.devices > 1:
+            from pathtracer_tpu_torch.parallel import sharding as sh
+
+            # N shards on the CPU stand in for a mesh there; on CUDA the
+            # first N cards, and fewer raise
+            on_cpu = torch.device(device).type == "cpu"
+            self.mesh = sh.make_mesh(self.devices, [device] * self.devices if on_cpu else None)
+            self.device = self.mesh[0]
+        else:
+            self.device = resolve_device(device)
         if not isinstance(scene, SceneData):
             scene = load_scene(scene)
         self.scene = scene
@@ -113,18 +121,23 @@ class Renderer:
         self.flat, self.static = build_flat_scene(scene, opts=self.opts, device=self.device)
         self.width, self.height = scene.camera.resolution
         self.camera: RenderCamera = derive_camera(scene.camera)
+        self.cam_position = None  # interactive pan/zoom override (None = scene)
         # spatial swizzle (triangle scenes): lane l renders pixel
         # pixel_order[l] but draws its random numbers from counter l, so it
         # must match the JAX package for the same pixels to get the same
         # samples; the image is unswizzled at readout
         self.pixel_order = None
         self.pixel_xy = None
-        if self.opts.swizzle and self.static.num_tris > 0:
+        if self.devices == 1 and self.opts.swizzle and self.static.num_tris > 0:
             self.pixel_order = swizzle_map(self.width, self.height)
             self.pixel_xy = tuple(
                 torch.from_numpy(a.astype(np.float32)).to(self.device)
                 for a in (self.pixel_order % self.width, self.pixel_order // self.width)
             )
+        if self.devices > 1:
+            self._sharded_step = sh.make_sharded_iteration(
+                self.static, self.opts, self.width, self.height, self.mesh
+            )[0]
         self.seed = 0
         self.key = rng.base_key(0)
         self.traced_depth = 0  # laps of the last render_iteration
@@ -136,10 +149,11 @@ class Renderer:
     def regen_k(self) -> int:
         """Samples per pixel per regeneration batch (0: one per iteration).
         A DIRECT_LI or show_normal path ends after one bounce, so there is
-        nothing to refill."""
+        nothing to refill; a sharded renderer ignores regeneration, as the
+        JAX package's does."""
         k = int(self.opts.ray_regen)
         multi_bounce = self.opts.sample_mode != SampleMode.DIRECT_LI and not self.opts.show_normal
-        return k if k > 1 and multi_bounce else 0
+        return k if k > 1 and multi_bounce and self.devices == 1 else 0
 
     def set_seed(self, seed: int):
         self.seed = int(seed)
@@ -147,8 +161,56 @@ class Renderer:
 
     def reset(self):
         """Restart accumulation."""
-        self.img = torch.zeros((self.width * self.height, 3), device=self.device)
+        if self.devices > 1:
+            from pathtracer_tpu_torch.parallel.sharding import zeros_image
+
+            self.img = zeros_image(self.width, self.height, self.mesh)
+        else:
+            self.img = torch.zeros((self.width * self.height, 3), device=self.device)
         self.iteration = 0
+
+    def set_orbit(self, theta: float, phi: float):
+        """Interactive orbit: rotates the view basis, position unchanged."""
+        self.camera = derive_camera(
+            self.scene.camera, theta=theta, phi=phi, position=self.cam_position
+        )
+        self.reset()
+
+    def pan(self, dx_px: float, dy_px: float):
+        """Middle-drag translate along the ground-projected right/forward
+        axes, 0.01 world units per pixel."""
+        fwd = np.array(self.camera.view, np.float64)
+        fwd[1] = 0.0
+        fwd /= max(np.linalg.norm(fwd), 1e-12)
+        right = np.array(self.camera.right, np.float64)
+        right[1] = 0.0
+        right /= max(np.linalg.norm(right), 1e-12)
+        pos = np.array(self.camera.position, np.float64)
+        pos -= dx_px * right * 0.01
+        pos += dy_px * fwd * 0.01
+        self.cam_position = tuple(float(x) for x in pos)
+        self.camera = derive_camera(
+            self.scene.camera, theta=self.camera.theta, phi=self.camera.phi,
+            position=self.cam_position,
+        )
+        self.reset()
+
+    def zoom(self, dy_frac: float):
+        """Right-drag dolly along the view direction.
+
+        The reference tracks `zoom += dy/height` but the code that applies
+        it to the camera position is commented out, so right drag only
+        resets accumulation there; the JAX package, and this port, dolly by
+        the same magnitude.
+        """
+        pos = np.array(self.camera.position, np.float64)
+        pos -= np.array(self.camera.view, np.float64) * dy_frac
+        self.cam_position = tuple(float(x) for x in pos)
+        self.camera = derive_camera(
+            self.scene.camera, theta=self.camera.theta, phi=self.camera.phi,
+            position=self.cam_position,
+        )
+        self.reset()
 
     def _cam_arrays(self) -> CameraArrays:
         return CameraArrays(*(torch.from_numpy(a).to(self.device) for a in self.camera.as_arrays()))
@@ -159,7 +221,14 @@ class Renderer:
 
     def _run_iteration(self, cam, nk: int = 1):
         """`nk` samples per pixel: one classic iteration, or a regeneration
-        batch when regeneration is on."""
+        batch when regeneration is on; one iteration over the shards when
+        sharded."""
+        if self.devices > 1:
+            self.img, rays, self.traced_depth = self._sharded_step(
+                self.flat, cam, self.img, self.iteration + 1, self.key)
+            self.lap_pools = []
+            self.iteration += 1
+            return rays
         contrib, rays, self.lap_pools = render_iteration(
             self.flat, self.static, self.opts, cam, self.key, self.iteration + 1,
             pixel_xy=self.pixel_xy, nk=nk if self.regen_k else None,
@@ -204,7 +273,18 @@ class Renderer:
         return self.stats
 
     # -- output -------------------------------------------------------------
+    def _lane_image(self) -> torch.Tensor:
+        """The accumulator as one (lanes, 3) tensor: the shards, padding rows
+        included, on the first device when sharded."""
+        if self.devices > 1:
+            return torch.cat([part.to(self.device) for part in self.img])
+        return self.img
+
     def _unswizzle(self, img_lane: np.ndarray) -> np.ndarray:
+        if self.devices > 1:
+            # row-sharded pool: lanes are already pixel-ordered; drop the
+            # mesh's padding rows
+            return img_lane[: self.width * self.height]
         if self.pixel_order is None:
             return img_lane
         out = np.empty_like(img_lane)
@@ -213,11 +293,12 @@ class Renderer:
 
     def hdr_sum(self) -> np.ndarray:
         """The accumulated radiance SUM as (H, W, 3), in pixel order."""
-        return self._unswizzle(self.img.cpu().numpy()).reshape(self.height, self.width, 3)
+        return self._unswizzle(self._lane_image().cpu().numpy()).reshape(
+            self.height, self.width, 3)
 
     def ldr_image(self) -> np.ndarray:
         """Tonemapped (H, W, 3) float in [0,1], without the save-time mirror."""
-        avg = self.img / max(self.iteration, 1)
+        avg = self._lane_image() / max(self.iteration, 1)
         if self.opts.tonemapping:
             ldr = m.gamma_correction(m.aces_film(avg))
         else:
@@ -235,3 +316,90 @@ class Renderer:
         if mirror_x:
             avg = avg[:, ::-1]
         write_hdr(path, avg)
+
+    # -- checkpoint/resume ---------------------------------------------------
+    def save_checkpoint(self, path: str | Path):
+        """The JAX package's checkpoint: the lane-ordered accumulator (with a
+        sharded render's padding rows), the iteration, the orbit, and the
+        settings a resume must share."""
+        np.savez_compressed(
+            Path(path),
+            img=self._lane_image().cpu().numpy(),
+            iteration=self.iteration,
+            theta=self.camera.theta,
+            phi=self.camera.phi,
+            meta=json.dumps(
+                {
+                    "scene": str(self.scene.path),
+                    "width": self.width,
+                    "height": self.height,
+                    "mode": int(self.opts.sample_mode),
+                    "seed": self.seed,
+                    # the accumulator is LANE-ordered; loading under a
+                    # different pixel mapping would scramble the image
+                    "swizzled": self.pixel_order is not None,
+                    # sharded accumulators carry mesh-padding rows
+                    "devices": self.devices,
+                }
+            ),
+        )
+
+    def load_checkpoint(self, path: str | Path):
+        """Resume from `save_checkpoint`'s file (either package's).  The
+        camera comes back from the orbit alone, as in the JAX package."""
+        data = np.load(path, allow_pickle=False)
+        meta = json.loads(str(data["meta"]))
+        if (meta["width"], meta["height"]) != (self.width, self.height):
+            raise ValueError("checkpoint resolution mismatch")
+        if meta.get("swizzled", False) != (self.pixel_order is not None):
+            raise ValueError(
+                "checkpoint pixel-order mismatch (saved with a different "
+                "swizzle setting)"
+            )
+        # resuming with a different estimator or RNG stream would silently
+        # blend two different sequences into one accumulator
+        if "mode" in meta and meta["mode"] != int(self.opts.sample_mode):
+            raise ValueError(
+                f"checkpoint sample-mode mismatch (saved mode {meta['mode']}, "
+                f"current {int(self.opts.sample_mode)})"
+            )
+        if "seed" in meta and int(meta["seed"]) != self.seed:
+            raise ValueError(
+                f"checkpoint RNG-seed mismatch (saved seed {meta['seed']}, "
+                f"current {self.seed})"
+            )
+        if int(meta.get("devices", 1)) != self.devices:
+            raise ValueError(
+                f"checkpoint device-count mismatch (saved {meta.get('devices', 1)}, "
+                f"current {self.devices}) — the lane padding differs"
+            )
+        img = torch.from_numpy(np.asarray(data["img"], np.float32))
+        if self.devices > 1:
+            self.img = [part.to(dev) for part, dev in zip(img.chunk(self.devices), self.mesh)]
+        else:
+            self.img = img.to(self.device)
+        self.iteration = int(data["iteration"])
+        self.camera = derive_camera(
+            self.scene.camera, theta=float(data["theta"]), phi=float(data["phi"])
+        )
+
+
+def render_scene(
+    scene_path: str | Path,
+    spp: int | None = None,
+    mode: SampleMode = SampleMode.BSDF,
+    resolution: tuple[int, int] | None = None,
+    trace_depth: int | None = None,
+    out: str | Path | None = None,
+    opts: RenderOptions | None = None,
+    device="cuda",
+) -> tuple[Renderer, RenderStats]:
+    """One-call headless render (the CLI's core)."""
+    opts = (opts or RenderOptions()).with_mode(mode)
+    r = Renderer(scene_path, opts=opts, resolution=resolution, trace_depth=trace_depth,
+                 device=device)
+    n = spp if spp is not None else r.static.iterations
+    stats = r.step(n)
+    if out is not None:
+        r.save_png(out)
+    return r, stats

@@ -99,15 +99,19 @@ def _lane_rays(cam: CameraArrays, width: int, height: int, key, iteration, lane,
     return o, d
 
 
-def camera_rays(cam: CameraArrays, width: int, height: int, key, iteration, pixel_xy=None):
-    """Per-pixel AA-jittered primary rays for the whole frame.
+def camera_rays(cam: CameraArrays, width: int, height: int, key, iteration, pixel_xy=None,
+                pixel0: int = 0, local_n: int | None = None):
+    """Per-pixel AA-jittered primary rays for the whole frame, or for the
+    `local_n` pixels from `pixel0` on (a shard of a film of width x height).
 
-    Lane l draws its jitter from counter l (its pixel index in the JAX
-    package's numbering) and renders pixel `pixel_xy[l]` when the spatial
-    swizzle is on (else pixel l).
+    Lane l draws its jitter from counter pixel0 + l (its pixel index in the
+    JAX package's numbering) and renders pixel `pixel_xy[l]` when the
+    spatial swizzle is on (else pixel pixel0 + l).
     """
-    n = width * height
+    n = width * height if local_n is None else local_n
     idx = torch.arange(n, dtype=torch.int32, device=cam.position.device)
+    if pixel0:
+        idx = idx + pixel0
     x, y = pixel_xy if pixel_xy is not None else lane_xy(idx, width, height)
     return _lane_rays(cam, width, height, key, iteration, idx, x, y)
 
@@ -225,13 +229,16 @@ def _apply_normal_map(hit, params):
 def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
            iteration: int, depth: int, s: _Pool,
            trace: dict | None = None, env_nee: bool = False,
-           show_normal: bool = False, shadow_sort: bool = False) -> tuple[_Pool, torch.Tensor]:
+           show_normal: bool = False, shadow_sort: bool = False, pixel0: int = 0,
+           use_kernels: bool = True, use_bvh: bool = True) -> tuple[_Pool, torch.Tensor]:
     """One intersect + shade pass over the pool; returns (pool, rays emitted).
     Lanes draw their random numbers at (`iteration`, `depth`), or under
     regeneration at their own sample and depth from `meta`.
     `env_nee` samples the environment as one more light (`env_importance`
     with an env map); `show_normal` ends every ray at its first hit;
-    `shadow_sort` sorts the NEE shadow rays for the any-hit kernel.
+    `shadow_sort` sorts the NEE shadow rays for the any-hit kernel;
+    `use_kernels` / `use_bvh` pick the triangle walks (ops/traverse.py).
+    Lane l's RNG counter is pixel0 + l (a shard's first pixel).
     `trace`, if given, receives the pass's stage arrays by name (the hit, the
     material parameters and shading normal, the scatter sample, the light
     sample and the BSDF evaluations at its direction, the light-hit and NEE
@@ -239,13 +246,14 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     note = trace.update if trace is not None else (lambda **_: None)
     present = static.material_types
     alive = s.alive
-    pixel_idx = s.lane
+    pixel_idx = s.lane + pixel0 if pixel0 else s.lane
+    walk = dict(use_kernels=use_kernels, use_bvh=use_bvh)
     if s.meta is None:
         rng_it, rng_dp = iteration, depth
     else:
         rng_it, rng_dp = iteration + (s.meta >> 8), s.meta & 0xFF
     contrib = s.contrib
-    hit = closest_hit(flat, static, s.o, s.d, alive=alive)
+    hit = closest_hit(flat, static, s.o, s.d, alive=alive, **walk)
     rays = alive.sum()
     miss = hit.geom < 0
 
@@ -277,7 +285,7 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
             li_rand = rng.pixel_uniforms(key, rng_it, rng_dp, rng.STAGE_LIGHT, pixel_idx,
                                          4 if env_nee else 3)
             lrec = light_sample(flat, static, hit.point, li_rand, enabled=nee_on,
-                                include_env=env_nee, shadow_sort=shadow_sort)
+                                include_env=env_nee, shadow_sort=shadow_sort, **walk)
             wi = m.normalize(lrec.pos - hit.point)
             bsdf = bsdf_eval(params, nrm, s.d, wi, present=present)
             nee = (
@@ -308,7 +316,7 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
             li_rand = rng.pixel_uniforms(key, rng_it, rng_dp, rng.STAGE_LIGHT, pixel_idx,
                                          4 if env_nee else 3)
             lrec = light_sample(flat, static, hit.point, li_rand, enabled=cont & ~is_delta,
-                                include_env=env_nee, shadow_sort=shadow_sort)
+                                include_env=env_nee, shadow_sort=shadow_sort, **walk)
             wi = m.normalize(lrec.pos - hit.point)
             b_pdf = pdf_eval(params, nrm, s.d, wi, present=present)
             li_bsdf = bsdf_eval(params, nrm, s.d, wi, present=present)
@@ -370,13 +378,14 @@ def resolve_env(flat: FlatScene, static: SceneStatic, mode: SampleMode, s: _Pool
 
 
 class Regen(NamedTuple):
-    """What a refill needs: the camera, the film, the lane -> pixel map and
-    the batch's sample count."""
+    """What a refill needs: the camera, the film, the lane -> pixel map, the
+    batch's sample count and the pool's first pixel."""
     cam: CameraArrays
     width: int
     height: int
     pixel_xy: tuple | None
     nk: int
+    pixel0: int = 0
 
 
 def refill(flat: FlatScene, static: SceneStatic, mode: SampleMode, key, iteration: int,
@@ -392,8 +401,9 @@ def refill(flat: FlatScene, static: SceneStatic, mode: SampleMode, key, iteratio
     if static.env_map_id >= 0:
         contrib = contrib + _env_radiance(flat, static, mode, s, regen & env_miss, env_nee)
         env_miss = env_miss & ~regen
-    x, y = lane_xy(s.lane, rg.width, rg.height, rg.pixel_xy)
-    ro, rd = _lane_rays(rg.cam, rg.width, rg.height, key, iteration + it_ofs + 1, s.lane, x, y)
+    gid = s.lane + rg.pixel0 if rg.pixel0 else s.lane
+    x, y = lane_xy(gid, rg.width, rg.height, rg.pixel_xy)
+    ro, rd = _lane_rays(rg.cam, rg.width, rg.height, key, iteration + it_ofs + 1, gid, x, y)
     rm = regen[..., None]
     return _Pool(
         o=torch.where(rm, ro, s.o),
@@ -440,23 +450,30 @@ def schedule(static: SceneStatic, opts: RenderOptions, n: int) -> Schedule:
 
 
 def render_iteration(flat: FlatScene, static: SceneStatic, opts: RenderOptions,
-                     cam: CameraArrays, key, iteration: int, pixel_xy=None, nk=None):
+                     cam: CameraArrays, key, iteration: int, pixel_xy=None, nk=None,
+                     pixel0: int = 0, local_rows: int | None = None):
     """One sample per pixel, or with `nk` the samples iteration ..
     iteration + nk - 1 in one regeneration pool.  Returns (contrib
     (W*H, 3) in lane order, rays emitted (int64 tensor), the pool's length
     at each lap run).  One host read a lap: the live count, which serves
-    the loop, the sort's rule and the ladder."""
+    the loop, the sort's rule and the ladder.
+
+    `local_rows` rows from pixel `pixel0` on make the pool instead of the
+    whole film (the sharding hook of the JAX package's
+    make_render_iteration): contrib is then (local_rows * W, 3), and rows
+    past the film's last (a mesh's padding) are rendered like any other."""
     if static.trace_depth > rng.MAX_DEPTH:
         raise ValueError(
             f"trace depth {static.trace_depth} does not fit the RNG counter's "
             f"8 depth bits (max {rng.MAX_DEPTH})"
         )
     w, h = static.width, static.height
-    n = w * h
+    n = w * (h if local_rows is None else local_rows)
     mode, show_normal = opts.sample_mode, bool(opts.show_normal)
     env_nee = bool(opts.env_importance) and static.env_map_id >= 0
     sched = schedule(static, opts, n)
-    rg = None if nk is None else Regen(cam, w, h, pixel_xy, int(nk))
+    rg = None if nk is None else Regen(cam, w, h, pixel_xy, int(nk), pixel0)
+    walk = dict(use_kernels=bool(opts.pallas_traversal), use_bvh=bool(opts.use_bvh))
     budget = (static.trace_depth + 1) * (1 if nk is None else int(nk))
     rays = torch.zeros((), dtype=torch.int64, device=flat.device)
     laps = []
@@ -468,7 +485,8 @@ def render_iteration(flat: FlatScene, static: SceneStatic, opts: RenderOptions,
                                                and alive_n * 4 > pool_n)):
             s = sort_pool(static, s)
         s, r = bounce(flat, static, mode, key, iteration, depth, s, env_nee=env_nee,
-                      show_normal=show_normal, shadow_sort=sched.shadow_sort)
+                      show_normal=show_normal, shadow_sort=sched.shadow_sort, pixel0=pixel0,
+                      **walk)
         if rg is not None:
             s = refill(flat, static, mode, key, iteration, s, rg, env_nee)
         rays = rays + r
@@ -490,7 +508,8 @@ def render_iteration(flat: FlatScene, static: SceneStatic, opts: RenderOptions,
             alive_n = int(s.alive.sum())
         return s
 
-    pool = run(new_pool(*camera_rays(cam, w, h, key, iteration, pixel_xy=pixel_xy),
+    pool = run(new_pool(*camera_rays(cam, w, h, key, iteration, pixel_xy=pixel_xy,
+                                     pixel0=pixel0, local_n=n),
                         regen=nk is not None), sched.shrink, n)
     if sched.sort_rays or sched.shrink:
         # the env resolve's columns too: on the CPU, atan2 rounds by position

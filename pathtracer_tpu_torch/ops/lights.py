@@ -99,13 +99,14 @@ def _emit_by_geom(flat: FlatScene, static: SceneStatic, geom_idx):
 
 def light_sample(
     flat: FlatScene, static: SceneStatic, view_pos, rands, enabled=None,
-    include_env: bool = False, shadow_sort: bool = False,
+    include_env: bool = False, shadow_sort: bool = False, **walk,
 ) -> LightSampleRecord:
     """Sample one light per ray, with occlusion.  `rands` is (N, 3): col 0
     the light pick, cols 1-2 the area/cone sample; (N, 4) with
     `include_env`, col 3 the env texel jitter's second axis.  `enabled`
     masks lanes whose NEE term is zero downstream: their shadow rays are not
-    traced.  `shadow_sort` sorts the shadow rays for the kernel
+    traced.  `shadow_sort` sorts the shadow rays for the kernel, and `walk`
+    (`use_kernels`, `use_bvh`) picks the triangle walk
     (ops/traverse.occlusion_test)."""
     N = view_pos.shape[0]
     dev = view_pos.device
@@ -166,7 +167,7 @@ def light_sample(
     occ_on = pdf > 0.0 if enabled is None else (pdf > 0.0) & enabled
     occ = occlusion_test(
         flat, static, view_pos + 1e-5 * ray_dir, ray_dir, light_pos, enabled=occ_on,
-        shadow_sort=shadow_sort,
+        shadow_sort=shadow_sort, **walk,
     )
     pdf = torch.where(occ, -1.0, pdf)
     emit = torch.where(occ[..., None], 0.0, emit)

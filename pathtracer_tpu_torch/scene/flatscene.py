@@ -67,8 +67,8 @@ class FlatScene:
     geom_invt: torch.Tensor        # (G, 4, 4)
     tri_data: torch.Tensor         # (T, 32) float32: v0 v1 v2 | n0 n1 n2 | uv0-2 | tan bit | geom pad
     tri_geom: torch.Tensor         # (T,) int32
-    bvh_f32: torch.Tensor          # (D*N, 8) threaded MTBVH bounds (unused by the port's walk)
-    bvh_i32: torch.Tensor          # (D*N, 4) threaded MTBVH links (unused by the port's walk)
+    bvh_f32: torch.Tensor          # (D*N, 8) threaded MTBVH bounds (ops/traverse.py mtbvh_*)
+    bvh_i32: torch.Tensor          # (D*N, 4) threaded MTBVH links: start end hit miss
     bvh_wf: torch.Tensor           # (M*48,) f32: node m child c AABB [bmin bmax]; NaN = empty slot
     bvh_wi: torch.Tensor           # (M*24,) i32: node m [link x8 | start x8 | end x8]
     bvh_wp: torch.Tensor           # (M*8,) i32: per-octant child order, 3 bits per rank
@@ -643,8 +643,8 @@ def build_flat_scene(
     top_depth = sub_depth = 0
     if num_tris and not resident_tables_fit(wide_nodes, num_tris):
         if stream_subs == 0:
-            # the JAX package falls back to its XLA walk here, which the
-            # port does not have
+            # the JAX package falls back to its XLA walk here; the port's
+            # MTBVH walk is a cross-check beside the kernels, not a fallback
             raise NotImplementedError(
                 f"a mesh of {num_tris} triangles fits neither the resident "
                 "tables nor the streaming split"

@@ -1,7 +1,7 @@
 """The port's own copies of the JAX package's numpy-only host modules (config,
 image I/O, OBJ loader, scene parser, camera, BVH build and its native
-builder, the texture atlas and environment CDF builds) against the
-originals, on the CPU: identical inputs must give equal results, arrays
+builder, the texture atlas and environment CDF builds, the preview's page
+and PNG writer) against the originals, on the CPU: identical inputs must give equal results, arrays
 element for element and files byte for byte.  Also the asset tools."""
 
 import dataclasses
@@ -167,6 +167,23 @@ def test_image_io_writes_equal_bytes(tmp_path):
         assert read(tmp_path / f"t.{fmt}").shape[:2] == (7, 9)
     assert_same(tio.load_image(tmp_path / "t.png"), jio.load_image(tmp_path / "j.png"), "png")
     assert_same(tio.load_image(tmp_path / "t.hdr"), jio.load_image(tmp_path / "j.hdr"), "hdr")
+
+
+def test_preview_page_and_png_writer_agree():
+    """The preview server's page and in-memory PNG writer, copied: the same
+    page, and the same bytes for the same image (values past [0, 1] too)."""
+    import io
+
+    from pathtracer_tpu.preview import server as jserver
+    from pathtracer_tpu_torch.preview import server as tserver
+
+    assert tserver._PAGE == jserver._PAGE
+    img = np.random.default_rng(1).uniform(-0.2, 1.3, size=(13, 17, 3)).astype(np.float32)
+    ours, theirs = io.BytesIO(), io.BytesIO()
+    tserver._write_png_bytes(ours, img)
+    jserver._write_png_bytes(theirs, img)
+    assert ours.getvalue() == theirs.getvalue()
+    assert ours.getvalue().startswith(b"\x89PNG")
 
 
 def test_render_options_defaults_equal():

@@ -122,6 +122,10 @@ PORT_MODULES = [
     "pathtracer_tpu_torch.ops.traverse",
     "pathtracer_tpu_torch.ops.traverse_cuda",
     "pathtracer_tpu_torch.ops.traverse_stream_cuda",
+    "pathtracer_tpu_torch.parallel",
+    "pathtracer_tpu_torch.parallel.sharding",
+    "pathtracer_tpu_torch.preview",
+    "pathtracer_tpu_torch.preview.server",
     "pathtracer_tpu_torch.scene",
     "pathtracer_tpu_torch.scene.camera",
     "pathtracer_tpu_torch.scene.flatscene",
@@ -130,6 +134,7 @@ PORT_MODULES = [
     "pathtracer_tpu_torch.utils",
     "pathtracer_tpu_torch.utils.config",
     "pathtracer_tpu_torch.utils.image_io",
+    "pathtracer_tpu_torch.utils.profiling",
     "pathtracer_tpu_torch.utils.rng",
     "chip_smoke",
     "tools.blockmajor_reckoning",
@@ -173,9 +178,19 @@ def test_no_hidden_cpu_fallback(scene, monkeypatch):
         pytest.skip("this host has CUDA; the rule is checked where it does not")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Renderer(scene, device="cuda")
+    from pathtracer_tpu_torch.integrator.render import render_scene
+    from pathtracer_tpu_torch.parallel.sharding import make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        render_scene(scene, spp=1, resolution=(8, 8))
+    with pytest.raises(ValueError, match="only 0 CUDA devices are visible"):
+        make_mesh(1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(2, ["cuda:0", "cuda:0"])
     from pathtracer_tpu_torch import cli
 
-    assert cli.main(["render", str(scene), "--res", "8x8", "--spp", "1"]) == 2
+    for cmd in ("render", "bench", "preview"):
+        assert cli.main([cmd, str(scene), "--res", "8x8", "--spp", "1"]) == 2
     # a missing nvcc is an error on first use, never a silent plain version
     from pathtracer_tpu_torch.ops import _build
 
@@ -192,10 +207,23 @@ def test_no_hidden_cpu_fallback(scene, monkeypatch):
     ("use_bvh", False),
 ])
 def test_unported_options_raise(scene, field, value):
-    with pytest.raises(NotImplementedError):
-        Renderer(scene, opts=RenderOptions(**{field: value}), device="cpu")
+    """The options that raised NotImplementedError until the port had their
+    walks no longer raise: `use_bvh=False` renders through the sweep (held
+    to the JAX package in tests/test_torch_traverse_modes.py)."""
+    from pathtracer_tpu_torch.integrator import render
+
+    assert not hasattr(render, "_check_options")
+    r = Renderer(scene, opts=RenderOptions(**{field: value}), resolution=(8, 8), trace_depth=2,
+                 device="cpu")
+    r.step(1)
+    assert np.isfinite(r.hdr_sum()).all()
 
 
 def test_multi_device_raises(scene):
-    with pytest.raises(NotImplementedError):
-        Renderer(scene, devices=2, device="cpu")
+    """devices=2 on the card needs two CUDA devices, and raises without
+    them (the CPU stands in for a mesh only when asked for:
+    tests/test_torch_sharding.py)."""
+    if torch.cuda.is_available() and torch.cuda.device_count() >= 2:
+        pytest.skip("this host has two CUDA devices")
+    with pytest.raises(ValueError, match="2-device mesh"):
+        Renderer(scene, devices=2)
