@@ -103,7 +103,20 @@ line):
    800x799, which pads a row), with both steps' seconds; one
    sample_parallel_step against the sequential iterations;
 17. profiling: a StageTimer report over one iteration's stages, and the top
-   10 device ops of a device_trace of one iteration (top_ops_from_trace).
+   10 device ops of a device_trace of one iteration (top_ops_from_trace);
+18. a mesh that fits neither kernel table: glasstorus built with both
+   budgets at 0 (restored after) has no streaming split, packet_mode None,
+   pallas_traversal turned off and ray_regen ignored; closest_hit's
+   triangle ids on the 640,000 camera rays against K1's on the normal build
+   (lanes that differ must be exact-t ties); a 128x128 MIS render, depth 8,
+   2 spp, that launches none of K1-K5, held to the normal build's render,
+   with both seconds per iteration;
+19. the independent oracle (tools/oracle.py, numpy, on the host's CPU)
+   against the port on the card through tools/oracle_compare_torch.py:
+   cornell_spheres MIS (64 spp) and envtorus MIS with env importance on the
+   port's side (32 spp), 32x32, seeds 0 and 1; each row's cross RMSE after
+   the display transform must not exceed the quadrature of the two noise
+   floors.
 
 The line before the last is a JSON object with one entry per kernel (times,
 errors, launches, and the least time the card could take for the same work);
@@ -1272,6 +1285,99 @@ def phase_profiling(r, card: str):
     log(f"profiling phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+@contextlib.contextmanager
+def no_kernel_table():
+    """Both budgets of the port's table build at 0 inside the block, restored
+    after: a mesh then fits neither the resident tables nor the streaming
+    split, as one of several million triangles does."""
+    from pathtracer_tpu_torch.scene import flatscene as tfs
+
+    was = tfs.RESIDENT_SMEM_BUDGET, tfs.STREAM_SMEM_BUDGET
+    tfs.RESIDENT_SMEM_BUDGET = tfs.STREAM_SMEM_BUDGET = 0
+    try:
+        yield
+    finally:
+        tfs.RESIDENT_SMEM_BUDGET, tfs.STREAM_SMEM_BUDGET = was
+
+
+def phase_no_table(resident, card: str):
+    """The route of a mesh that fits neither kernel table, on glasstorus with
+    both budgets at 0: no split, packet_mode None, pallas_traversal turned
+    off and ray_regen ignored; closest_hit's triangle ids on RES x RES
+    camera rays against K1's on the normal build (`resident`); a 128x128
+    MIS render that launches none of K1-K5, held to the normal build's
+    render, with its seconds per iteration."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator.render import Renderer
+    from pathtracer_tpu_torch.integrator.wavefront import camera_rays
+    from pathtracer_tpu_torch.ops import traverse as tv
+    from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
+
+    t_phase = time.perf_counter()
+    with no_kernel_table():
+        r = Renderer(SCENE, RenderOptions(sample_mode=SampleMode.MIS, ray_regen=REGEN_K),
+                     resolution=(128, 128), trace_depth=DEPTH, device=DEVICE)
+    static = r.static
+    log(f"no kernel table: {r_name(r)} ({static.num_tris} triangles, {static.num_bvh_trees} "
+        f"MTBVH tree(s)): stream blocks {static.stream_subs}, packet_mode "
+        f"{tv.packet_mode(static)}, pallas_traversal {r.opts.pallas_traversal}, regen_k "
+        f"{r.regen_k} with ray_regen={REGEN_K}")
+    if (static.stream_subs or tv.packet_mode(static) is not None
+            or r.opts.pallas_traversal is not False or r.regen_k):
+        raise AssertionError("a mesh that fits no kernel table did not take the MTBVH route")
+    o, d = camera_rays(resident._cam_arrays(), RES, RES, resident.key, 1,
+                       pixel_xy=resident.pixel_xy)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = tv.closest_hit(r.flat, static, o, d)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    ref = tv.closest_hit(resident.flat, resident.static, o, d)
+    compare_walk(f"no kernel table: closest_hit ({secs:.3f} s, launches {launches}) vs K1, "
+                 f"{r_name(r)} camera rays", (got.t, got.tri), (ref.t, ref.tri))
+    if any(launches.values()):
+        raise AssertionError(f"closest_hit launched a kernel on the MTBVH route: {launches}")
+    reset_launch_counts()
+    route_s = timed_step(r, 1)
+    launches = launch_counts()
+    img = r.hdr_sum()
+    normal = Renderer(SCENE, RenderOptions(sample_mode=SampleMode.MIS),
+                      resolution=(128, 128), trace_depth=DEPTH, device=DEVICE)
+    normal_s = timed_step(normal, 1)
+    log(f"no kernel table: {r_name(r)} MIS 128x128 depth {DEPTH} {r.iteration} spp: "
+        f"{route_s:.4f} s/iteration on the MTBVH route, {normal_s:.4f} on K1/K2, on {card}; "
+        f"launches {launches}")
+    if any(launches.values()) or r.iteration != 2:
+        raise AssertionError(f"the render on the MTBVH route launched {launches} in "
+                             f"{r.iteration} iterations")
+    compare_images("no kernel table: the MTBVH route's render against K1/K2's (128x128, 2 spp)",
+                   img, normal.hdr_sum())
+    log(f"no-kernel-table phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_oracle(card: str):
+    """The port's images on the card against the independent numpy oracle
+    (tools/oracle.py, on the host's CPU), through tools/oracle_compare_torch.py:
+    cornell_spheres MIS at 64 spp and envtorus MIS with env importance on the
+    port's side at 32 spp, 32x32, seeds 0 and 1.  Each row's cross RMSE
+    after the display transform must stay within the quadrature of the two
+    implementations' seed-to-seed floors."""
+    from tools.oracle_compare_torch import compare
+
+    t_phase = time.perf_counter()
+    for scene_path, spp, env_is in ((SCENE_CORNELL, 64, False), (SCENE_ENVTORUS, 32, True)):
+        out = compare(scene_path, "mis", res=32, spp=spp, env_is=env_is, device=DEVICE)
+        ratio = out["rmse_ldr"] / out["floor_quad_ldr"]
+        log(f"oracle: {json.dumps(out)}")
+        log(f"oracle: {scene_path.name} rmse_ldr / floor_quad_ldr {ratio:.4f} (1/sqrt(2) = "
+            f"0.7071 for matched physics; must be <= 1) on {card}")
+        if out["rmse_ldr"] > out["floor_quad_ldr"]:
+            raise AssertionError(f"oracle: {scene_path.name} is off the noise floor: {out}")
+    log(f"oracle phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_probes():
     """P1 and P2 against their plain versions; ns per lap at the TPU probes'
     sizes; the kernels line's rows (P2's at P2_ROW_F pops of P2_ROW)."""
@@ -1400,6 +1506,8 @@ def main() -> int:
     phase_profiling(resident[0], card=smi)
     log(f"phases 12-17 (checkpoint, preview, bench, walks, sharding, profiling): "
         f"{time.perf_counter() - t_new:.1f} s")
+    phase_no_table(resident[0], card=smi)
+    phase_oracle(card=smi)
     kernels.update(phase_probes())
     rows = [
         {"name": name_, "route": "cuda", "source": source, "replaces": replaces,

@@ -13,13 +13,16 @@ and adds its contributions, in lane order, to the image: one add per
 iteration, so the image does not depend on the schedule.  With `ray_regen` K
 > 1, `step` renders batches of up to K samples per pixel in one persistent
 pool (the first, warm-up iteration alone); DIRECT_LI and `show_normal` paths
-end after one bounce, so there the option is ignored, as in the JAX package.
+end after one bounce, so there the option is ignored, as in the JAX package,
+and so it is for a triangle scene with `pallas_traversal=False`.
 
 `pallas_traversal=False` walks the triangles with the threaded MTBVH walk
 instead of the kernels, and `use_bvh=False` sweeps every triangle
-(ops/traverse.py; cross-checks, not fast paths).  `devices=N` renders pixel
-rows sharded over N devices (parallel/sharding.py: the first N CUDA devices,
-or N shards on the CPU with device="cpu"); as in the JAX package a sharded
+(ops/traverse.py; cross-checks, not fast paths).  A mesh that fits neither
+kernel table turns `pallas_traversal` off when the tables are built, as the
+JAX Renderer does.  `devices=N` renders pixel rows sharded over N devices
+(parallel/sharding.py: the first N CUDA devices, or N shards on the CPU
+with device="cpu"); as in the JAX package a sharded
 renderer turns the 32x32 swizzle off and ignores `ray_regen`.  These only
 change how the TPU runs, not the image, so they are accepted and ignored:
 `packet_p`, `packet_q`, `packet_dense`, `packet_auto`, `iters_per_dispatch`
@@ -29,6 +32,7 @@ package).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 from dataclasses import dataclass, field
@@ -43,6 +47,7 @@ from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 from pathtracer_tpu_torch.utils.image_io import write_hdr, write_png
 from pathtracer_tpu_torch.integrator.wavefront import CameraArrays, render_iteration
 from pathtracer_tpu_torch.ops import math as m
+from pathtracer_tpu_torch.ops.traverse import packet_mode
 from pathtracer_tpu_torch.scene.flatscene import build_flat_scene
 from pathtracer_tpu_torch.utils import rng
 
@@ -119,6 +124,10 @@ class Renderer:
         if trace_depth is not None:
             scene.trace_depth = trace_depth
         self.flat, self.static = build_flat_scene(scene, opts=self.opts, device=self.device)
+        if self.static.num_tris > 0 and packet_mode(self.static) is None:
+            # no kernel table fits the mesh: the MTBVH walk, as the JAX
+            # Renderer turns pallas_traversal off for its XLA walk
+            self.opts = dataclasses.replace(self.opts, pallas_traversal=False)
         self.width, self.height = scene.camera.resolution
         self.camera: RenderCamera = derive_camera(scene.camera)
         self.cam_position = None  # interactive pan/zoom override (None = scene)
@@ -149,11 +158,13 @@ class Renderer:
     def regen_k(self) -> int:
         """Samples per pixel per regeneration batch (0: one per iteration).
         A DIRECT_LI or show_normal path ends after one bounce, so there is
-        nothing to refill; a sharded renderer ignores regeneration, as the
-        JAX package's does."""
+        nothing to refill; a sharded renderer, and a triangle scene off the
+        kernels (`pallas_traversal=False`, which the JAX package renders
+        staged), ignore regeneration, as the JAX package's do."""
         k = int(self.opts.ray_regen)
         multi_bounce = self.opts.sample_mode != SampleMode.DIRECT_LI and not self.opts.show_normal
-        return k if k > 1 and multi_bounce and self.devices == 1 else 0
+        kernels = bool(self.opts.pallas_traversal) or self.static.num_tris == 0
+        return k if k > 1 and multi_bounce and kernels and self.devices == 1 else 0
 
     def set_seed(self, seed: int):
         self.seed = int(seed)

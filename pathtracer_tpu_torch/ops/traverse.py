@@ -13,7 +13,9 @@ JAX package do (`pathtracer_tpu/ops/traverse.py _bvh_closest`,
 `_brute_closest` and the two branches of `occlusion_test`): the threaded
 MTBVH walk (`use_kernels=False`, the route of `pallas_traversal=False`) and
 the brute-force sweep over every triangle (`use_bvh=False`, the reference's
-USE_BVH=0).  They are cross-checks, not fast paths.
+USE_BVH=0).  They are cross-checks, not fast paths, but for one case: a
+mesh that fits neither kernel table (`packet_mode` None) takes the MTBVH
+walk, as the JAX package's takes its XLA walk.
 """
 
 from __future__ import annotations
@@ -172,13 +174,15 @@ def _geoms_closest(flat: FlatScene, static: SceneStatic, o, d):
     return t_min, geom, point, normal
 
 
-def packet_mode(static: SceneStatic) -> str:
-    """Which kernels walk the scene's triangles: "stream" (K3/K4) when the
-    tables were built with the streaming split, else "resident" (K1/K2).
-    `build_flat_scene` already applied the JAX package's rule
-    (`pathtracer_tpu/ops/traverse.py:308`): it splits only a mesh past the
-    resident budget, and raises for one that fits neither."""
-    return "stream" if static.stream_subs else "resident"
+def packet_mode(static: SceneStatic) -> str | None:
+    """Which kernels walk the scene's triangles: "resident" (K1/K2), "stream"
+    (K3/K4) when the tables were built with the streaming split, or None for
+    a mesh that fits neither, whose triangles take the MTBVH walk.
+    `build_flat_scene` applied the JAX package's rule
+    (`pathtracer_tpu/ops/traverse.py:308`) when it built the tables and
+    recorded the answer, so the route follows the tables, not the budgets
+    at call time."""
+    return static.traversal
 
 
 def _stream_args(static: SceneStatic) -> dict:
@@ -428,9 +432,9 @@ def _kernel_closest(flat: FlatScene, static: SceneStatic, o, d, t_min, alive):
 def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None,
                 use_kernels: bool = True, use_bvh: bool = True) -> Hit:
     """Full-scene closest hit (analytic geoms + triangles).  The triangles go
-    through the kernels, or with `use_kernels=False` the MTBVH walk, or with
-    `use_bvh=False` the brute-force sweep; lanes not `alive` test no
-    triangle."""
+    through the kernels, or with `use_kernels=False` (or no kernel table,
+    `packet_mode` None) the MTBVH walk, or with `use_bvh=False` the
+    brute-force sweep; lanes not `alive` test no triangle."""
     N = o.shape[0]
     dev = o.device
     t_min, geom, point, normal = _geoms_closest(flat, static, o, d)
@@ -441,7 +445,7 @@ def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None,
     if static.num_tris == 0:
         return Hit(t_min, geom, tri, point, normal, uv, tangent, bitangent)
 
-    if not (use_bvh and use_kernels):
+    if not (use_bvh and use_kernels and packet_mode(static)):
         walk = sweep_closest if not use_bvh else mtbvh_closest
         t_tri, tri, u, v = walk(flat, static, o, d, t_min, live=alive)
     else:
@@ -470,7 +474,8 @@ def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=
                    shadow_sort: bool = False, use_kernels: bool = True, use_bvh: bool = True):
     """Is the segment ori -> des blocked?  Analytic geoms with the window
     (t < minT-1e-5 && |t-minT| > 1e-2), then triangles through K2 (K4 for a
-    streamed mesh), or with `use_kernels=False` the MTBVH walk, or with
+    streamed mesh), or with `use_kernels=False` (or no kernel table,
+    `packet_mode` None) the MTBVH walk, or with
     `use_bvh=False` the brute-force sweep, with (t < minT-1e-5 &&
     |t-minT| > 1e-4).
 
@@ -495,7 +500,7 @@ def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=
 
     if static.num_tris == 0:
         return occluded
-    if not (use_bvh and use_kernels):
+    if not (use_bvh and use_kernels and packet_mode(static)):
         walk = sweep_occluded if not use_bvh else mtbvh_occluded
         on = ~occluded if enabled is None else enabled & ~occluded
         return occluded | walk(flat, static, ori, dir, min_t, on)

@@ -141,6 +141,11 @@ class SceneStatic:
     # K3/K4 wrappers hold against their stacks
     stream_top_depth: int = 0
     stream_sub_depth: int = 0
+    # the port's own: which kernels the built tables serve, "resident" (K1/K2),
+    # "stream" (K3/K4) or None for a mesh that fits neither (the MTBVH walk).
+    # The JAX package reads its route from the budgets at call time; the port
+    # fixes it here, so the route always follows the tables
+    traversal: str | None = "resident"
 
 
 # copied from pathtracer_tpu/scene/flatscene.py:156 _pack_triangles
@@ -641,15 +646,15 @@ def build_flat_scene(
      str_base, stream_top, stream_subs, stream_sub_nodes, stream_sub_tris
      ) = build_stream_tables(bvh, tri_pk, wide_nodes, leaf_k=wide_k, wide=wide)
     top_depth = sub_depth = 0
+    traversal = "resident"
     if num_tris and not resident_tables_fit(wide_nodes, num_tris):
-        if stream_subs == 0:
-            # the JAX package falls back to its XLA walk here; the port's
-            # MTBVH walk is a cross-check beside the kernels, not a fallback
-            raise NotImplementedError(
-                f"a mesh of {num_tris} triangles fits neither the resident "
-                "tables nor the streaming split"
-            )
-        top_depth, sub_depth = stream_depths(str_topl, str_subi, stream_sub_nodes)
+        if stream_subs:
+            traversal = "stream"
+            top_depth, sub_depth = stream_depths(str_topl, str_subi, stream_sub_nodes)
+        else:
+            # neither table fits: the triangles take the MTBVH walk, as the
+            # JAX package's take its XLA walk (`packet_mode` None there too)
+            traversal = None
 
     _, atlas_u32, tex_table = _pack_textures(scene)
     env_flat_cdf, env_pdf = _env_cdfs(scene)
@@ -720,5 +725,6 @@ def build_flat_scene(
         image_name=scene.image_name,
         stream_top_depth=top_depth,
         stream_sub_depth=sub_depth,
+        traversal=traversal,
     )
     return flat_from_arrays(arrays, device), static

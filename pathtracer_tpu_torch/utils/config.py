@@ -104,8 +104,8 @@ class RenderOptions:
     # knob_ab.py A/Bs on glassbunny/envbunny/bigbunny160k/texturecube).
     # Explicit non-default P/Q/rows always win over the auto policy.
     interpret: bool = False       # run Pallas kernels in interpreter mode
-    pallas_traversal: bool = True  # packet BVH kernels (TPU); False = XLA
-    # lockstep walk (also the automatic fallback on CPU)
+    pallas_traversal: bool = True  # the traversal kernels; False = the
+    # MTBVH walk (also the automatic fallback for a mesh no kernel table fits)
     swizzle: bool = True          # order the ray pool in 32x32 pixel blocks
     # so traversal packets are spatially coherent (single-device path)
     ray_regen: int = 0            # cross-iteration ray regeneration: > 1
@@ -120,8 +120,10 @@ class RenderOptions:
     # splits do not).  (TPU history:) Measured k=8 on-chip: cornell MIS +23%, BSDF +22%,
     # dielectric +45%, mis_test +75%; NEGATIVE on sorted mesh/env/texture
     # pools (PARITY.md r5) — bench.py/CLI enable it per scene.  Applies
-    # to the fused BSDF/MIS single-device path; DIRECT_LI / staged /
-    # sharded ignore it.
+    # to the BSDF/MIS single-device path on the kernels; DIRECT_LI,
+    # show_normal, sharded renders and triangle scenes with
+    # pallas_traversal off (the JAX package's staged path, and a mesh
+    # that fits no kernel table) ignore it.
     iters_per_dispatch: int = 0   # batch k iterations into one jit call
     # (k sequential bounce loops — NOT nested, so it avoids the rule-5
     # compile pathology).  (TPU history:) The remote backend costs ~10-30 ms of dispatch

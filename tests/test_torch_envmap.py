@@ -35,6 +35,7 @@ from pathtracer_tpu_torch.scene.flatscene import flat_from_arrays
 from pathtracer_tpu_torch.utils import rng as trng
 from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 from pathtracer_tpu_torch.utils.image_io import write_hdr
+from tests.test_torch_traverse import port_static
 from tools.make_texture_assets import ensure_texture_assets
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -146,8 +147,9 @@ def test_light_sample_with_env(which, request):
     enabled = np.arange(N) % 5 != 0
     want = jl.light_sample(flat, static, jnp.asarray(pos), jnp.asarray(rands),
                            include_env=True, enabled=jnp.asarray(enabled))
-    got = tl.light_sample(port, static, torch.from_numpy(pos), torch.from_numpy(rands),
-                          enabled=torch.from_numpy(enabled), include_env=True)
+    got = tl.light_sample(port, port_static(static), torch.from_numpy(pos),
+                          torch.from_numpy(rands), enabled=torch.from_numpy(enabled),
+                          include_env=True)
     np.testing.assert_allclose(got.pos.numpy(), np.asarray(want.pos), rtol=RTOL, atol=5.0)  # 1e7 out
     np.testing.assert_array_equal(got.pdf.numpy() < 0, np.asarray(want.pdf) < 0)  # occlusion
     _close(got.emit, want.emit, rtol=LE_RTOL, atol=0.0)

@@ -32,8 +32,10 @@ def _jax_arrays(flat):
     return {k: np.asarray(v) for k, v in flat._asdict().items()}
 
 
-# SceneStatic fields that only the port has (the streaming walk's depths)
-PORT_STATIC = {"stream_top_depth", "stream_sub_depth"}
+# SceneStatic fields that only the port has: the streaming walk's depths, and
+# the route the built tables serve (the JAX package reads its route from the
+# budgets at call time, `packet_mode`, and keeps no such field)
+PORT_STATIC = {"stream_top_depth", "stream_sub_depth", "traversal"}
 # FlatScene fields that only the port has, each derived from the stream
 # tables: K5's block root boxes, which the JAX package builds inside its
 # kernel's call, K3's padded triangle rows and per-block rows, and K5's
@@ -175,12 +177,15 @@ def test_env_scene_not_ported(tmp_path):
 
 
 def test_mesh_past_resident_budget_not_ported(tmp_path, monkeypatch):
-    """Past the resident budget a mesh takes the streaming tables; only a
-    mesh that fits neither them nor the stream split is refused (the JAX
-    package's XLA-walk fallback is not ported)."""
+    """Past the resident budget a mesh takes the streaming tables; a mesh
+    that fits neither them nor the stream split is no longer refused: its
+    tables are built without a split and record no kernel route (the JAX
+    package's XLA-walk fallback, ported as the MTBVH walk)."""
     monkeypatch.setattr(tfs, "RESIDENT_SMEM_BUDGET", 0)
     _, static = tfs.build_flat_scene(load_scene(_soup(tmp_path)))
     assert static.stream_subs > 0 and static.stream_top > 0
+    assert static.traversal == "stream"
     monkeypatch.setattr(tfs, "STREAM_SMEM_BUDGET", 0)
-    with pytest.raises(NotImplementedError, match="fits neither"):
-        tfs.build_flat_scene(load_scene(_soup(tmp_path)))
+    _, static = tfs.build_flat_scene(load_scene(_soup(tmp_path)))
+    assert static.stream_subs == 0 and static.traversal is None
+    assert static.stream_top_depth == static.stream_sub_depth == 0

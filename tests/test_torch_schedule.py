@@ -50,7 +50,7 @@ from tests.test_envmap import make_env_scene
 from tests.test_regen import lit_soup_scene
 from tests.test_torch_cornell import XLA_ONE_ROUNDING
 from tests.test_torch_render import render_and_compare, small_torus_scene
-from tests.test_torch_traverse import _box_rays, _port, _t
+from tests.test_torch_traverse import _box_rays, _port, _t, port_static
 from tools.make_texture_assets import ensure_texture_assets
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -192,6 +192,7 @@ def test_shadow_sort_matches_jax(torus_box):
     want = jtv.occlusion_test(flat, static, jnp.asarray(o), jnp.asarray(d), jnp.asarray(des),
                               enabled=jnp.asarray(enabled), use_pallas=True, interpret=True,
                               shadow_sort=True)
+    static = port_static(static)
     got = ttv.occlusion_test(tflat, static, _t(o), _t(d), _t(des), enabled=_t(enabled),
                              shadow_sort=True)
     plain = ttv.occlusion_test(tflat, static, _t(o), _t(d), _t(des), enabled=_t(enabled))

@@ -27,6 +27,7 @@ from pathtracer_tpu_torch.ops import math as tm
 from pathtracer_tpu_torch.ops.traverse import closest_hit as tclosest_hit
 from pathtracer_tpu_torch.scene.flatscene import flat_from_arrays
 from tests.test_torch_render import small_torus_scene
+from tests.test_torch_traverse import port_static
 
 N = 4000
 RTOL, ATOL = 1e-5, 1e-6
@@ -139,8 +140,8 @@ def test_light_sample(lit_box):
     enabled = np.arange(N) % 6 != 0
     want = jl.light_sample(flat, static, jnp.asarray(pos), jnp.asarray(rands),
                            enabled=jnp.asarray(enabled))
-    got = tl.light_sample(port, static, torch.from_numpy(pos), torch.from_numpy(rands),
-                          enabled=torch.from_numpy(enabled))
+    got = tl.light_sample(port, port_static(static), torch.from_numpy(pos),
+                          torch.from_numpy(rands), enabled=torch.from_numpy(enabled))
     _close(got.pos, want.pos)
     np.testing.assert_array_equal(got.pdf.numpy() < 0, np.asarray(want.pdf) < 0)  # occlusion
     _close(got.pdf, want.pdf)

@@ -7,6 +7,8 @@ rtol=1e-5 (XLA may round the Möller-Trumbore sums differently in the last
 bit).  Mirrors tests/test_traverse_pallas.py.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +20,7 @@ from pathtracer_tpu.scene.flatscene import build_flat_scene
 from pathtracer_tpu.scene.parser import load_scene
 from pathtracer_tpu_torch.ops import traverse as ttv
 from pathtracer_tpu_torch.ops import traverse_cuda as tc
-from pathtracer_tpu_torch.scene.flatscene import flat_from_arrays
+from pathtracer_tpu_torch.scene.flatscene import SceneStatic, flat_from_arrays
 from tests.test_torch_render import small_torus_scene
 from tests.test_traverse import random_rays, tri_soup_scene
 
@@ -27,6 +29,15 @@ FLT_MAX = jtv.FLT_MAX
 
 def _port(flat):
     return flat_from_arrays({k: np.asarray(v) for k, v in flat._asdict().items()}, "cpu")
+
+
+def port_static(static) -> SceneStatic:
+    """The port's SceneStatic for the JAX package's, of resident tables: the
+    same fields, and the route that the JAX package's `packet_mode` reads
+    from the budgets at call time and the port records when it builds the
+    tables (`traversal`)."""
+    assert static.stream_subs == 0  # the streaming walk's depths are the port's alone
+    return SceneStatic(**dataclasses.asdict(static), traversal=jtv.packet_mode(static))
 
 
 @pytest.fixture(scope="module")
@@ -227,7 +238,7 @@ def test_closest_hit_matches_jax(torus_box):
     o, d = _box_rays(2048, seed=40)
     alive = np.arange(2048) % 5 != 0
     want = jtv.closest_hit(flat, static, jnp.asarray(o), jnp.asarray(d))
-    got = ttv.closest_hit(tflat, static, _t(o), _t(d), alive=_t(alive))
+    got = ttv.closest_hit(tflat, port_static(static), _t(o), _t(d), alive=_t(alive))
     a = alive
     np.testing.assert_array_equal(got.geom.numpy()[a], np.asarray(want.geom)[a])
     np.testing.assert_array_equal(got.tri.numpy()[a], np.asarray(want.tri)[a])
@@ -246,7 +257,8 @@ def test_occlusion_test_matches_jax(torus_box):
     enabled = np.arange(2048) % 4 != 0
     want = jtv.occlusion_test(flat, static, jnp.asarray(o), jnp.asarray(d), jnp.asarray(des),
                               enabled=jnp.asarray(enabled))
-    got = ttv.occlusion_test(tflat, static, _t(o), _t(d), _t(des), enabled=_t(enabled))
+    got = ttv.occlusion_test(tflat, port_static(static), _t(o), _t(d), _t(des),
+                             enabled=_t(enabled))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert 0 < got.sum() < 2048
 

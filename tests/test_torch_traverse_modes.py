@@ -23,7 +23,7 @@ from pathtracer_tpu.utils import config as jax_config
 from pathtracer_tpu_torch.ops import traverse as ttv
 from pathtracer_tpu_torch.utils.config import SampleMode
 from tests.test_torch_render import render_and_compare, small_torus_scene
-from tests.test_torch_traverse import _box_rays, _port, _t
+from tests.test_torch_traverse import _box_rays, _port, _t, port_static
 from tests.test_traverse import random_rays, tri_soup_scene
 
 FLT_MAX = jtv.FLT_MAX
@@ -103,6 +103,7 @@ def test_closest_matches_the_plain_k1(soup, walk):
     """The walks find K1's triangles (its plain version on the CPU), t bit
     for bit, on every lane; lanes not live test no triangle."""
     _, static, tflat = soup
+    static = port_static(static)
     o, d = (_t(x) for x in random_rays(N, seed=33))
     alive = torch.arange(N) % 6 != 0
     kw = dict(use_bvh=False) if walk == "sweep" else dict(use_kernels=False)
@@ -125,6 +126,7 @@ def test_occlusion_matches_jax_and_the_plain_k2(torus_box, walk):
     want = jtv.occlusion_test(flat, static, jnp.asarray(o), jnp.asarray(d), jnp.asarray(des),
                               enabled=jnp.asarray(enabled), **jkw)
     kw = dict(use_bvh=False) if walk == "sweep" else dict(use_kernels=False)
+    static = port_static(static)
     got = ttv.occlusion_test(tflat, static, _t(o), _t(d), _t(des), enabled=_t(enabled), **kw)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert 100 < int(got.sum()) < N
