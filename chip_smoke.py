@@ -11,8 +11,9 @@ line):
    frame and spills for each kernel, and a census of its machine code
    (16-byte loads, local loads and stores, NaN-propagating min/max,
    convergence regions); K1-K4 may not spill and must fetch nodes and
-   triangle rows in 16-byte loads, and the box test must have compiled to
-   NaN-propagating min/max without a convergence region of its own;
+   triangle rows in 16-byte loads, the box test must have compiled to
+   NaN-propagating min/max without a convergence region of its own, and
+   P2's node variants must read a node in 16-byte shared-memory loads;
 3. resident kernel parity on scenes/glasstorus.txt (10,000 triangles) at
    800x800: K1 (closest hit) and K2 (shadow any-hit) against their plain
    PyTorch versions on the card, K1 on the 640,000 camera rays and one
@@ -57,9 +58,13 @@ line):
    envtorus and envtorus with env_importance at 64x64, depth 8, 2 spp, MIS,
    rendered on "cuda" and on "cpu", held to the CPU slice test's image
    tolerance;
-9. the probes P1 and P2 against their plain versions (every P2 variant at a
-   small pop count, from the probe's accumulator start and from a small
-   one), and their ns per lap at the TPU probes' sizes;
+9. the probes P1 and P2 against their plain versions bit for bit (P1 at
+   2,000 laps and at 1, 3 and 5; every P2 variant at a small pop count, from
+   the probe's accumulator start and from a small one); their times at the
+   TPU probes' sizes with the SM clock sampled meanwhile: P1's ns and cycles
+   a lap, every P2 variant's ns and cycles a pop, each beside its bound on
+   one SM by term (probe_bound: operations, bytes, the accumulator's chain)
+   and held to time >= bound / PROBE_SLACK;
 10. the kernels on the pools the scheduler hands them: K1/K2 (glasstorus)
    and K3/K4 (glasstorus160k) against their plain versions on the sorted
    continuation pool of lap 1, on its first shrink-ladder prefix (a view of
@@ -119,7 +124,8 @@ line):
    floors.
 
 The line before the last is a JSON object with one entry per kernel (times,
-errors, launches, and the least time the card could take for the same work);
+errors, launches, and the least time the card could take for the same work:
+for P1 and P2, the least time on the one SM each runs on);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -154,10 +160,13 @@ SCHEDULES = (("compaction=False", {"compaction": False}), ("default schedule", {
 REGEN_K = 8
 ODD_PREFIX = 40_001  # lanes: not a multiple of the kernels' 128-thread CTAs
 KERNEL_RTOL = 1e-5
-PROBE_RTOL = 1e-6  # the probes repeat their plain versions' operations in order
-# P2: pops per parity check, and per timed call of the kernels line (the
-# plain version takes one Python step per pop, so not the probe's 20,000)
-P2_CHECK_F, P2_ROW_F, P2_ROW = 64, 500, "push_branchless"
+# P2: pops per parity check from the probe's start and from a small one, and
+# per timed call of the kernels line (the plain version takes one Python step
+# per pop, so not the probe's 20,000).  The small start's P2_WRAP_F pops run
+# past the 311 nodes (loads4: 4 a pop), so every variant's node index wraps;
+# the probe's start 1e30 absorbs each pop's addend, so it would not show a
+# node read out of turn.
+P2_CHECK_F, P2_WRAP_F, P2_ROW_F, P2_ROW = 64, 320, 500, "push_branchless"
 # The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): float32 outside the
 # tensor cores, and device memory.
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -167,6 +176,49 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # additions or subtractions, 1 division, 1 select, 6 comparisons, and the
 # comparison with the ray's best t or window).
 BOX_OPS, TRI_OPS = 25, 55
+# The probes' bound on one SM (probe_bound).  Each probe is a serial chain of
+# laps on one tile, one CTA on one SM, so the chip-wide rates above do not
+# bound it.  The SM's rates: 128 FP32/INT lanes a clock (4 schedulers of 32),
+# 128 bytes a clock into shared memory or out of L1 (32 banks of 4 bytes a
+# clock; CUDA C++ Programming Guide, "Shared Memory"), and 4 clocks for each
+# dependent arithmetic operation (the same guide, "Multiprocessor Level":
+# typically 4 clock cycles for most arithmetic instructions, compute
+# capability 7.x on; P2's loop_empty, one dependent add a lap with its loop's
+# counter, compare and branch, measures at most that plus the loop).
+SM_LANES, SM_BYTES_PER_CLOCK, DEP_CLOCKS = 128, 128, 4
+P2_LANES_PER_SM = 128  # one CTA of 128 lanes on each of 16 SMs
+# Per lap of P1 and per pop of each P2 variant: the function's operations on
+# the SM that carries the most lanes, the bytes the lap brings to that SM, and
+# the operations of the accumulator's dependent chain (csrc/probes.cu's header
+# note says where each count comes from).
+#   P1: 8 columns x 1,024 lanes x (2 comparisons, the and, the any), 1,023
+#       adds of the row sum, 8 of the bits, 2 of the accumulator; 8 rows of
+#       512 bytes from L2; the accumulator's two adds.
+#   P2, per lane: a box test BOX_OPS (its cap comparison included), a vote,
+#       a link test or a push 1 each, a triangle test TRI_OPS with its 6 edge
+#       subtractions and the select of the hit; the node's 8 boxes (192
+#       bytes) and links (32); the chain as the cheapest form that keeps the
+#       result: aabb compare, select, add for each child; the votes' variants
+#       compare, vote (or OR), count, convert, multiply, add; any1 compare,
+#       vote, select, add; the loops and leaf_mt one add or select.
+_P2_PER_LANE = {  # variant: (operations a lane, bytes, chain operations)
+    "loop_empty": (1, 0, 1),
+    "while_empty": (3, 0, 1),  # the counter's add and compare, the add
+    "loop_and": (3, 0, 1),  # and, convert, add
+    "loop_only": (3, 0, 1),  # remainder, convert, add
+    "loads": (56 + 8 + 1, 224, 1),  # 56 adds, 8 conversions, the add
+    "loads4": (4 * (56 + 8) + 1, 4 * 224, 1),
+    "aabb": (8 * (BOX_OPS + 4), 224, 8 * 3),  # + link add, convert, multiply, add
+    "any1": (BOX_OPS + 3, 24, 4),  # one box: + vote, select, add
+    "aabb_any": (8 * (BOX_OPS + 2) + 3, 192, 6),  # + vote, count; convert, multiply, add
+    "push_branchless": (8 * (BOX_OPS + 3) + 3, 224, 6),  # + vote, link test, push
+    "push_packed": (8 * (BOX_OPS + 1 + 3) + 1 + 3, 224, 6),  # + pack bit; the OR
+    "leaf_mt": (8 * (TRI_OPS + 6 + 1), 8 * 36, 1),
+}
+PROBE_COUNTS = {"P1": (8 * 1024 * 4 + 1023 + 8 + 2, 8 * 512, 2)} | {
+    v: (ops * P2_LANES_PER_SM, nb, chain) for v, (ops, nb, chain) in _P2_PER_LANE.items()}
+# a probe whose time is under its bound / PROBE_SLACK fails: the bound is wrong
+PROBE_SLACK = 1.05
 # The kernels of csrc/walk_core.cuh, K1, K3, K5 (closest hit) and K2, K4 (any
 # hit), with the 16-byte loads each must hold at least: 12 for a node's boxes,
 # 2 for its links, 3 for a triangle row, of which the compiler may narrow the
@@ -174,6 +226,9 @@ BOX_OPS, TRI_OPS = 25, 55
 WALK_KERNELS = {"closest_hit_wbvh_kernel": 17, "closest_hit_stream_kernel": 17,
                 "closest_hit_blockmajor_kernel": 17,
                 "occlusion_wbvh_kernel": 16, "occlusion_stream_kernel": 16}
+# the P2 variants that read whole nodes (csrc/walk_core.cuh fetch_node's loads)
+P2_FETCH_KERNELS = tuple(f"p2_{v}_kernel" for v in (
+    "loads", "loads4", "aabb", "aabb_any", "push_branchless", "push_packed"))
 # convergence regions of K2, K4 and K5 before they took the shared walk
 BSSY_BEFORE = {"occlusion_wbvh_kernel": 29, "occlusion_stream_kernel": 61,
                "closest_hit_blockmajor_kernel": 31}
@@ -199,6 +254,20 @@ def bound(in_out_bytes: int, counts: dict) -> tuple[float, str]:
     bytes_ms = in_out_bytes / PEAK_BYTES * 1e3
     ops_ms = ops / PEAK_FLOPS * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def probe_bound(probe: str, laps: int, mhz: float) -> dict:
+    """The least time of `laps` laps of probe `probe` ("P1" or a P2 variant)
+    on one SM at `mhz`: per lap, the largest of its operations over the SM's
+    lanes, its bytes over the SM's rate and its dependent chain's latency.
+    Returns the three terms in clocks a lap, the one that binds, its clocks
+    a lap and the bound in ms."""
+    ops, nb, chain = PROBE_COUNTS[probe]
+    clocks = {"operations": ops / SM_LANES, "bytes": nb / SM_BYTES_PER_CLOCK,
+              "chain": chain * DEP_CLOCKS}
+    by = max(clocks, key=clocks.get)
+    return {"clocks": clocks, "by": by, "clocks_per_lap": clocks[by],
+            "ms": clocks[by] * laps / (mhz * 1e3)}
 
 
 def phase_device():
@@ -250,6 +319,12 @@ def phase_build():
         ops = census[kernel]
         if ops["LDG.E.128"] < need or ops["FMNMX.NAN"] != ops["FMNMX"]:
             raise AssertionError(f"{kernel} does not fetch in 16-byte loads: {ops}")
+    # P2's node variants read a node as the walks do, 12 + 2 loads of 16 bytes,
+    # from the tables staged in shared memory
+    for kernel in P2_FETCH_KERNELS:
+        if census[kernel]["LDS.128"] < 14:
+            raise AssertionError(f"{kernel} does not pop through the walks' node fetch: "
+                                 f"{census[kernel]}")
 
 
 def _max_err(a, b):
@@ -1379,56 +1454,80 @@ def phase_oracle(card: str):
 
 
 def phase_probes():
-    """P1 and P2 against their plain versions; ns per lap at the TPU probes'
-    sizes; the kernels line's rows (P2's at P2_ROW_F pops of P2_ROW)."""
+    """P1 and P2 against their plain versions, bit for bit (every P2 variant
+    from the probe's start, and from a small one past the wrap of its node
+    index); their times at the TPU probes' sizes beside their bound on one SM
+    (probe_bound) at the SM clock sampled while they ran, each held to time
+    >= bound / PROBE_SLACK; the kernels line's rows (P2's at P2_ROW_F pops of
+    P2_ROW)."""
     import torch
 
     from pathtracer_tpu_torch.ops import probes
+    from tools.cuda_timing import describe_clock, sm_clock
 
     def same(kname, label, got, want):
         torch.cuda.synchronize()
         err = _max_err(got, want)
-        log(f"{kname} {label}: bitwise equal: {torch.equal(got, want)}, max abs err {err:.3g}")
-        torch.testing.assert_close(got, want, rtol=PROBE_RTOL, atol=0.0)
+        equal = torch.equal(got, want)
+        log(f"{kname} {label}: bitwise equal: {equal}, max abs err {err:.3g}")
+        if not equal:
+            raise AssertionError(f"{kname} {label} differs from its plain version")
         return err
 
-    tab, rays = probes.rowprim_inputs(DEVICE)
-    p1_err = same("P1", f"{probes.ROWPRIM_LAPS} laps", probes.rowprim(tab, rays),
-                  probes.rowprim_plain(tab, rays))
-    p1_ms = median_ms(lambda: probes.rowprim(tab, rays))
-    p1_plain_ms = median_ms(lambda: probes.rowprim_plain(tab, rays), runs=1)
-    # per lap: 8 columns x 1,024 lanes x (2 comparisons + 1 and), 1,023 adds
-    # of the row sum, 8 of the bits, 2 of the accumulator
-    p1_ops = probes.ROWPRIM_LAPS * (8 * 1024 * 3 + 1023 + 8 + 2)
-    b1 = max(((nbytes(tab, rays) + 4) / PEAK_BYTES * 1e3, "bytes"),
-             (p1_ops / PEAK_FLOPS * 1e3, "operations"), key=lambda x: x[0])
-    log(f"P1 time: {p1_ms:.4f} ms for {probes.ROWPRIM_LAPS} laps, "
-        f"{p1_ms / probes.ROWPRIM_LAPS * 1e6:.1f} ns/lap; plain {p1_plain_ms:.4f} ms (one run); "
-        f"bound {b1[0]:.6f} ms ({b1[1]})")
+    def held(label, ms, laps, b):
+        per_lap = ms / laps * 1e6
+        terms = ", ".join(f"{k} {v:.2f}" for k, v in b["clocks"].items())
+        log(f"{label}: {ms:.4f} ms, {per_lap:.3f} ns, {per_lap * mhz / 1e3:.1f} cycles a lap; "
+            f"bound on one SM {b['clocks_per_lap']:.2f} cycles a lap ({b['by']}; {terms}), "
+            f"{b['ms']:.6f} ms for {laps} laps; bound / time {b['ms'] / ms:.3f}")
+        if ms < b["ms"] / PROBE_SLACK:
+            raise AssertionError(f"{label} ran in {ms:.6f} ms, under its bound {b['ms']:.6f} ms "
+                                 f"/ {PROBE_SLACK}: the bound is wrong")
 
+    def timed_plain(fn):
+        """One call of a plain version (seconds of host work): its result
+        and its time."""
+        out = []
+        ms = median_ms(lambda: out.append(fn()), runs=1, warmup=False)
+        return out[0], ms
+
+    t_phase = time.perf_counter()
+    tab, rays = probes.rowprim_inputs(DEVICE)
+    p1_want, p1_plain_ms = timed_plain(lambda: probes.rowprim_plain(tab, rays))
+    p1_err = same("P1", f"{probes.ROWPRIM_LAPS} laps", probes.rowprim(tab, rays), p1_want)
+    for laps in (1, 3, 5):  # fewer laps than the ring's stages, and not a multiple of them
+        same("P1", f"{laps} laps", probes.rowprim(tab, rays, laps), probes.rowprim_plain(tab, rays, laps))
     args = probes.pop_inputs(DEVICE)
-    p2_err = 0.0
+    p2_want, p2_plain_ms = timed_plain(lambda: probes.pop_plain(P2_ROW, *args, F=P2_ROW_F))
+    p2_err = same("P2", f"{P2_ROW} F={P2_ROW_F}", probes.pop(P2_ROW, *args, F=P2_ROW_F), p2_want)
     for v in probes.P2_VARIANTS:
-        for acc0 in (probes.POP_ACC0, 50.0 if v == "leaf_mt" else 0.0):
-            kw = dict(F=P2_CHECK_F, acc0=acc0)
-            p2_err = max(p2_err, same("P2", f"{v} F={P2_CHECK_F} start {acc0:g}",
+        small = 50.0 if v == "leaf_mt" else 0.0
+        for acc0, F in ((probes.POP_ACC0, P2_CHECK_F), (small, P2_WRAP_F)):
+            kw = dict(F=F, acc0=acc0)
+            p2_err = max(p2_err, same("P2", f"{v} F={F} start {acc0:g}",
                                       probes.pop(v, *args, **kw), probes.pop_plain(v, *args, **kw)))
-    for v in probes.P2_VARIANTS:
-        ms = median_ms(lambda v=v: probes.pop(v, *args))
-        log(f"P2 {v:17s}: {ms / probes.POP_F * 1e6:8.3f} ns/lap ({probes.POP_F} pops, "
-            f"{ms:.4f} ms, median of 5)")
-    p2_ms = median_ms(lambda: probes.pop(P2_ROW, *args, F=P2_ROW_F))
-    p2_plain_ms = median_ms(lambda: probes.pop_plain(P2_ROW, *args, F=P2_ROW_F), runs=1)
-    # per lane and pop: 8 box tests, each with the vote, the link test and
-    # the push (3 more); 2,048 lanes
-    p2_ops = 2048 * P2_ROW_F * 8 * (BOX_OPS + 3)
-    b2 = max(((nbytes(*args) + 2048 * 4) / PEAK_BYTES * 1e3, "bytes"),
-             (p2_ops / PEAK_FLOPS * 1e3, "operations"), key=lambda x: x[0])
-    log(f"P2 {P2_ROW} at {P2_ROW_F} pops: kernel {p2_ms:.4f} ms, plain {p2_plain_ms:.4f} ms "
-        f"(one run); bound {b2[0]:.6f} ms ({b2[1]})")
+    with sm_clock() as samples:
+        p1_ms = median_ms(lambda: probes.rowprim(tab, rays))
+        p2_ms = {v: median_ms(lambda v=v: probes.pop(v, *args)) for v in probes.P2_VARIANTS}
+        p2_row_ms = median_ms(lambda: probes.pop(P2_ROW, *args, F=P2_ROW_F))
+    if not samples:
+        raise AssertionError("the SM clock was not sampled while the probes ran")
+    mhz = statistics.median(samples)
+    log(f"probes: {describe_clock(samples)}")
+    b1 = probe_bound("P1", probes.ROWPRIM_LAPS, mhz)
+    held(f"P1 {probes.ROWPRIM_LAPS} laps", p1_ms, probes.ROWPRIM_LAPS, b1)
+    for v, ms in p2_ms.items():
+        held(f"P2 {v} {probes.POP_F} pops", ms, probes.POP_F, probe_bound(v, probes.POP_F, mhz))
+    b2 = probe_bound(P2_ROW, P2_ROW_F, mhz)
+    held(f"P2 {P2_ROW} {P2_ROW_F} pops", p2_row_ms, P2_ROW_F, b2)
+    log(f"plain versions (one run each): P1 {p1_plain_ms:.4f} ms, P2 {P2_ROW} at {P2_ROW_F} pops "
+        f"{p2_plain_ms:.4f} ms")
+    log(f"probes phase: {time.perf_counter() - t_phase:.1f} s")
     return {
-        "P1": ("rowprim", SRC_PROBES, "tools/rowprim_probe.py:55", p1_err, p1_ms, p1_plain_ms, b1),
-        "P2": ("pop", SRC_PROBES, "tools/kernel_microbench.py:228", p2_err, p2_ms, p2_plain_ms, b2),
+        "P1": ("rowprim", SRC_PROBES, "tools/rowprim_probe.py:55", p1_err, p1_ms, p1_plain_ms,
+               (b1["ms"], f"{b1['by']}, one SM")),
+        "P2": ("pop", SRC_PROBES, "tools/kernel_microbench.py:228", p2_err, p2_row_ms, p2_plain_ms,
+               (b2["ms"], f"{b2['by']}, one SM")),
     }
 
 

@@ -92,15 +92,26 @@ __device__ __forceinline__ T pick8(const T (&a)[8], int s) {
   return (s & 4) ? q1 : q0;
 }
 
+// How a walk reads its node rows: 16 bytes at a time through the read-only
+// data path.  The probe P2 (probes.cu) pops through fetch_node with a Fetch
+// of its own, for nodes staged in shared memory or already in registers.
+struct LdgFetch {
+  template <class T>
+  __device__ __forceinline__ static T ld(const T* __restrict__ p) {
+    return __ldg(p);
+  }
+};
+
 // The 8 slab tests of a node whose child boxes are the 48 floats at `nf`
 // (16-byte aligned): bit c of the result says that child c's box is hit and
 // entered within `cap`; te[c] is its entry distance.
+template <class Fetch = LdgFetch>
 __device__ __forceinline__ unsigned slab8(const float4* __restrict__ nf, const Ray& r,
                                           float cap, float (&te)[8]) {
   float b[48];
 #pragma unroll
   for (int j = 0; j < 12; ++j) {
-    const float4 q = __ldg(nf + j);
+    const float4 q = Fetch::ld(nf + j);
     b[4 * j] = q.x, b[4 * j + 1] = q.y, b[4 * j + 2] = q.z, b[4 * j + 3] = q.w;
   }
   unsigned pass = 0;
@@ -128,11 +139,11 @@ __device__ __forceinline__ unsigned slab8(const float4* __restrict__ nf, const R
 
 // The fetch of one pop, shared by both walks: the node's 8 links and 8 child
 // boxes in 14 loads of 16 bytes, then the 8 slab tests against `cap`.
-template <class Node>
+template <class Fetch = LdgFetch, class Node>
 __device__ __forceinline__ unsigned fetch_node(const Node& nd, const Ray& r, float cap,
                                                float (&te)[8], int (&link)[8]) {
-  const int4 la = __ldg(nd.links), lb = __ldg(nd.links + 1);
-  const unsigned pass = slab8(nd.boxes, r, cap, te);
+  const int4 la = Fetch::ld(nd.links), lb = Fetch::ld(nd.links + 1);
+  const unsigned pass = slab8<Fetch>(nd.boxes, r, cap, te);
   link[0] = la.x, link[1] = la.y, link[2] = la.z, link[3] = la.w;
   link[4] = lb.x, link[5] = lb.y, link[6] = lb.z, link[7] = lb.w;
   return pass;

@@ -166,10 +166,10 @@ def ptxas_report() -> dict[str, dict[str, int]]:
     return report
 
 
-# SASS opcodes counted per kernel: 16-byte and other global loads, local
-# (stack, spill) loads and stores, NaN-propagating min/max, and the
-# convergence regions (BSSY) that divergent branches open
-SASS_OPCODES = ("LDG.E.128", "LDG", "LDL", "STL", "FMNMX.NAN", "FMNMX", "BSSY", "BRA")
+# SASS opcodes counted per kernel: 16-byte and other global loads, 16-byte
+# shared-memory loads, local (stack, spill) loads and stores, NaN-propagating
+# min/max, and the convergence regions (BSSY) that divergent branches open
+SASS_OPCODES = ("LDG.E.128", "LDG", "LDS.128", "LDL", "STL", "FMNMX.NAN", "FMNMX", "BSSY", "BRA")
 
 
 def sass_census() -> dict[str, dict[str, int]]:

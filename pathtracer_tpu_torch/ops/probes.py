@@ -4,9 +4,14 @@ probes `tools/rowprim_probe.py` (P1) and `tools/kernel_microbench.py` (P2).
 They compute nothing the renderer uses.  P1 times the primitives a
 per-row-stack walk needs (dynamic row reads, broadcasts, per-row any packed
 into bits and read back, a row sum); P2 splits one wide-node pop into its
-costs, one variant per cost.  The CUDA kernels live in `csrc/probes.cu`,
-which says how each TPU primitive maps onto the card.  This module holds,
-for each probe:
+costs, one variant per cost, popping through the node fetch of the
+traversal kernels (`csrc/walk_core.cuh fetch_node`).  The CUDA kernels live
+in `csrc/probes.cu`, which says how each TPU primitive maps onto the card,
+what bounds each probe on one SM and what the design does about it (P1
+stages its rows with TMA bulk copies ahead of the lap; P2 fetches and tests
+the next pop's node before this pop's accumulator-dependent part).
+`chip_smoke.py probe_bound` reckons that bound.  This module holds, for
+each probe:
 
 - the wrapper (`rowprim`, `pop`): on a CPU tensor it runs the plain PyTorch
   version; on a CUDA tensor it launches the kernel (building it on first
@@ -16,7 +21,7 @@ for each probe:
 - a launch counter (`rowprim_launches`, `pop_launches`).
 
 `tools/rowprim_probe_torch.py` and `tools/kernel_microbench_torch.py` print
-ns per lap, as the originals do.
+ns per lap, as the originals do, and the bound on one SM beside it.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from __future__ import annotations
 import torch
 
 from pathtracer_tpu_torch.ops import _build
-from pathtracer_tpu_torch.ops.traverse_cuda import _check_cuda_args, _moller_trumbore, _slab
+from pathtracer_tpu_torch.ops.traverse_cuda import (
+    _check_aligned, _check_cuda_args, _moller_trumbore, _slab)
 
 # P1's sizes (tools/rowprim_probe.py): a (ROWPRIM_M, 128) table, (8, 128) rays
 ROWPRIM_M, ROWPRIM_LAPS = 1024, 2000
@@ -80,13 +86,24 @@ def pop_inputs(device="cpu"):
 
 
 def _tree_sum(x):
-    """Sum of the rows of (R, 32) in the kernel's shuffle-tree order."""
+    """Sum of the rows of (R, W), W a power of two, in a shuffle tree's
+    order: column j takes column j + W/2, then j + W/4, ..., as lane j of a
+    warp takes lane j + 16, then j + 8, ..."""
     x = x.clone()
     off = x.shape[1] // 2
     while off:
         x[:, :off] = x[:, :off] + x[:, off:2 * off]
         off //= 2
     return x[:, 0]
+
+
+def _row_sum(tab8):
+    """The sum of an (8, 128) lap in the kernel's order: one warp per row,
+    lanes 4j .. 4j+3 on thread j as (x0 + x1) + (x2 + x3), a shuffle tree
+    over the warp's 32 threads, then a tree over the 8 rows."""
+    q = tab8.reshape(8, WARP, 4)
+    per_thread = (q[..., 0] + q[..., 1]) + (q[..., 2] + q[..., 3])
+    return _tree_sum(_tree_sum(per_thread)[None])[0]
 
 
 def rowprim_plain(tab, rays, laps: int = ROWPRIM_LAPS):
@@ -100,8 +117,7 @@ def rowprim_plain(tab, rays, laps: int = ROWPRIM_LAPS):
         for c in range(8):
             active = (rays > tab8[:, c:c + 1]) & (rays < tab8[:, 64 + c:65 + c])
             bits = bits | (active.any(dim=1).to(torch.int32) << c)
-        total = _tree_sum(_tree_sum(tab8.reshape(-1, WARP))[None])[0]
-        acc = acc + total + bits.sum().to(torch.float32)
+        acc = acc + _row_sum(tab8) + bits.sum().to(torch.float32)
     return acc.reshape(1, 1)
 
 
@@ -197,6 +213,7 @@ def rowprim(tab, rays, laps: int = ROWPRIM_LAPS):
     if tab.device.type != "cuda":
         raise ValueError(f"rowprim runs on cpu or cuda tensors, not {tab.device}")
     _check_cuda_args(dict(tab=tab, rays=rays), dict(tab=torch.float32, rays=torch.float32))
+    _check_aligned(tab=tab, rays=rays)  # bulk copies of 512-byte rows, 16-byte loads
     lib = _build.load_library()
     out = torch.empty((1, 1), dtype=torch.float32, device=tab.device)
     rc = lib.pt_probe_rowprim(tab.data_ptr(), rays.data_ptr(), out.data_ptr(), tab.shape[0],
@@ -216,6 +233,8 @@ def pop(variant: str, pool, wf, wi, tr, *, F: int = POP_F, leaf_k: int = POP_LEA
     if (tuple(pool.shape) != (3, POP_ROWS, POP_LANES) or wf.numel() % 48
             or wi.numel() != wf.numel() // 2 or tr.dim() != 2 or tr.shape[1] != 12):
         raise ValueError("P2 takes pool (3, 16, 128), wf (M*48,), wi (M*24,) and tr (NT, 12)")
+    if F < 0 or leaf_k < 0:
+        raise ValueError(f"P2 takes F >= 0 and leaf_k >= 0, not {F} and {leaf_k}")
     if pool.device.type == "cpu":
         return pop_plain(variant, pool, wf, wi, tr, F=F, leaf_k=leaf_k, acc0=acc0)
     if pool.device.type != "cuda":
@@ -223,6 +242,7 @@ def pop(variant: str, pool, wf, wi, tr, *, F: int = POP_F, leaf_k: int = POP_LEA
     _check_cuda_args(dict(pool=pool, wf=wf, wi=wi, tr=tr),
                      dict(pool=torch.float32, wf=torch.float32, wi=torch.int32,
                           tr=torch.float32))
+    _check_aligned(wf=wf, wi=wi, tr=tr)  # the node and triangle rows in 16-byte loads
     lib = _build.load_library()
     out = torch.empty((POP_ROWS, POP_LANES), dtype=torch.float32, device=pool.device)
     rc = lib.pt_probe_pop(P2_VARIANTS.index(variant), pool.data_ptr(), wf.data_ptr(),

@@ -2,9 +2,11 @@
 image I/O, OBJ loader, scene parser, camera, BVH build and its native
 builder, the texture atlas and environment CDF builds, the preview's page
 and PNG writer) against the originals, on the CPU: identical inputs must give equal results, arrays
-element for element and files byte for byte.  Also the asset tools."""
+element for element and files byte for byte.  Also the asset tools, and the
+host side of the tools that time the card (turns and timed log lines)."""
 
 import dataclasses
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +31,7 @@ from tests.test_integrator import write_scene
 from tests.test_torch_render import small_torus_scene
 from tests.test_traverse import tri_soup_scene
 from tools import make_texture_assets as mta
+from tools import time_lines, turns
 from tools.make_torus_obj import ensure_torus_obj
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -282,3 +285,30 @@ def test_missing_texture_error_names_the_file(tmp_path):
     with pytest.raises(FileNotFoundError, match="nowhere.png"):
         tparser.load_scene(scene)
     assert jparser.load_scene(scene).materials[2].normal_tex == -1  # the JAX package reads on
+
+
+def test_time_lines_stamps_each_line_and_keeps_the_code(capsys):
+    code = "import sys; print('a'); print('b', file=sys.stderr); sys.exit(3)"
+    assert time_lines.main(["--", sys.executable, "-c", code]) == 3
+    lines = capsys.readouterr().out.splitlines()
+    assert [l.split(None, 1)[1] for l in lines] == ["a", "b"]
+    assert all(float(l.split(None, 1)[0]) >= 0.0 for l in lines)
+
+
+def test_turn_builds_with_the_trees_defines(tmp_path):
+    """A turn runs its worker in the tree, after the tree's _build has taken
+    the turn's defines and its own build directory."""
+    ops = tmp_path / "pathtracer_tpu_torch" / "ops"
+    ops.mkdir(parents=True)
+    (ops.parent / "__init__.py").write_text("")
+    (ops / "__init__.py").write_text("")
+    (ops / "_build.py").write_text("from pathlib import Path\nNVCC_FLAGS = ('-O3',)\n"
+                                   "BUILD_DIR = Path('b')\nbuilt = []\n"
+                                   "def load_library():\n    built.append(BUILD_DIR)\n")
+    worker = ("import json, sys\nprint('RESULT ' + json.dumps([list(_build.NVCC_FLAGS), "
+              "str(_build.built[0]), sys.argv[1:]]))")
+    assert turns.run_turn(f"{tmp_path}:A=1,B=2", worker, "x") == [
+        ["-O3", "-DA=1", "-DB=2"], "b/variant_A-1_B-2", ["x"]]
+    assert turns.run_turn(str(tmp_path), worker) == [["-O3"], "b", []]
+    with pytest.raises(SystemExit, match="failed"):
+        turns.run_turn(str(tmp_path), "raise ValueError")

@@ -21,7 +21,12 @@ CPU, at small lap counts.
 - P1: tools/rowprim_probe.py runs its kernel when imported, so the plain
   version is held to a numpy restatement of its `kernel` (:27-51) at a few
   laps, within rtol 1e-6 (the restatement sums rows in numpy's order, the
-  plain version in the card's shuffle-tree order).
+  plain version in the card's order), and bit for bit to a numpy
+  restatement of the card's order (one warp per row, 4 lanes a thread, a
+  shuffle tree, a tree over the rows) at lap counts that are not a multiple
+  of the kernel's ring of stages.
+- The bound on one SM that chip_smoke.py holds each probe's time to
+  (`probe_bound`), on fixed counts and clocks.
 """
 
 import importlib
@@ -36,6 +41,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import chip_smoke
 import pathtracer_tpu.utils
 from pathtracer_tpu_torch.ops import probes
 
@@ -217,6 +223,23 @@ def test_pop_at_zero_start_matches_numpy(variant):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-30)
 
 
+@pytest.mark.parametrize(
+    "variant", ["loads", "loads4", "aabb", "any1", "aabb_any", "push_branchless", "push_packed"])
+def test_only_the_small_start_shows_which_nodes_are_read(variant):
+    """Why chip_smoke.py phase 9 holds the node variants to their plain
+    versions past the wrap of the node index from a small start: from the
+    probe's start 1e30 absorbs every pop's addend, so the result is the same
+    whichever nodes a pop reads; from 0 it is not."""
+    pool, wf, wi, tr = probes.pop_inputs()
+    tables = ((wf, wi), (torch.roll(wf, -48), torch.roll(wi, -24)))  # node k+1 in node k's place
+    big, other = (probes.pop(variant, pool, a, b, tr, F=8) for a, b in tables)
+    assert torch.equal(big, other)
+    assert torch.equal(big, torch.full_like(big, probes.POP_ACC0))
+    small, other = (probes.pop(variant, pool, a, b, tr, F=8, acc0=0.0) for a, b in tables)
+    assert not torch.equal(small, other)
+    assert chip_smoke.P2_WRAP_F > probes.POP_M  # the node index wraps in every variant
+
+
 def np_rowprim(tab, rays, laps):
     """tools/rowprim_probe.py `kernel` (:27-51), restated in numpy."""
     m = tab.shape[0]
@@ -242,15 +265,110 @@ def test_rowprim_matches_numpy():
     np.testing.assert_allclose(float(got[0, 0]), float(want), rtol=1e-6)
 
 
-def test_rowprim_tree_sum_is_the_cards_order():
-    """The plain version's row sum adds in the shuffle tree's pairs (lane j
-    takes lane j+16, then j+8, ...), per warp and then over the warps."""
-    x = torch.arange(1024, dtype=torch.float32).reshape(32, 32) * 0.1
-    sums = probes._tree_sum(x)
-    want = x.clone()
+def _np_card_row_sum(tab8):
+    """The sum of an (8, 128) lap as the card adds it: thread j of row r's
+    warp holds lanes 4j .. 4j+3 and adds (x0 + x1) + (x2 + x3); a shuffle
+    tree over the warp (lane j takes lane j + 16, then j + 8, ...); then the
+    8 row sums in a tree (row r takes row r + 4, then r + 2, then r + 1)."""
+    q = tab8.reshape(8, 32, 4)
+    v = (q[..., 0] + q[..., 1]) + (q[..., 2] + q[..., 3])
     for off in (16, 8, 4, 2, 1):
-        want = want[:, :off] + want[:, off:2 * off]
-    assert torch.equal(sums, want[:, 0])
+        v = v[:, :off] + v[:, off:2 * off]
+    w = v[:, 0]
+    for off in (4, 2, 1):
+        w = w[:off] + w[off:2 * off]
+    return w[0]
+
+
+def np_rowprim_card(tab, rays, laps):
+    """P1 as the card computes it, in numpy: the row words' sum exactly, the
+    rows' sum in the card's order, acc = (acc + sum) + words."""
+    m = tab.shape[0]
+    acc = np.float32(0)
+    for i in range(laps):
+        tab8 = np.stack([tab[(i * 8 + r * 37) % m] for r in range(8)])
+        words = 0
+        for r in range(8):
+            for c in range(8):
+                words += int(((rays[r] > tab8[r, c]) & (rays[r] < tab8[r, 64 + c])).any()) << c
+        acc = np.float32(acc + _np_card_row_sum(tab8)) + np.float32(words)
+    return np.float32(acc)
+
+
+def test_rowprim_tree_sum_is_the_cards_order():
+    """The plain version's row sum adds as the card does (`_np_card_row_sum`),
+    and on values of mixed magnitude that order differs from a left-to-right
+    sum, so the test tells orders apart."""
+    rng = np.random.default_rng(3)
+    x = (rng.random((8, 128)) * 10.0 ** rng.integers(-3, 4, (8, 128))).astype(np.float32)
+    got = probes._row_sum(torch.from_numpy(x))
+    want = _np_card_row_sum(x)
+    assert got.dtype == torch.float32
+    assert np.float32(got.item()).tobytes() == want.tobytes()
+    left_to_right = np.float32(0)
+    for v in x.reshape(-1):
+        left_to_right = np.float32(left_to_right + v)
+    assert left_to_right != want
+
+
+@pytest.mark.parametrize("laps", [1, 3, 5])
+def test_rowprim_plain_is_the_cards_order(laps):
+    """At lap counts under and not a multiple of the kernel's 4 stages, the
+    plain version (what the card's result is held to) is bitwise the numpy
+    restatement of the card's order."""
+    tab, rays = probes.rowprim_inputs()
+    got = probes.rowprim(tab, rays, laps=laps)
+    want = np_rowprim_card(tab.numpy(), rays.numpy(), laps)
+    assert np.float32(got[0, 0].item()).tobytes() == want.tobytes()
+
+
+def test_rowprim_inside_by_differences_is_exact():
+    """P1's kernel decides lo < r < hi for any of a thread's 4 values by
+    differences and min/max (csrc/probes.cu any_inside): per value the
+    NaN-propagating min of r - lo and hi - r, then the NaN-dropping max of
+    the 4 against 0.  In float32 without flush to zero that equals the
+    comparisons for every input: +-0, subnormals, the largest floats, +-inf
+    and NaN among them."""
+    special = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-38, -1e-38, 0.5, 1.0, -1.0, 1.0000001,
+                        3.4e38, -3.4e38, np.inf, -np.inf, np.nan], np.float32)
+    rng = np.random.default_rng(5)
+    vals = torch.from_numpy(np.concatenate([special, rng.standard_normal(25).astype(np.float32)]))
+    r, lo, hi = torch.meshgrid(vals, vals, vals, indexing="ij")
+    inside = torch.minimum(r - lo, hi - r) > 0
+    assert torch.equal(inside, (r > lo) & (r < hi))
+    picks = torch.from_numpy(rng.integers(0, len(vals), (20000, 6)))
+    r4, lo, hi = vals[picks[:, :4]], vals[picks[:, 4]], vals[picks[:, 5]]
+    a = torch.minimum(r4 - lo[:, None], hi[:, None] - r4)
+    got = torch.fmax(torch.fmax(a[:, 0], a[:, 1]), torch.fmax(a[:, 2], a[:, 3])) > 0
+    want = ((r4 > lo[:, None]) & (r4 < hi[:, None])).any(dim=1)
+    assert torch.equal(got, want) and want.any() and not want.all()
+
+
+# clocks a lap of each probe's three terms on one SM: (operations, bytes, chain)
+BOUND_CLOCKS = {
+    "P1": (33801 / 128, 4096 / 128, 8),
+    "loop_empty": (1, 0, 4), "while_empty": (3, 0, 4), "loop_and": (3, 0, 4),
+    "loop_only": (3, 0, 4), "loads": (65, 224 / 128, 4), "loads4": (257, 896 / 128, 4),
+    "aabb": (232, 224 / 128, 96), "any1": (28, 24 / 128, 16), "aabb_any": (219, 192 / 128, 24),
+    "push_branchless": (227, 224 / 128, 24), "push_packed": (236, 224 / 128, 24),
+    "leaf_mt": (496, 288 / 128, 4),
+}
+
+
+@pytest.mark.parametrize("probe", ["P1", *probes.P2_VARIANTS])
+def test_probe_bound_on_one_sm(probe):
+    """chip_smoke.probe_bound: each term in clocks a lap from the probe's
+    counts, the largest binds, and the bound in ms is its clocks times the
+    laps at the sampled clock."""
+    assert set(chip_smoke.PROBE_COUNTS) == set(BOUND_CLOCKS)
+    b = chip_smoke.probe_bound(probe, 2000, 1980.0)
+    want = dict(zip(("operations", "bytes", "chain"), BOUND_CLOCKS[probe]))
+    assert b["clocks"] == pytest.approx(want, rel=1e-12)
+    assert b["by"] == max(want, key=want.get)
+    assert b["clocks_per_lap"] == pytest.approx(want[b["by"]], rel=1e-12)
+    assert b["ms"] == pytest.approx(want[b["by"]] * 2000 / 1.98e6, rel=1e-12)
+    # half the clock, twice the time
+    assert chip_smoke.probe_bound(probe, 2000, 990.0)["ms"] == pytest.approx(2 * b["ms"], rel=1e-12)
 
 
 def test_wrappers_refuse():
@@ -261,6 +379,8 @@ def test_wrappers_refuse():
         probes.pop("loads", pool[:, :8], wf, wi, tr, F=1)
     with pytest.raises(ValueError, match="cpu or cuda"):
         probes.pop("loads", *(x.to("meta") for x in (pool, wf, wi, tr)), F=1)
+    with pytest.raises(ValueError, match="leaf_k >= 0"):
+        probes.pop("leaf_mt", pool, wf, wi, tr, F=1, leaf_k=-1)
     tab, rays = probes.rowprim_inputs()
     with pytest.raises(ValueError, match="table"):
         probes.rowprim(tab[:, :64], rays, laps=1)

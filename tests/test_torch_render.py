@@ -138,6 +138,7 @@ PORT_MODULES = [
     "pathtracer_tpu_torch.utils.rng",
     "chip_smoke",
     "tools.blockmajor_reckoning",
+    "tools.compare_probes",
     "tools.compare_walk_kernels",
     "tools.cuda_timing",
     "tools.kernel_microbench_torch",
@@ -145,6 +146,8 @@ PORT_MODULES = [
     "tools.profile_torch_port",
     "tools.rowprim_probe_torch",
     "tools.stage_diff_torch",
+    "tools.time_lines",
+    "tools.turns",
 ]
 
 

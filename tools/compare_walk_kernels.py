@@ -11,11 +11,11 @@ gitignored):
     python tools/compare_walk_kernels.py _checkout/parent . . _checkout/parent
 
 Each TREE is the root of a checkout that holds `chip_smoke.py` and the
-port; the trees run in the order given, each in a process of its own, so
-old-new-new-old shows the run-to-run spread beside the difference.  A tree
-may carry compile-time defines for its kernels (`.:WALK_THREADS=64`): they
-are passed to nvcc as `-D`, and the libraries go into a build directory of
-their own.  In each turn the tree's own `chip_smoke.py` builds the three
+port; the trees run in the order given, each in a process of its own
+(`tools/turns.py`), so old-new-new-old shows the run-to-run spread beside
+the difference.  A tree may carry compile-time defines for its kernels
+(`.:WALK_THREADS=64`): they are passed to nvcc as `-D`, and the libraries go
+into a build directory of their own.  In each turn the tree's own `chip_smoke.py` builds the three
 scenes' tables (glasstorus, glasstorus160k, glasstorus640k) and calls the
 tree's kernels; the rays are those of this checkout's `chip_smoke.py
 ray_cases` for every tree (the 800x800 frame's 640,000 camera and
@@ -41,35 +41,27 @@ shared between the trees.
 from __future__ import annotations
 
 import argparse
-import json
-import os
 import shutil
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 
-# Runs with a tree's root as working directory; uses only what every tree's
+from tools import turns as T  # noqa: E402
+
+# Runs in a tree after turns.BUILD_PRELUDE; uses only what every tree's
 # chip_smoke.py has had since the streaming kernels landed.
 WORKER = r"""
 import importlib.util, json, sys
-from pathlib import Path
 meshes, runs, rays_from = sys.argv[1].split(","), int(sys.argv[2]), sys.argv[3]
-defines = [a for a in sys.argv[4:] if a]
 import torch
 import chip_smoke as cs
-from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops import traverse_cuda as tc
 from tools.cuda_timing import describe_clock, median_ms, sm_clock
 spec = importlib.util.spec_from_file_location("ray_source", rays_from)
 ray_source = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(ray_source)
-if defines:
-    _build.NVCC_FLAGS = _build.NVCC_FLAGS + tuple("-D" + a for a in defines)
-    _build.BUILD_DIR = _build.BUILD_DIR / ("variant_" + "_".join(defines).replace("=", "-"))
-_build.load_library()
 report = {k: v for k, v in _build.ptxas_report().items() if not k.startswith("p")}
 out = {"ptxas": report, "meshes": {}}
 for scene in (cs.SCENE, cs.SCENE_160K, cs.SCENE_640K):
@@ -136,10 +128,7 @@ def main(argv=None) -> int:
     p.add_argument("--runs", type=int, default=5)
     args = p.parse_args(argv)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"nvidia-smi: {smi}", flush=True)
-    sys.path.insert(0, str(ROOT))
+    smi = T.card()
     from tools.make_torus_obj import ensure_torus_obj
 
     assets = {"torus160k.obj": (400, 200), "torus640k.obj": (800, 400)}
@@ -148,24 +137,13 @@ def main(argv=None) -> int:
 
     turns = []
     for spec in args.trees:
-        tree, _, defs = spec.partition(":")
-        root = Path(tree).resolve()
         for name in assets:  # the OBJs are gitignored, so a fresh checkout lacks them
-            dst = root / "scenes" / "assets" / name
+            dst = T.tree_root(spec) / "scenes" / "assets" / name
             if not dst.exists():
                 shutil.copy(ROOT / "scenes" / "assets" / name, dst)
-        proc = subprocess.run([sys.executable, "-c", WORKER, args.meshes, str(args.runs),
-                               str(ROOT / "chip_smoke.py"), *defs.split(",")], cwd=root,
-                              env={**os.environ, "PYTHONPATH": str(root)},
-                              capture_output=True, text=True)
-        line = next((l for l in proc.stdout.splitlines() if l.startswith("RESULT ")), None)
-        if proc.returncode != 0 or line is None:
-            print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
-            raise SystemExit(f"the turn of {spec} failed")
-        res = json.loads(line[len("RESULT "):])
+        res = T.run_turn(spec, WORKER, args.meshes, str(args.runs), str(ROOT / "chip_smoke.py"))
         turns.append({"tree": spec, **res})
-        for kernel, props in sorted(res["ptxas"].items()):  # empty when already built
-            print(f"{spec} ptxas {kernel}: {props}", flush=True)
+        T.print_ptxas(spec, res["ptxas"])
         for mesh, m in res["meshes"].items():
             ms = m["ms"]
             ratio = (f", K3/K1 {ms['K3'] / ms['K1']:.3f}, K5/K3 {ms['K5'] / ms['K3']:.3f}, "
@@ -179,18 +157,9 @@ def main(argv=None) -> int:
             raise SystemExit(f"{spec}: a kernel disagrees with its plain version")
 
     print("medians over each tree's turns (ms):")
-    for spec in dict.fromkeys(t["tree"] for t in turns):
-        mine = [t for t in turns if t["tree"] == spec]
-        for mesh in mine[0]["meshes"]:
-            cells = []
-            for kernel in mine[0]["meshes"][mesh]["ms"]:
-                vals = [t["meshes"][mesh]["ms"][kernel] for t in mine]
-                cells.append(f"{kernel} {statistics.median(vals):.4f} "
-                             f"({' / '.join(f'{v:.4f}' for v in vals)})")
-            print(f"  {spec} {mesh}: " + ", ".join(cells))
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps({"card": smi, "turns": turns}, indent=1))
+    T.print_medians(turns, lambda t: {f" {mesh}": m["ms"] for mesh, m in t["meshes"].items()},
+                    ".4f")
+    T.write_out(args.out, smi, turns)
     return 0
 
 

@@ -4,15 +4,18 @@ counterpart of tools/rowprim_probe.py.
     python tools/rowprim_probe_torch.py
 
 Runs the P1 probe of `pathtracer_tpu_torch/ops/probes.py` (kernel in
-`csrc/probes.cu`): one CTA of 1,024 threads (8 rows x 128 lanes), 2,000
-laps of 8 dynamic row reads from a (1024, 128) table in device memory,
-16 broadcasts through shared memory, 8 per-row any votes packed into bits
-and read back as scalars, and a sum of the 8 rows; table and rays from
-numpy with seed 0.  Prints the result and ns per lap (the kernel's time
-over the laps, median of 20 runs timed with CUDA events after a warm-up),
-as the original does, then the SM clock `nvidia-smi` sampled meanwhile and
-the cycles per lap at its median.  The card's name and power limit come
-first.  Needs CUDA.
+`csrc/probes.cu`): one CTA on one SM, a warp per row of the (8, 128) tile
+and one that sums, 2,000 laps of 8 rows of a (1024, 128) table staged by
+TMA bulk copies, 16 broadcasts, 8 per-row any votes packed into bits and
+read back as scalars, and a sum of the 8 rows; table and rays from numpy
+with seed 0.  Prints the result and ns per lap (the kernel's time over the
+laps, median of 200 runs timed with CUDA events after a warm-up, enough for
+nvidia-smi to sample the clock), as the
+original does, then the SM clock `nvidia-smi` sampled meanwhile, the cycles
+per lap at its median, and the bound on one SM at that clock
+(`chip_smoke.py probe_bound`: operations, bytes and the accumulator's chain
+in clocks a lap, and the share of the bound the time reaches).  The card's
+name and power limit come first.  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def main() -> int:
     import torch
 
+    from chip_smoke import probe_bound
     from pathtracer_tpu_torch.ops import probes
     from tools.cuda_timing import describe_clock, median_ms, sm_clock
 
@@ -41,12 +45,17 @@ def main() -> int:
     out = probes.rowprim(tab, rays)
     print("compile ok, result", float(out[0, 0]), flush=True)
     with sm_clock() as mhz:
-        ms = median_ms(lambda: probes.rowprim(tab, rays), runs=20)
+        ms = median_ms(lambda: probes.rowprim(tab, rays), runs=200)
     ns = ms / probes.ROWPRIM_LAPS * 1e6
     cycles = f", {ns * statistics.median(mhz) / 1e3:.0f} cycles/lap" if mhz else ""
     print(f"{probes.ROWPRIM_LAPS} laps: {ms:.4f} ms -> {ns:.1f} ns/lap "
           f"(8 row-reads + 8x2 bcasts + 8 reduces + scalar readback); "
           f"{describe_clock(mhz)}{cycles}")
+    if mhz:
+        b = probe_bound("P1", probes.ROWPRIM_LAPS, statistics.median(mhz))
+        print(f"bound on one SM: {b['clocks_per_lap']:.2f} cycles/lap ({b['by']}; "
+              + ", ".join(f"{k} {v:.2f}" for k, v in b["clocks"].items())
+              + f"), {b['ms']:.6f} ms; bound / time {b['ms'] / ms:.3f}")
     return 0
 
 
