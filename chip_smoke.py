@@ -121,7 +121,15 @@ line):
    cornell_spheres MIS (64 spp) and envtorus MIS with env importance on the
    port's side (32 spp), 32x32, seeds 0 and 1; each row's cross RMSE after
    the display transform must not exceed the quadrature of the two noise
-   floors.
+   floors;
+20. the driver entry (pathtracer_tpu_torch/entry.py), as a driver calls it:
+   entry()'s step on the card ((4096, 3), rays > 0, depth >= 1) bitwise a
+   Renderer's first iteration of cornell_spheres at 64x64, depth 4, MIS,
+   launching none of K1-K5; then dryrun_multichip(2) over [cuda:0, cuda:0]:
+   pixel sharding on cornell_spheres and on glasstorus (K1 and K2 must
+   launch, K3-K5 not) and sample sharding, each pass bitwise the one-device
+   steps; the phase's seconds beside the card's name and power limit, held
+   under ENTRY_PHASE_S.
 
 The line before the last is a JSON object with one entry per kernel (times,
 errors, launches, and the least time the card could take for the same work:
@@ -237,6 +245,7 @@ SHADOW_SETS = ("NEE", "NEE continuation")  # the kernels line's times are the fi
 SRC_RESIDENT = "pathtracer_tpu_torch/csrc/wbvh_traverse.cu"
 SRC_STREAM = "pathtracer_tpu_torch/csrc/stream_traverse.cu"
 SRC_PROBES = "pathtracer_tpu_torch/csrc/probes.cu"
+ENTRY_PHASE_S = 30.0  # phase 20 fails past this many seconds
 
 
 def log(msg: str) -> None:
@@ -1453,6 +1462,46 @@ def phase_oracle(card: str):
     log(f"oracle phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_entry(card: str):
+    """entry()'s step against a Renderer's first iteration, bitwise, with no
+    kernel launched; dryrun_multichip(2) over [cuda:0, cuda:0] in full
+    mode, which holds each pass bitwise to the one-device steps itself; K1
+    and K2 launched in it, K3-K5 not.  Its only triangles are the mesh
+    pass's, so the dry run's counts are that pass's."""
+    import torch
+
+    from pathtracer_tpu_torch import entry
+    from pathtracer_tpu_torch.integrator.render import Renderer
+    from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    fn, args = entry.entry(device=DEVICE)
+    img, rays, depth = fn(*args)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    r = Renderer(entry.SCENE, RenderOptions(sample_mode=SampleMode.MIS), resolution=(64, 64),
+                 trace_depth=4, device=DEVICE)
+    r.step(1)
+    same = torch.equal(img, r.img)
+    log(f"entry: step on {img.device}: img {tuple(img.shape)}, rays {int(rays)}, depth {depth}, "
+        f"bitwise the Renderer's first iteration: {same}; launches {launches}")
+    if (tuple(img.shape) != (64 * 64, 3) or int(rays) <= 0 or depth < 1 or not same
+            or any(launches[k] for k in ("K1", "K2", "K3", "K4", "K5"))):
+        raise AssertionError("entry()'s step is not the Renderer's first iteration")
+    reset_launch_counts()
+    entry.dryrun_multichip(2, devices=[DEVICE, DEVICE])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"entry: dryrun_multichip(2) over [{DEVICE}, {DEVICE}]: launches {launches}")
+    if not (launches["K1"] and launches["K2"]) or any(launches[k] for k in ("K3", "K4", "K5")):
+        raise AssertionError(f"the dry run launched {launches}; needs K1 and K2, none of K3-K5")
+    phase_s = time.perf_counter() - t_phase
+    log(f"entry phase: {phase_s:.1f} s on {card}")
+    if phase_s > ENTRY_PHASE_S:
+        raise AssertionError(f"the entry phase took {phase_s:.1f} s, over {ENTRY_PHASE_S} s")
+
+
 def phase_probes():
     """P1 and P2 against their plain versions, bit for bit (every P2 variant
     from the probe's start, and from a small one past the wrap of its node
@@ -1607,6 +1656,7 @@ def main() -> int:
         f"{time.perf_counter() - t_new:.1f} s")
     phase_no_table(resident[0], card=smi)
     phase_oracle(card=smi)
+    phase_entry(card=smi)
     kernels.update(phase_probes())
     rows = [
         {"name": name_, "route": "cuda", "source": source, "replaces": replaces,

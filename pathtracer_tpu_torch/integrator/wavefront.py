@@ -516,3 +516,48 @@ def render_iteration(flat: FlatScene, static: SceneStatic, opts: RenderOptions,
         env_cols = ("d", "color", "prev_pdf", "env_miss") if static.env_map_id >= 0 else ()
         pool = in_lane_order(pool, ("contrib",) + env_cols)
     return resolve_env(flat, static, mode, pool, env_nee), rays, laps
+
+
+def make_render_iteration(static: SceneStatic, opts: RenderOptions, width: int, height: int,
+                          local_rows: int | None = None, pixel_xy=None, regen_k: int = 1):
+    """The JAX package's step factory (`pathtracer_tpu/integrator/
+    wavefront.py make_render_iteration`) over `render_iteration`.
+
+    Returns f(flat, cam, img, iteration, key, pixel0=0) -> (img + contrib,
+    rays, depth): `img` is the running HDR sum in lane order, (local_rows *
+    width, 3); rays the int64 count of the rays emitted; depth the bounce
+    laps run, all levels of the shrink ladder counted (the JAX package's
+    traced depth).  `local_rows` rows from pixel `pixel0` on make the pool
+    (the sharding hook; default: the whole film).  With `regen_k` > 1 it
+    returns the regeneration variant f(flat, cam, img, it0, key, nk,
+    pixel0=0), samples it0 .. it0 + nk - 1 in one pool.  `iteration`, `it0`,
+    `nk` and `pixel0` may be ints or 0-d tensors: the lap loop runs on the
+    host, so a CUDA tensor costs one host read each.  The image add is the
+    Renderer's, so a step is bit for bit a Renderer iteration on the same
+    lanes.  The JAX package's staged entries (start_state, bounce_step,
+    finish_state) are not ported: the port's iteration is a host loop of
+    laps already."""
+    if (static.width, static.height) != (width, height):
+        raise ValueError(f"the tables were built for a {static.width}x{static.height} film, "
+                         f"not {width}x{height}")
+    regen = int(regen_k) > 1
+    if regen and (opts.sample_mode == SampleMode.DIRECT_LI or bool(opts.show_normal)):
+        raise ValueError(
+            "ray regeneration applies to the multi-bounce BSDF/MIS integrators (DIRECT_LI / "
+            "show_normal pools die after one bounce by construction)")
+
+    def run(flat, cam, img, iteration, key, nk, pixel0):
+        contrib, rays, laps = render_iteration(
+            flat, static, opts, cam, key, int(iteration), pixel_xy=pixel_xy, nk=nk,
+            pixel0=int(pixel0), local_rows=local_rows)
+        return img + contrib, rays, len(laps)
+
+    def render_step(flat: FlatScene, cam: CameraArrays, img, iteration, key, pixel0=0):
+        return run(flat, cam, img, iteration, key, None, pixel0)
+
+    def render_batch(flat: FlatScene, cam: CameraArrays, img, it0, key, nk, pixel0=0):
+        return run(flat, cam, img, it0, key, int(nk), pixel0)
+
+    fn = render_batch if regen else render_step
+    fn.trace_depth = static.trace_depth
+    return fn

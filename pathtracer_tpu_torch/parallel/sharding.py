@@ -16,6 +16,8 @@ are copied once per distinct device.
   film, device d the iteration (it - 1) * n + d + 1, and `combine` sums the
   accumulators.
 
+Each shard runs the step of `integrator/wavefront.py make_render_iteration`
+(with `local_rows` in pixel space), as the JAX package's shard_map bodies do.
 The shards run one after another from the calling thread, each with the
 single-device loop's one host read a lap.
 """
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from pathtracer_tpu_torch.integrator.render import resolve_device
-from pathtracer_tpu_torch.integrator.wavefront import CameraArrays, render_iteration
+from pathtracer_tpu_torch.integrator.wavefront import CameraArrays, make_render_iteration
 from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
 from pathtracer_tpu_torch.utils.config import RenderOptions
 
@@ -89,12 +91,6 @@ class _Tables:
         return CameraArrays(*(t.to(dev) for t in cam))
 
 
-def _check_film(static: SceneStatic, width: int, height: int) -> None:
-    if (static.width, static.height) != (width, height):
-        raise ValueError(f"the tables were built for a {static.width}x{static.height} film, "
-                         f"not {width}x{height}")
-
-
 def make_sharded_iteration(
     static: SceneStatic,
     opts: RenderOptions,
@@ -110,22 +106,20 @@ def make_sharded_iteration(
     device), rays_traced the count over all shards (an int64 tensor on the
     first device) and depth the most bounce laps a shard ran.
     """
-    _check_film(static, width, height)
     n_dev = len(mesh)
     ph = padded_height(height, n_dev)
     local_h = ph // n_dev
+    local_iter = make_render_iteration(static, opts, width, height, local_rows=local_h)
     tables = _Tables()
 
     def step(flat, cam, img, iteration, key):
         out, rays, depth = [], [], 0
         for d, dev in enumerate(mesh):
-            contrib, r, laps = render_iteration(
-                tables.flat(flat, dev), static, opts, tables.cam(cam, dev), key, int(iteration),
-                pixel0=d * local_h * width, local_rows=local_h,
-            )
-            out.append(img[d] + contrib)
+            part, r, laps = local_iter(tables.flat(flat, dev), tables.cam(cam, dev), img[d],
+                                       iteration, key, d * local_h * width)
+            out.append(part)
             rays.append(r)
-            depth = max(depth, len(laps))
+            depth = max(depth, laps)
         return out, sum(r.to(mesh[0]) for r in rays), depth
 
     return step, list(mesh), ph
@@ -153,8 +147,8 @@ def sample_parallel_step(
     different iteration stripe.  Returns (step, combine): step(flat, cam,
     img, iteration, key) -> (img, rays_traced), img a list of one (W*H, 3)
     accumulator per device; combine(img) sums them on the first device."""
-    _check_film(static, width, height)
     n_dev = len(mesh)
+    full_iter = make_render_iteration(static, opts, width, height)
     tables = _Tables()
 
     def step(flat, cam, img, iteration, key):
@@ -162,9 +156,8 @@ def sample_parallel_step(
         for d, dev in enumerate(mesh):
             # device d renders iteration n_dev * (iteration - 1) + d + 1
             it = (int(iteration) - 1) * n_dev + d + 1
-            contrib, r, _ = render_iteration(tables.flat(flat, dev), static, opts,
-                                             tables.cam(cam, dev), key, it)
-            out.append(img[d] + contrib)
+            part, r, _ = full_iter(tables.flat(flat, dev), tables.cam(cam, dev), img[d], it, key)
+            out.append(part)
             rays.append(r)
         return out, sum(r.to(mesh[0]) for r in rays)
 

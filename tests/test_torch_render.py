@@ -107,6 +107,7 @@ PORT_MODULES = [
     "pathtracer_tpu_torch.accel.bvh",
     "pathtracer_tpu_torch.accel.native",
     "pathtracer_tpu_torch.cli",
+    "pathtracer_tpu_torch.entry",
     "pathtracer_tpu_torch.integrator",
     "pathtracer_tpu_torch.integrator.render",
     "pathtracer_tpu_torch.integrator.wavefront",
