@@ -83,9 +83,10 @@ line):
    batch of 8), within the image tolerance of them with the rays counted
    exactly equal.  Per path: s/iteration, launches of K1-K5 per iteration
    (counts zeroed just before the path, read just after; each path must
-   launch its scene's kernels), kernel launches in all and device-busy ms
-   per sample under torch.profiler over one more iteration (or batch of 8),
-   laps per sample and the pool's length at each lap;
+   launch its scene's kernels), device ops and host-issued launches in all
+   and device-busy ms per sample under torch.profiler over one more
+   iteration (or batch of 8), laps per sample and the pool's length at each
+   lap;
 12. checkpoint/resume on glasstorus (MIS, 800x800, depth 8): 3 spp,
    save_checkpoint, 2 more, against a new Renderer that loads the file and
    renders 2 (HDR sums bitwise equal, rays equal), the same with
@@ -129,7 +130,31 @@ line):
    pixel sharding on cornell_spheres and on glasstorus (K1 and K2 must
    launch, K3-K5 not) and sample sharding, each pass bitwise the one-device
    steps; the phase's seconds beside the card's name and power limit, held
-   under ENTRY_PHASE_S.
+   under ENTRY_PHASE_S;
+21. the Renderer's compiled iteration (integrator/graphs.py): on glasstorus
+   (K1/K2), glasstorus160k (K3/K4), cornell_spheres, texcube, envtorus with
+   env_importance and glasstorus with ray_regen=8, MIS 800x800 depth 8, the
+   Renderer's graph route against its eager loop (render_iteration, the
+   route switched off in this process) over the same iterations: HDR sums
+   bitwise, rays, laps and the pool's length at each lap equal, K1-K5
+   launches per iteration equal; the graph route may not enter the eager
+   loop.  Printed: the graphs captured and their seconds, replays per
+   iteration, the memory reserved, s/iteration of both paths (medians of 5
+   iterations, or under ray_regen of 5 batches of 2 samples, per sample;
+   glasstorus also at 128x128), the case's seconds, and, for one more
+   iteration under the profiler (glasstorus on both routes, glasstorus160k
+   on the graph route), host-issued launches and device-busy ms, and K1-K5's
+   runs on the device, which must equal the launch counters over it and the
+   eager loop's launches an iteration.  The cases of one scene and film
+   share one Renderer, the options swapped in.  After the 128x128 case's
+   timed steps, a set_seed and then a set_orbit, a step after each, on both
+   paths: the images bitwise equal, the graphs recaptured for the seed.
+   Held under GRAPH_PHASE_S.
+
+Every Renderer on the card (phases 6-8, 11-14, 16, 18-19, 21) replays its
+iteration as CUDA graphs, but for the triangle scenes off the kernels
+(phase 15's and 18's walks), which run the eager loop as the JAX Renderer
+runs them staged; the main path (phase 6) must replay graphs.
 
 The line before the last is a JSON object with one entry per kernel (times,
 errors, launches, and the least time the card could take for the same work:
@@ -246,6 +271,19 @@ SRC_RESIDENT = "pathtracer_tpu_torch/csrc/wbvh_traverse.cu"
 SRC_STREAM = "pathtracer_tpu_torch/csrc/stream_traverse.cu"
 SRC_PROBES = "pathtracer_tpu_torch/csrc/probes.cu"
 ENTRY_PHASE_S = 30.0  # phase 20 fails past this many seconds
+GRAPH_PHASE_S = 60.0  # phase 21 fails past this many seconds
+GRAPH_CASES = (  # phase 21: name, scene, options, kernels it launches, the timed steps
+    ("glasstorus", SCENE, {}, ("K1", "K2"), (1,) * 5),
+    # five batches of 2 samples (refills and all): on H100 machines the eager loop's 40 samples
+    # of five full batches took 21 s of the phase, its 20 of five batches of 4 up to 10 s
+    (f"glasstorus ray_regen={REGEN_K}", SCENE, {"ray_regen": REGEN_K}, ("K1", "K2"), (2,) * 5),
+    ("glasstorus160k", SCENE_160K, {}, ("K3", "K4"), (1,) * 5),
+    ("cornell_spheres", SCENE_CORNELL, {}, (), (1,) * 5),
+    ("texcube", SCENE_TEXCUBE, {}, ("K1", "K2"), (1,) * 5),
+    ("envtorus env_importance", SCENE_ENVTORUS, {"env_importance": True}, ("K1", "K2"), (1,) * 5),
+)
+# phase 21 profiles one more iteration of these cases, on these routes
+GRAPH_PROFILED = {"glasstorus": ("eager", "graphs"), "glasstorus160k": ("graphs",)}
 
 
 def log(msg: str) -> None:
@@ -375,11 +413,11 @@ def ray_cases(r):
     o, d = camera_rays(r._cam_arrays(), RES, RES, r.key, 1, pixel_xy=r.pixel_xy)
     n = o.shape[0]
     t_geo, *_ = tv._geoms_closest(flat, static, o, d)
-    t_cam = tv._root_box_cull(static, o, d, t_geo)
+    t_cam = tv._root_box_cull(flat, o, d, t_geo)
     pool, _ = bounce(flat, static, SampleMode.MIS, r.key, 1, 0, new_pool(o, d))
     o2, d2 = pool.o, pool.d
     t_geo2, *_ = tv._geoms_closest(flat, static, o2, d2)
-    t_cont = tv._root_box_cull(static, o2, d2, torch.where(pool.alive, t_geo2, tv.DEAD_T))
+    t_cont = tv._root_box_cull(flat, o2, d2, torch.where(pool.alive, t_geo2, tv.DEAD_T))
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     dead = torch.rand(n, device=DEVICE, generator=gen) < 0.25
     closest = {
@@ -397,7 +435,7 @@ def ray_cases(r):
         sd = to_l / min_t[:, None]
         so = point + 1e-5 * sd
         if live is not None:
-            min_t = tv._root_box_cull(static, so, sd, torch.where(live, min_t, tv.DEAD_T))
+            min_t = tv._root_box_cull(flat, so, sd, torch.where(live, min_t, tv.DEAD_T))
         return {
             label: (so, sd, min_t, torch.zeros_like(occ0)),
             f"{label}, occluded0 every 7th, 25% -FLT_MAX":
@@ -743,11 +781,12 @@ def scheduled_ray_cases(r):
 
     flat, static = r.flat, r.static
     o, d = camera_rays(r._cam_arrays(), RES, RES, r.key, 1, pixel_xy=r.pixel_xy)
-    pool, _ = bounce(flat, static, SampleMode.MIS, r.key, 1, 0, sort_pool(static, new_pool(o, d)))
-    pool = sort_pool(static, pool)
+    pool, _ = bounce(flat, static, SampleMode.MIS, r.key, 1, 0,
+                     sort_pool(flat, static, new_pool(o, d)))
+    pool = sort_pool(flat, static, pool)
     o2, d2 = pool.o, pool.d
     t_geo, *_ = tv._geoms_closest(flat, static, o2, d2)
-    t2 = tv._root_box_cull(static, o2, d2, torch.where(pool.alive, t_geo, tv.DEAD_T))
+    t2 = tv._root_box_cull(flat, o2, d2, torch.where(pool.alive, t_geo, tv.DEAD_T))
     nxt = schedule(static, r.opts, RES * RES).shrink[0][0]
     lane_order = in_lane_order(pool._replace(contrib=t2), ("o", "d", "contrib"))
 
@@ -770,8 +809,8 @@ def scheduled_ray_cases(r):
     min_t = torch.sqrt((to_l * to_l).sum(1))
     sd = to_l / min_t[:, None]
     so = hit.point + 1e-5 * sd
-    mt = tv._root_box_cull(static, so, sd, torch.where(live, min_t, tv.DEAD_T))
-    key = torch.where(mt <= tv.DEAD_T, tv.DEAD_KEY, tv.octant_cell_key(static, so, sd))
+    mt = tv._root_box_cull(flat, so, sd, torch.where(live, min_t, tv.DEAD_T))
+    key = torch.where(mt <= tv.DEAD_T, tv.DEAD_KEY, tv.octant_cell_key(flat, so, sd))
     perm = torch.sort(key, stable=True).indices
     srt = tuple(a.index_select(0, perm) for a in (so, sd, mt)) + (
         torch.zeros(mt.shape[0], dtype=torch.bool, device=DEVICE),)
@@ -884,6 +923,10 @@ def phase_main_path(built, used: tuple, unused: tuple, card: str, label: str = "
                              f"needs {used} and none of {unused}")
     if not (np.isfinite(img).all() and img.mean() > 0 and stats.rays_traced > 0):
         raise AssertionError("main path image is not finite and positive")
+    if not (r.graph_route and r.graphs is not None and r.graphs.num_graphs):
+        raise AssertionError(f"main path on {r.static.image_name}{label} did not replay graphs")
+    log(f"main path: {r.static.image_name}{label}: {r.graphs.num_graphs} graphs captured in "
+        f"{r.graphs.capture_seconds:.3f} s, {r.graphs.replays} replays")
     return launches, img
 
 
@@ -927,7 +970,8 @@ def phase_schedules(built, card: str, used: tuple, unused: tuple, label: str = "
                 f"{statistics.mean(stats.per_iter_seconds):.4f} s/iteration over {REGEN_K} timed "
                 f"samples on {card} ({stats.mrays_per_sec:.3f} Mrays/s, {stats.rays_traced} rays); "
                 f"launches per iteration K1-K5 {traversal} (K1-K5 {sum(traversal.values()):.3f}), "
-                f"all kernels {prof['launches'] / per:.1f}, device busy "
+                f"device ops {prof['launches'] / per:.1f}, host-issued launches "
+                f"{prof['host_launches'] / per:.1f}, device busy "
                 f"{prof['busy_us'] / per / 1e3:.3f} ms, busy share "
                 f"{prof['busy_us'] / 1e6 / prof['wall']:.4f} (profiler, {per} sample(s)); laps per "
                 f"sample {stats.laps / REGEN_K:.3f}; pool length at each lap of the last "
@@ -1346,7 +1390,7 @@ def phase_profiling(r, card: str):
     for depth in range(DEPTH + 1):
         if sched.sort_rays:
             with timer.stage("sort", sync=flat.tri_pk):
-                pool = sort_pool(static, pool)
+                pool = sort_pool(flat, static, pool)
         with timer.stage("bounce", sync=flat.tri_pk):
             pool, _ = bounce(flat, static, SampleMode.MIS, r.key, 1, depth, pool,
                              shadow_sort=sched.shadow_sort)
@@ -1500,6 +1544,184 @@ def phase_entry(card: str):
     log(f"entry phase: {phase_s:.1f} s on {card}")
     if phase_s > ENTRY_PHASE_S:
         raise AssertionError(f"the entry phase took {phase_s:.1f} s, over {ENTRY_PHASE_S} s")
+
+
+@contextlib.contextmanager
+def graphs_only():
+    """Inside the block the Renderer's graph route may not run the eager
+    loop: a call to render_iteration from it raises."""
+    from pathtracer_tpu_torch.integrator import render
+
+    was = render.render_iteration
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the graph route ran the eager loop")
+
+    render.render_iteration = refuse
+    try:
+        yield
+    finally:
+        render.render_iteration = was
+
+
+def graph_vs_eager(name: str, r, used: tuple, steps: tuple, card: str,
+                   profile: tuple = (), then=None) -> dict:
+    """Renderer `r` (MIS, depth DEPTH) on its eager loop, then, from a fresh
+    accumulation, on its graph route: a warm-up iteration, then r.step(n)
+    for each n of `steps`.  The graph route's HDR sum, booked rays, laps and
+    pool lengths must equal the eager loop's, its K1-K5 launches too, those
+    in `used` launched; prints both paths' seconds per iteration, the
+    graphs, their replays, the memory reserved and the case's seconds.  One
+    more iteration of each route in `profile` runs under the profiler: its
+    K1-K5 runs on the device must equal the launch counters over it (on the
+    graph route they add what each capture counted) and the eager loop's
+    launches an iteration.  `then(r)`, run on each route after the timed
+    steps, returns images that must be bitwise equal between the routes."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.integrator.render import RenderStats
+    from tools.profile_torch_port import eager_route, profile_step
+
+    t_case = time.perf_counter()
+    res = r.width
+    r.graphs = None  # the graphs of an earlier case on this renderer go first
+    if not r.graph_route:
+        raise AssertionError(f"graphs: {name} does not take the graph route")
+    samples = sum(steps)
+    out, profs = {}, {}
+    for path in ("eager", "graphs"):
+        r.reset()
+        r.stats = RenderStats()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved()
+        with eager_route() if path == "eager" else graphs_only():
+            r.step(1)
+            torch.cuda.empty_cache()  # what stays reserved is the graphs' pool and buffers
+            mem = torch.cuda.memory_reserved() - mem0
+            replays0 = r.graphs.replays if path == "graphs" else 0
+            reset_launch_counts()
+            for n in steps:
+                r.step(n)
+            launches = {k: v / samples for k, v in launch_counts().items() if k[0] == "K"}
+            out[path] = dict(img=r.hdr_sum(), rays=r.stats.rays_traced, pools=list(r.lap_pools),
+                             depth=r.traced_depth, secs=list(r.stats.per_iter_seconds),
+                             launches=launches, mem=mem)
+            if path == "graphs":
+                if r.graphs is None or not r.graphs.num_graphs:
+                    raise AssertionError(f"graphs: {name} captured no graph")
+                out[path]["replays"] = (r.graphs.replays - replays0) / (len(steps) if r.regen_k
+                                                                        else samples)
+                out[path]["captured"] = (r.graphs.num_graphs, r.graphs.capture_seconds)
+            if then is not None:
+                out[path]["then"] = then(r)
+            if path in profile:
+                reset_launch_counts()
+                profs[path] = profile_step(r, 1)
+                profs[path]["counted"] = {k: v for k, v in launch_counts().items() if k[0] == "K"}
+    e, g = out["eager"], out["graphs"]
+    same = np.array_equal(g["img"], e["img"])
+    per = "batch" if r.regen_k else "iteration"
+    log(f"graphs: {name} MIS {res}x{res} depth {DEPTH}, {samples} timed samples on {card}: HDR "
+        f"sum bitwise the eager loop's: {same}; rays {g['rays']} against {e['rays']}; laps "
+        f"{g['depth']} against {e['depth']}, pools equal: {g['pools'] == e['pools']}; K1-K5 "
+        f"launches per sample {g['launches']} against {e['launches']}; {g['captured'][0]} "
+        f"graphs captured in {g['captured'][1]:.3f} s, {g['replays']:.1f} replays per "
+        f"{per}, memory held after the warm-up (empty_cache) {g['mem'] / 2**20:.1f} MiB (eager "
+        f"{e['mem'] / 2**20:.1f}), {torch.cuda.max_memory_reserved() / 2**20:.1f} MiB reserved at "
+        f"most; s/{'sample' if r.regen_k else 'iteration'} graphs "
+        f"{statistics.median(g['secs']):.4f} (median of "
+        f"{len(g['secs'])}: {', '.join(f'{x:.4f}' for x in g['secs'])}), eager "
+        f"{statistics.median(e['secs']):.4f} ({', '.join(f'{x:.4f}' for x in e['secs'])}); "
+        f"{time.perf_counter() - t_case:.1f} s for the case")
+    for path, prof in profs.items():
+        log(f"graphs: {name} {res}x{res}, one iteration on the {path} route under the profiler: "
+            f"{prof['host_launches']} host-issued launches ({prof['graph_launches']} graph "
+            f"launches), {prof['launches']} device ops, device busy {prof['busy_us'] / 1e3:.3f} "
+            f"ms, wall {prof['wall'] * 1e3:.3f} ms, busy share "
+            f"{prof['busy_us'] / 1e6 / prof['wall']:.4f}; K1-K5 runs on the device "
+            f"{prof['traversal']}, counted {prof['counted']}; host CUDA calls: "
+            + ", ".join(f"{k} {v}" for k, v in sorted(prof["host_calls"].items(),
+                                                      key=lambda kv: -kv[1])[:8]))
+    for path, prof in profs.items():  # the counters against what the device ran
+        if not (prof["traversal"] == prof["counted"] == e["launches"]
+                and all(prof["traversal"][k] > 0 for k in used)):
+            raise AssertionError(f"graphs: {name}: on the {path} route the device ran K1-K5 "
+                                 f"{prof['traversal']} times, counted {prof['counted']}, the "
+                                 f"eager loop an iteration {e['launches']}; must be equal, those "
+                                 f"of {used} above 0")
+    if not (same and g["rays"] == e["rays"] and g["pools"] == e["pools"]
+            and g["depth"] == e["depth"] and g["launches"] == e["launches"]):
+        raise AssertionError(f"graphs: {name}'s graph route differs from its eager loop")
+    if not all(g["launches"][k] > 0 for k in used) or any(
+            v for k, v in g["launches"].items() if k not in used):
+        raise AssertionError(f"graphs: {name} launched {g['launches']}; needs only {used}")
+    if not (np.isfinite(g["img"]).all() and g["img"].mean() > 0):
+        raise AssertionError(f"graphs: {name}: the image is not finite and positive")
+    if then is not None and not all(np.array_equal(a, b) for a, b in zip(g["then"], e["then"])):
+        raise AssertionError(f"graphs: {name}: the routes differ after {then.__doc__}")
+    return {"graphs": statistics.median(g["secs"]), "eager": statistics.median(e["secs"])}
+
+
+def phase_graphs(card: str):
+    """Phase 21: the graph route against the eager loop on GRAPH_CASES, at
+    128x128 on glasstorus, and across a set_seed and a set_orbit."""
+    from pathtracer_tpu_torch.integrator.render import Renderer
+    from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
+
+    t_phase = time.perf_counter()
+    built = {}
+
+    def renderer(scene_path, options: dict, res: int):
+        """A Renderer of the scene at res x res, built once for the cases
+        that follow one another; the options swapped in, as phase_schedules
+        swaps them (the tables do not depend on the options the cases
+        set)."""
+        if (scene_path, res) not in built:
+            built.clear()  # the last scene's renderer and its graphs go first
+            built[scene_path, res] = Renderer(
+                scene_path, RenderOptions(sample_mode=SampleMode.MIS, **options),
+                resolution=(res, res), trace_depth=DEPTH, device=DEVICE)
+        r = built[scene_path, res]
+        r.opts = RenderOptions(sample_mode=SampleMode.MIS, **options)
+        return r
+
+    secs = {}
+    for name, scene_path, options, used, steps in GRAPH_CASES:
+        secs[name] = graph_vs_eager(name, renderer(scene_path, options, RES), used, steps, card,
+                                    profile=GRAPH_PROFILED.get(name, ()))
+    recaptured = []
+
+    def seed_then_orbit(r):
+        """a set_seed(7) and then a set_orbit(0.3, -0.2), one step after each"""
+        before, seed, cam = r.graphs, r.seed, r.camera
+        r.set_seed(7)
+        r.step(1)
+        recaptured.append(r.graphs is not before)
+        seeded = r.hdr_sum()
+        r.set_orbit(0.3, -0.2)
+        r.step(1)
+        images = seeded, r.hdr_sum()
+        r.set_seed(seed)  # the next route starts where this one did
+        r.camera = cam
+        return images
+
+    secs["glasstorus 128x128"] = graph_vs_eager("glasstorus", renderer(SCENE, {}, 128),
+                                                ("K1", "K2"), (1,) * 5, card, then=seed_then_orbit)
+    log("graphs: s/iteration (medians), graphs / eager: " + "; ".join(
+        f"{k} {v['graphs']:.4f} / {v['eager']:.4f} ({v['eager'] / v['graphs']:.2f}x)"
+        for k, v in secs.items()))
+    log(f"graphs: glasstorus 128x128 after its timed steps, {seed_then_orbit.__doc__}: images "
+        f"bitwise the eager loop's; graphs recaptured for the seed: {recaptured[1]}")
+    if recaptured != [False, True]:
+        raise AssertionError(f"graphs: recaptured for the seed on the (eager, graph) routes: "
+                             f"{recaptured}")
+    built.clear()
+    phase_s = time.perf_counter() - t_phase
+    log(f"graphs phase: {phase_s:.1f} s on {card}")
+    if phase_s > GRAPH_PHASE_S:
+        raise AssertionError(f"the graphs phase took {phase_s:.1f} s, over {GRAPH_PHASE_S} s")
 
 
 def phase_probes():
@@ -1657,6 +1879,7 @@ def main() -> int:
     phase_no_table(resident[0], card=smi)
     phase_oracle(card=smi)
     phase_entry(card=smi)
+    phase_graphs(card=smi)
     kernels.update(phase_probes())
     rows = [
         {"name": name_, "route": "cuda", "source": source, "replaces": replaces,

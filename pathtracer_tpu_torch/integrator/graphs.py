@@ -1,0 +1,310 @@
+"""The Renderer's compiled iteration on one CUDA device: the steps of an
+iteration captured once as CUDA graphs and replayed, one host read a lap.
+
+Port of the JAX Renderer's jitted iteration (`_iter_fn` and `_batch_fn`,
+`pathtracer_tpu/integrator/render.py:214-225`, over the `lax.while_loop` /
+`lax.cond` ladder of `_run_loop`, `pathtracer_tpu/integrator/wavefront.py:
+650-748`).  The JAX program decides three things on the device: whether to
+run another lap, whether to drop to the next ladder level and whether to
+sort.  A CUDA graph cannot branch on data through PyTorch's API, so here
+the host decides, with `wavefront.drive_laps`, from the one read a lap the
+eager loop pays (the live count); everything between two reads is one
+graph replay.  Every decision is the eager loop's, so the image, the rays
+and the laps are bit for bit `wavefront.render_iteration`'s.
+
+`StaticIteration` runs the steps of integrator/wavefront.py over fixed
+buffers: the camera and the scalars (iteration, regeneration batch size)
+in one input buffer the host fills before an iteration, one pool per ladder
+level, the running counters (rays, live count, lap index) and the
+contributions.  Its steps, one graph each (the key in brackets):
+
+- ("start",): camera rays into level 0's pool (`start_pool`); the rays and
+  the lap index zeroed;
+- ("lap", level, sort): one `lap_step` on level `level`'s pool, the sort in
+  it or not; the next pool written back over it, its rays added, its live
+  count stored, the lap index advanced;
+- ("down", level) and ("up", level): `level_down` into the next level's
+  pool, and `merge_back` out of it;
+- ("finish",): `finish` into the contributions.
+
+Every key `schedule` can reach is captured in `prepare` (the Renderer's
+warm-up iteration, the JAX package's compile iteration), each after one
+eager run of its step that loads what the step launches.  All of a
+renderer's graphs share one memory pool; what outlives a step lives in the
+buffers, allocated outside it.  Captures use the thread-local error mode,
+since the preview server renders in its own thread.  Captures and replays
+run with the buffers' card as the current device, on a capture stream of
+that card: PyTorch's ops and the kernels' launchers take the current
+stream of the card their tensors lie on, so a capture from another card
+would record nothing.  A step whose graph holds no node is refused.  A
+capture bakes in the options, the key words, the route flags and the film:
+`graph_key` names them, and the Renderer drops its graphs when it changes.
+
+The traversal kernels count their launches in Python (ops/traverse_cuda.py,
+ops/traverse_stream_cuda.py), which a replay does not run: each graph's
+counts are taken at capture and added at every replay.
+
+With `graphs=False` each step runs eagerly on the same buffers: the loop
+the CPU tests hold to `render_iteration`.  There is no fallback: a capture
+or replay that fails raises `GraphError` naming its key.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import gc
+import time
+
+import numpy as np
+import torch
+
+from pathtracer_tpu_torch.integrator.wavefront import (
+    CameraArrays,
+    _Pool,
+    drive_laps,
+    finish,
+    lap_budget,
+    lap_spec,
+    lap_step,
+    level_down,
+    merge_back,
+    new_pool,
+    start_pool,
+)
+from pathtracer_tpu_torch.ops import traverse_cuda as tc
+from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
+from pathtracer_tpu_torch.ops.traverse import packet_mode
+from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
+from pathtracer_tpu_torch.utils.config import RenderOptions
+
+# the launch counters of K1-K5, bumped by their wrappers
+COUNTERS = ((tc, "closest_launches"), (tc, "occlusion_launches"), (ts, "closest_launches"),
+            (ts, "occlusion_launches"), (ts, "blockmajor_launches"))
+CAM_FLOATS = 14  # position, view, up, right (3 each), pixel_length (2)
+
+
+class GraphError(RuntimeError):
+    """A capture or a replay failed."""
+
+
+_LIBCUDA = None
+
+
+def graph_nodes(g: torch.cuda.CUDAGraph) -> int:
+    """The nodes of captured graph `g` (made with keep_graph=True), from
+    libcuda's cuGraphGetNodes (a CUgraph is the runtime's cudaGraph_t)."""
+    global _LIBCUDA
+    if _LIBCUDA is None:
+        _LIBCUDA = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    rc = _LIBCUDA.cuGraphGetNodes(ctypes.c_void_p(g.raw_cuda_graph()), None, ctypes.byref(n))
+    if rc != 0:
+        raise GraphError(f"cuGraphGetNodes failed with CUresult {rc}")
+    return n.value
+
+
+def graph_key(static: SceneStatic, opts: RenderOptions, key, pixel_xy, regen: bool) -> tuple:
+    """What a capture bakes in: the scene, the options, the RNG key words,
+    the route flags read at call time (`packet_mode`, STREAM_BLOCKMAJOR),
+    the film (its size and lane -> pixel map) and regeneration."""
+    return (static, opts, tuple(int(k) for k in key), packet_mode(static),
+            bool(ts.STREAM_BLOCKMAJOR), static.width, static.height, pixel_xy is not None,
+            bool(regen))
+
+
+def launch_counts() -> tuple:
+    return tuple(getattr(mod, name) for mod, name in COUNTERS)
+
+
+def _set_counts(counts) -> None:
+    for (mod, name), c in zip(COUNTERS, counts):
+        setattr(mod, name, c)
+
+
+def _copy_pool(dst: _Pool, src: _Pool) -> None:
+    for a, b in zip(dst, src):
+        if a is not None:
+            a.copy_(b)
+
+
+class StaticIteration:
+    """One iteration (or regeneration batch) of a whole film over fixed
+    buffers on one device; with `graphs`, its steps replayed as CUDA
+    graphs."""
+
+    def __init__(self, flat: FlatScene, static: SceneStatic, opts: RenderOptions, key,
+                 pixel_xy=None, regen: bool = False, graphs: bool = True):
+        dev = flat.device
+        if graphs and dev.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
+        self.key = graph_key(static, opts, key, pixel_xy, regen)
+        self.graphs = graphs
+        self.static, self.device = static, dev
+        self.n = static.width * static.height
+        # the inputs: the camera's 14 floats, then the iteration and the
+        # batch size as int32 bits, filled by one host copy an iteration
+        self.inputs = torch.zeros((CAM_FLOATS + 2,), dtype=torch.float32, device=dev)
+        self._host = np.zeros((CAM_FLOATS + 2,), np.float32)
+        self.cam = CameraArrays(*self.inputs[:CAM_FLOATS].split((3, 3, 3, 3, 2)))
+        scalars = self.inputs[CAM_FLOATS:].view(torch.int32)
+        self.iteration, self.nk = scalars[0], scalars[1]
+        self.spec = lap_spec(flat, static, opts, self.cam, key, self.n, pixel_xy=pixel_xy,
+                             nk=self.nk if regen else None)
+        self.sizes = (self.n,) + tuple(size for size, _ in self.spec.sched.shrink)
+        self.pools = [new_pool(torch.zeros((m, 3), device=dev), torch.zeros((m, 3), device=dev),
+                               regen=regen) for m in self.sizes]
+        self.rays = torch.zeros((), dtype=torch.int64, device=dev)
+        self.alive_n = torch.zeros((), dtype=torch.int64, device=dev)
+        self.depth = torch.zeros((), dtype=torch.int32, device=dev)
+        self.contrib = torch.zeros((self.n, 3), device=dev)
+        self._graphs = {}  # key -> (CUDAGraph, launch counts per replay)
+        self.nodes = {}    # key -> the nodes of its graph
+        self.capture_seconds = 0.0
+        self.replays = 0  # steps run, replayed or (without graphs) eager
+
+    # -- the steps, over the buffers -------------------------------------
+    def _start(self) -> None:
+        _copy_pool(self.pools[0], start_pool(self.spec, self.cam, self.iteration, self.n))
+        self.rays.zero_()
+        self.depth.zero_()
+
+    def _lap(self, level: int, sort: bool) -> None:
+        s, r = lap_step(self.spec, self.pools[level], self.iteration, self.depth, sort)
+        _copy_pool(self.pools[level], s)
+        self.rays.add_(r)
+        self.alive_n.copy_(s.alive.sum())
+        self.depth.add_(1)
+
+    def _down(self, level: int) -> None:
+        full, small = level_down(self.spec.flat, self.static, self.pools[level],
+                                 self.sizes[level + 1])
+        _copy_pool(self.pools[level], full)
+        _copy_pool(self.pools[level + 1], small)
+
+    def _up(self, level: int) -> None:
+        _copy_pool(self.pools[level], merge_back(self.pools[level + 1], self.pools[level]))
+
+    def _finish(self) -> None:
+        self.contrib.copy_(finish(self.spec, self.pools[0]))
+
+    def _body(self, key: tuple):
+        kind = key[0]
+        if kind == "start":
+            return self._start
+        if kind == "lap":
+            return lambda: self._lap(key[1], key[2])
+        if kind == "down":
+            return lambda: self._down(key[1])
+        if kind == "up":
+            return lambda: self._up(key[1])
+        return self._finish
+
+    def step_keys(self) -> list:
+        """Every step `schedule` can reach, in an order that keeps each pool
+        a valid one when each runs once: start, each level's laps then its
+        step down, the steps back up, finish.  A level's laps sort or not
+        (lap 0 and every sort_every-th lap with more than a quarter alive)
+        where the schedule sorts."""
+        sched = self.spec.sched
+        levels = range(len(self.sizes))
+        keys = [("start",)]
+        for level in levels:
+            keys += [("lap", level, False)] + ([("lap", level, True)] if sched.sort_rays else [])
+            if level + 1 < len(self.sizes):
+                keys.append(("down", level))
+        keys += [("up", level) for level in reversed(levels[:-1])]
+        return keys + [("finish",)]
+
+    # -- capture and replay ----------------------------------------------
+    def set_inputs(self, cam, iteration: int, nk: int | None) -> None:
+        """The camera (CameraArrays, or `RenderCamera.as_arrays()`'s numpy
+        arrays) and the scalars for the next iteration: one host copy."""
+        self._host[:CAM_FLOATS] = np.concatenate(
+            [(c.detach().cpu().numpy() if isinstance(c, torch.Tensor) else np.asarray(c)).ravel()
+             for c in cam])
+        self._host[CAM_FLOATS:].view(np.int32)[:] = (int(iteration), 1 if nk is None else int(nk))
+        self.inputs.copy_(torch.from_numpy(self._host))
+
+    def prepare(self) -> None:
+        """Capture every step's graph (after `set_inputs`): each step runs
+        once eagerly, then is captured, on the buffers' card; the launch
+        counts of the capture are taken back and kept for the replays."""
+        if not self.graphs or self._graphs:
+            return
+        t0 = time.perf_counter()
+        with torch.cuda.device(self.device):
+            mempool = torch.cuda.graph_pool_handle()  # one pool for all the steps
+            stream = torch.cuda.Stream(self.device)
+            for key in self.step_keys():
+                body = self._body(key)
+                body()  # loads the library and every kernel the step launches
+                torch.cuda.synchronize(self.device)
+                before = launch_counts()
+                g = torch.cuda.CUDAGraph(keep_graph=True)
+                # a collection inside the capture could destroy another graph
+                # held by garbage, which a capturing thread may not do
+                gc_was = gc.isenabled()
+                gc.disable()
+                try:
+                    with torch.cuda.graph(g, pool=mempool, stream=stream,
+                                          capture_error_mode="thread_local"):
+                        body()
+                    nodes = graph_nodes(g)
+                    if not nodes:
+                        raise GraphError("the graph holds no node")
+                    g.instantiate()
+                except Exception as e:
+                    raise GraphError(f"capture of step {key} on {self.device} failed: {e}") from e
+                finally:
+                    if gc_was:
+                        gc.enable()
+                after = launch_counts()
+                _set_counts(before)  # a capture launches nothing
+                self._graphs[key] = (g, tuple(a - b for a, b in zip(after, before)))
+                self.nodes[key] = nodes
+            torch.cuda.synchronize(self.device)
+        self.capture_seconds = time.perf_counter() - t0
+
+    def replay(self, key: tuple) -> None:
+        """Run step `key`: its graph's replay on the buffers' card, or the
+        step itself without graphs."""
+        self.replays += 1
+        if not self.graphs:
+            self._body(key)()
+            return
+        try:
+            g, counts = self._graphs[key]
+        except KeyError:
+            raise GraphError(f"step {key} was not captured") from None
+        try:
+            with torch.cuda.device(self.device):
+                g.replay()
+        except Exception as e:
+            raise GraphError(f"replay of step {key} failed: {e}") from e
+        _set_counts(c + d for c, d in zip(launch_counts(), counts))
+
+    @property
+    def num_graphs(self) -> int:
+        return len(self._graphs)
+
+    def run(self, cam, iteration: int, nk: int | None = None):
+        """One iteration, samples `iteration` .. `iteration` + nk - 1 under
+        regeneration: (contrib in lane order, rays emitted, the pool's
+        length at each lap), as `render_iteration` returns them.  contrib
+        and rays are the buffers, overwritten by the next run."""
+        self.set_inputs(cam, iteration, nk)
+        self.prepare()
+        self.replay(("start",))
+
+        def lap(level: int, depth: int, sort: bool) -> int:
+            self.replay(("lap", level, sort))
+            try:
+                return int(self.alive_n)
+            except Exception as e:
+                raise GraphError(f"step {('lap', level, sort)} failed: {e}") from e
+
+        laps = drive_laps(self.spec.sched, self.n, lap_budget(self.static, nk), lap,
+                          lambda level: self.replay(("down", level)),
+                          lambda level: self.replay(("up", level)))
+        self.replay(("finish",))
+        return self.contrib, self.rays, laps

@@ -7,14 +7,21 @@ accumulator, the iteration count and the camera's orbit save to the JAX
 package's `.npz` checkpoint format and load from it, so a render resumes
 exactly (the RNG keys on the iteration), in either package.
 
-Each iteration runs `integrator/wavefront.py render_iteration` with the
+Each iteration runs the steps of `integrator/wavefront.py` with the
 options' schedule (the per-bounce sort, the shrink ladder, the shadow sort)
 and adds its contributions, in lane order, to the image: one add per
-iteration, so the image does not depend on the schedule.  With `ray_regen` K
-> 1, `step` renders batches of up to K samples per pixel in one persistent
-pool (the first, warm-up iteration alone); DIRECT_LI and `show_normal` paths
-end after one bounce, so there the option is ignored, as in the JAX package,
-and so it is for a triangle scene with `pallas_traversal=False`.
+iteration, so the image does not depend on the schedule.  Where the JAX
+Renderer runs its jitted iteration (`_iter_fn`, `_batch_fn`), a one-device
+Renderer on CUDA replays the steps as CUDA graphs, captured in the warm-up
+iteration (`integrator/graphs.py`: one host read a lap, images bit for bit
+the eager loop's); where the JAX Renderer runs staged (a triangle scene off
+the kernels: the MTBVH walk and the sweep, whose `torch.nonzero` a graph
+cannot hold), and on the CPU, it runs the eager loop, `render_iteration`.
+With `ray_regen` K > 1, `step` renders batches of up to K samples per
+pixel in one persistent pool (the first, warm-up iteration alone);
+DIRECT_LI and `show_normal` paths end after one bounce, so there the option
+is ignored, as in the JAX package, and so it is for a triangle scene with
+`pallas_traversal=False`.
 
 `pallas_traversal=False` walks the triangles with the threaded MTBVH walk
 instead of the kernels, and `use_bvh=False` sweeps every triangle
@@ -25,9 +32,12 @@ JAX Renderer does.  `devices=N` renders pixel rows sharded over N devices
 with device="cpu"); as in the JAX package a sharded
 renderer turns the 32x32 swizzle off and ignores `ray_regen`.  These only
 change how the TPU runs, not the image, so they are accepted and ignored:
-`packet_p`, `packet_q`, `packet_dense`, `packet_auto`, `iters_per_dispatch`
-and `interpret` (`packet_rows` sets the ladder's tile, as in the JAX
-package).
+`packet_p`, `packet_q`, `packet_dense`, `packet_auto` and `interpret`
+(`packet_rows` sets the ladder's tile, as in the JAX package).
+`iters_per_dispatch` is accepted and ignored too: the JAX package batches k
+iterations into one dispatch to hide a TPU dispatch latency, and the port's
+read of the live count a lap rules out a graph of several iterations until
+CUDA's conditional graph nodes carry the loop.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from pathtracer_tpu_torch.scene.camera import RenderCamera, derive_camera
 from pathtracer_tpu_torch.scene.parser import SceneData, load_scene
 from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 from pathtracer_tpu_torch.utils.image_io import write_hdr, write_png
+from pathtracer_tpu_torch.integrator.graphs import StaticIteration, graph_key
 from pathtracer_tpu_torch.integrator.wavefront import CameraArrays, render_iteration
 from pathtracer_tpu_torch.ops import math as m
 from pathtracer_tpu_torch.ops.traverse import packet_mode
@@ -149,8 +160,9 @@ class Renderer:
             )[0]
         self.seed = 0
         self.key = rng.base_key(0)
-        self.traced_depth = 0  # laps of the last render_iteration
+        self.traced_depth = 0  # laps of the last iteration
         self.lap_pools = []    # its pool's length at each lap
+        self.graphs = None     # the CUDA graphs of the iteration (graph_route)
         self.stats = RenderStats()
         self.reset()
 
@@ -165,6 +177,26 @@ class Renderer:
         multi_bounce = self.opts.sample_mode != SampleMode.DIRECT_LI and not self.opts.show_normal
         kernels = bool(self.opts.pallas_traversal) or self.static.num_tris == 0
         return k if k > 1 and multi_bounce and kernels and self.devices == 1 else 0
+
+    @property
+    def graph_route(self) -> bool:
+        """Does an iteration replay CUDA graphs?  On one CUDA device, where
+        the JAX Renderer runs its jitted iteration: not for a triangle scene
+        off the kernels (`pallas_traversal=False` or `use_bvh=False`),
+        which the JAX package renders staged."""
+        staged = self.static.num_tris > 0 and not (self.opts.pallas_traversal
+                                                   and self.opts.use_bvh)
+        return self.device.type == "cuda" and self.devices == 1 and not staged
+
+    def _compiled(self) -> StaticIteration:
+        """The graphs for the current options, seed, route flags and film;
+        captured anew when any of them changed since the last capture."""
+        key = graph_key(self.static, self.opts, self.key, self.pixel_xy, bool(self.regen_k))
+        if self.graphs is None or self.graphs.key != key:
+            self.graphs = None  # the old graphs and their memory go first
+            self.graphs = StaticIteration(self.flat, self.static, self.opts, self.key,
+                                          pixel_xy=self.pixel_xy, regen=bool(self.regen_k))
+        return self.graphs
 
     def set_seed(self, seed: int):
         self.seed = int(seed)
@@ -240,10 +272,15 @@ class Renderer:
             self.lap_pools = []
             self.iteration += 1
             return rays
-        contrib, rays, self.lap_pools = render_iteration(
-            self.flat, self.static, self.opts, cam, self.key, self.iteration + 1,
-            pixel_xy=self.pixel_xy, nk=nk if self.regen_k else None,
-        )
+        if self.graph_route:
+            contrib, rays, self.lap_pools = self._compiled().run(
+                self.camera.as_arrays(), self.iteration + 1, nk if self.regen_k else None)
+            rays = rays.clone()  # the graphs' buffer: the next iteration overwrites it
+        else:
+            contrib, rays, self.lap_pools = render_iteration(
+                self.flat, self.static, self.opts, cam, self.key, self.iteration + 1,
+                pixel_xy=self.pixel_xy, nk=nk if self.regen_k else None,
+            )
         self.img = self.img + contrib
         self.iteration += nk
         self.traced_depth = len(self.lap_pools)
@@ -252,9 +289,10 @@ class Renderer:
     def step(self, num_iterations: int = 1) -> RenderStats:
         """Render `num_iterations` samples per pixel, in batches of up to
         `regen_k` under regeneration.  As in the JAX package, the very first
-        iteration is a warm-up (here: kernel build and CUDA start-up): its
-        time goes to compile_seconds and its rays are not booked."""
-        cam = self._cam_arrays()
+        iteration is a warm-up (here: kernel build, CUDA start-up and, on
+        the graph route, the capture of every step's graph): its time goes
+        to compile_seconds and its rays are not booked."""
+        cam = None if self.graph_route else self._cam_arrays()  # the graphs copy their own
         if self.iteration == 0 and self.stats.compile_seconds == 0.0 and num_iterations > 0:
             t0 = time.perf_counter()
             self._run_iteration(cam)

@@ -1,9 +1,13 @@
 """Wavefront path-tracing integrator (BSDF / direct-light / MIS).
 
 Port of `pathtracer_tpu/integrator/wavefront.py`: a pool of W*H lanes, one per
-pixel, advanced one bounce (a lap) at a time by a Python loop that stops as
+pixel, advanced one bounce (a lap) at a time by a host loop that stops as
 soon as no lane is alive.  Radiance accumulates on the lane (`contrib`) and
-folds into the image once per iteration.
+folds into the image once per iteration.  An iteration is a few steps that
+run on the device alone (`start_pool`, `lap_step`, `level_down`,
+`merge_back`, `finish`) and the host's decisions between them, from one
+read of the live count a lap (`drive_laps`); `render_iteration` runs the
+steps eagerly, integrator/graphs.py replays them as CUDA graphs.
 
 Each lane carries its own id (`lane`); the RNG keys on it, so lanes may move.
 The scheduler (`schedule`, `render_iteration`) moves them, as the JAX
@@ -185,13 +189,13 @@ def _map_pool(s: _Pool, f) -> _Pool:
     return _Pool(*(None if c is None else f(c) for c in s))
 
 
-def sort_pool(static: SceneStatic, s: _Pool) -> _Pool:
+def sort_pool(flat: FlatScene, static: SceneStatic, s: _Pool) -> _Pool:
     """The pool reordered, stably: live lanes by `octant_cell_key`, those
     whose ray misses the triangle root box after those that meet it, dead
     lanes last."""
-    key = octant_cell_key(static, s.o, s.d)
+    key = octant_cell_key(flat, s.o, s.d)
     if static.num_tris > 0:
-        rb = torch.tensor(static.tri_root_box, dtype=torch.float32, device=s.o.device)
+        rb = flat.root_box
         rb_hit, _ = ray_aabb(rb[0:3], rb[3:6], s.o, s.d)
         key = key + (~rb_hit).to(torch.int32) * (1 << 12)
     key = torch.where(s.alive, key, DEAD_KEY)
@@ -379,12 +383,13 @@ def resolve_env(flat: FlatScene, static: SceneStatic, mode: SampleMode, s: _Pool
 
 class Regen(NamedTuple):
     """What a refill needs: the camera, the film, the lane -> pixel map, the
-    batch's sample count and the pool's first pixel."""
+    batch's sample count (an int, or a 0-d tensor) and the pool's first
+    pixel."""
     cam: CameraArrays
     width: int
     height: int
     pixel_xy: tuple | None
-    nk: int
+    nk: int | torch.Tensor
     pixel0: int = 0
 
 
@@ -449,6 +454,131 @@ def schedule(static: SceneStatic, opts: RenderOptions, n: int) -> Schedule:
                     max(int(opts.sort_every), 1), tuple(sizes))
 
 
+class LapSpec(NamedTuple):
+    """What every step of one iteration reads besides the pool and the
+    counters: the scene, the options' decisions, the film and, under
+    regeneration, the refill.  Fixed for an iteration, and for the life of a
+    CUDA graph that holds the steps (integrator/graphs.py)."""
+    flat: FlatScene
+    static: SceneStatic
+    mode: SampleMode
+    key: tuple
+    env_nee: bool
+    show_normal: bool
+    sched: Schedule
+    walk: dict            # use_kernels, use_bvh: the triangle walk (ops/traverse.py)
+    pixel_xy: tuple | None
+    pixel0: int
+    rg: Regen | None      # the refill, under regeneration
+
+
+def lap_spec(flat: FlatScene, static: SceneStatic, opts: RenderOptions, cam: CameraArrays,
+             key, n: int, pixel_xy=None, nk=None, pixel0: int = 0) -> LapSpec:
+    """The LapSpec of an iteration over a pool of n lanes; `nk` (an int or a
+    0-d tensor) turns regeneration on."""
+    if static.trace_depth > rng.MAX_DEPTH:
+        raise ValueError(
+            f"trace depth {static.trace_depth} does not fit the RNG counter's "
+            f"8 depth bits (max {rng.MAX_DEPTH})"
+        )
+    rg = None if nk is None else Regen(cam, static.width, static.height, pixel_xy, nk, pixel0)
+    return LapSpec(
+        flat, static, opts.sample_mode, key,
+        env_nee=bool(opts.env_importance) and static.env_map_id >= 0,
+        show_normal=bool(opts.show_normal), sched=schedule(static, opts, n),
+        walk=dict(use_kernels=bool(opts.pallas_traversal), use_bvh=bool(opts.use_bvh)),
+        pixel_xy=pixel_xy, pixel0=pixel0, rg=rg,
+    )
+
+
+# The steps of an iteration.  Each runs on the device alone: it reads its
+# scalars (`iteration`, `depth`: ints, or 0-d tensors) and its pool, and no
+# value comes back to the host, so a CUDA graph can hold it.
+
+
+def start_pool(spec: LapSpec, cam: CameraArrays, iteration, n: int) -> _Pool:
+    """The iteration's first pool: n fresh camera rays from the spec's first
+    pixel on."""
+    o, d = camera_rays(cam, spec.static.width, spec.static.height, spec.key, iteration,
+                       pixel_xy=spec.pixel_xy, pixel0=spec.pixel0, local_n=n)
+    return new_pool(o, d, regen=spec.rg is not None)
+
+
+def lap_step(spec: LapSpec, s: _Pool, iteration, depth, sort: bool) -> tuple[_Pool, torch.Tensor]:
+    """One lap at lap index `depth`: the per-bounce sort when `sort`, one
+    bounce, and the refill under regeneration.  Returns (pool, rays
+    emitted)."""
+    if sort:
+        s = sort_pool(spec.flat, spec.static, s)
+    s, rays = bounce(spec.flat, spec.static, spec.mode, spec.key, iteration, depth, s,
+                     env_nee=spec.env_nee, show_normal=spec.show_normal,
+                     shadow_sort=spec.sched.shadow_sort, pixel0=spec.pixel0, **spec.walk)
+    if spec.rg is not None:
+        s = refill(spec.flat, spec.static, spec.mode, spec.key, iteration, s, spec.rg,
+                   spec.env_nee)
+    return s, rays
+
+
+def level_down(flat: FlatScene, static: SceneStatic, s: _Pool,
+               size: int) -> tuple[_Pool, _Pool]:
+    """A step down the shrink ladder: the pool sorted, live lanes first, and
+    its first `size` lanes, over which the laps go on."""
+    full = sort_pool(flat, static, s)
+    return full, _map_pool(full, lambda c: c[:size])
+
+
+def merge_back(small: _Pool, full: _Pool) -> _Pool:
+    """The pool after a ladder level: the level's lanes, then those cut."""
+    size = small.lane.shape[0]
+    return _Pool(*(None if a is None else torch.cat([a, b[size:]])
+                   for a, b in zip(small, full)))
+
+
+def finish(spec: LapSpec, s: _Pool) -> torch.Tensor:
+    """The iteration's contributions in lane order, with the env radiance of
+    its env-missed lanes added."""
+    if spec.sched.sort_rays or spec.sched.shrink:
+        # the env resolve's columns too: on the CPU, atan2 rounds by position
+        env_cols = (("d", "color", "prev_pdf", "env_miss") if spec.static.env_map_id >= 0
+                    else ())
+        s = in_lane_order(s, ("contrib",) + env_cols)
+    return resolve_env(spec.flat, spec.static, spec.mode, s, spec.env_nee)
+
+
+def lap_budget(static: SceneStatic, nk=None) -> int:
+    """The most laps an iteration runs: trace_depth + 1, times the batch's
+    samples under regeneration."""
+    return (static.trace_depth + 1) * (1 if nk is None else int(nk))
+
+
+def drive_laps(sched: Schedule, n: int, budget: int, lap, down, up) -> list:
+    """The host's side of an iteration: every decision, from one read of the
+    live count a lap.  `lap(level, depth, sort)` runs one lap on the pool of
+    ladder level `level` (0: all n lanes) and returns its live count;
+    `down(level)` steps from level to level + 1 (`level_down`), `up(level)`
+    back (`merge_back`).  Laps run while lanes live and the budget lasts;
+    a level starts once alive * divisor <= the pool it leaves, and the
+    laps then end inside it, so the steps back up all come last.  The sort
+    runs at lap 0, then every `sort_every`-th lap while more than a quarter
+    of the pool lives.  Returns the pool's length at each lap run."""
+    laps = []
+    level, pool_n, alive_n = 0, n, n
+    while alive_n > 0 and len(laps) < budget:
+        if level < len(sched.shrink) and alive_n * sched.shrink[level][1] <= pool_n:
+            down(level)
+            pool_n = sched.shrink[level][0]
+            level += 1
+            continue
+        depth = len(laps)
+        sort = sched.sort_rays and (depth == 0 or (depth % sched.sort_every == 0
+                                                   and alive_n * 4 > pool_n))
+        alive_n = lap(level, depth, sort)
+        laps.append(pool_n)
+    for back in reversed(range(level)):
+        up(back)
+    return laps
+
+
 def render_iteration(flat: FlatScene, static: SceneStatic, opts: RenderOptions,
                      cam: CameraArrays, key, iteration: int, pixel_xy=None, nk=None,
                      pixel0: int = 0, local_rows: int | None = None):
@@ -456,66 +586,36 @@ def render_iteration(flat: FlatScene, static: SceneStatic, opts: RenderOptions,
     iteration + nk - 1 in one regeneration pool.  Returns (contrib
     (W*H, 3) in lane order, rays emitted (int64 tensor), the pool's length
     at each lap run).  One host read a lap: the live count, which serves
-    the loop, the sort's rule and the ladder.
+    the loop, the sort's rule and the ladder (`drive_laps`).  The eager
+    loop over the steps above; integrator/graphs.py replays the same steps
+    as CUDA graphs.
 
     `local_rows` rows from pixel `pixel0` on make the pool instead of the
     whole film (the sharding hook of the JAX package's
     make_render_iteration): contrib is then (local_rows * W, 3), and rows
     past the film's last (a mesh's padding) are rendered like any other."""
-    if static.trace_depth > rng.MAX_DEPTH:
-        raise ValueError(
-            f"trace depth {static.trace_depth} does not fit the RNG counter's "
-            f"8 depth bits (max {rng.MAX_DEPTH})"
-        )
-    w, h = static.width, static.height
-    n = w * (h if local_rows is None else local_rows)
-    mode, show_normal = opts.sample_mode, bool(opts.show_normal)
-    env_nee = bool(opts.env_importance) and static.env_map_id >= 0
-    sched = schedule(static, opts, n)
-    rg = None if nk is None else Regen(cam, w, h, pixel_xy, int(nk), pixel0)
-    walk = dict(use_kernels=bool(opts.pallas_traversal), use_bvh=bool(opts.use_bvh))
-    budget = (static.trace_depth + 1) * (1 if nk is None else int(nk))
+    n = static.width * (static.height if local_rows is None else local_rows)
+    spec = lap_spec(flat, static, opts, cam, key, n, pixel_xy=pixel_xy,
+                    nk=None if nk is None else int(nk), pixel0=pixel0)
     rays = torch.zeros((), dtype=torch.int64, device=flat.device)
-    laps = []
+    pools = [start_pool(spec, cam, iteration, n)]  # one per ladder level entered
 
-    def lap(s: _Pool, alive_n: int) -> _Pool:
+    def lap(level: int, depth: int, sort: bool) -> int:
         nonlocal rays
-        depth, pool_n = len(laps), s.lane.shape[0]
-        if sched.sort_rays and (depth == 0 or (depth % sched.sort_every == 0
-                                               and alive_n * 4 > pool_n)):
-            s = sort_pool(static, s)
-        s, r = bounce(flat, static, mode, key, iteration, depth, s, env_nee=env_nee,
-                      show_normal=show_normal, shadow_sort=sched.shadow_sort, pixel0=pixel0,
-                      **walk)
-        if rg is not None:
-            s = refill(flat, static, mode, key, iteration, s, rg, env_nee)
+        pools[-1], r = lap_step(spec, pools[-1], iteration, depth, sort)
         rays = rays + r
-        laps.append(pool_n)
-        return s
+        return int(pools[-1].alive.sum())
 
-    def run(s: _Pool, ladder: tuple, alive_n: int) -> _Pool:
-        pool_n = s.lane.shape[0]
-        while alive_n > 0 and len(laps) < budget:
-            if ladder and alive_n * ladder[0][1] <= pool_n:
-                # the live lanes fit the next level: sort them to the front,
-                # go on over that prefix, then put the cut lanes back
-                nxt = ladder[0][0]
-                full = sort_pool(static, s)
-                small = run(_map_pool(full, lambda c: c[:nxt]), ladder[1:], alive_n)
-                return _Pool(*(None if a is None else torch.cat([a, b[nxt:]])
-                               for a, b in zip(small, full)))
-            s = lap(s, alive_n)
-            alive_n = int(s.alive.sum())
-        return s
+    def down(level: int) -> None:
+        pools[-1], small = level_down(flat, static, pools[-1], spec.sched.shrink[level][0])
+        pools.append(small)
 
-    pool = run(new_pool(*camera_rays(cam, w, h, key, iteration, pixel_xy=pixel_xy,
-                                     pixel0=pixel0, local_n=n),
-                        regen=nk is not None), sched.shrink, n)
-    if sched.sort_rays or sched.shrink:
-        # the env resolve's columns too: on the CPU, atan2 rounds by position
-        env_cols = ("d", "color", "prev_pdf", "env_miss") if static.env_map_id >= 0 else ()
-        pool = in_lane_order(pool, ("contrib",) + env_cols)
-    return resolve_env(flat, static, mode, pool, env_nee), rays, laps
+    def up(level: int) -> None:
+        small = pools.pop()
+        pools[-1] = merge_back(small, pools[-1])
+
+    laps = drive_laps(spec.sched, n, lap_budget(static, nk), lap, down, up)
+    return finish(spec, pools[0]), rays, laps
 
 
 def make_render_iteration(static: SceneStatic, opts: RenderOptions, width: int, height: int,

@@ -164,7 +164,7 @@ def ray_aabb(pmin, pmax, o, d):
 
     zero = d == 0.0
     inside_axis = (o >= pmin) & (o <= pmax)
-    inf = torch.tensor(float("inf"), dtype=tmin.dtype, device=tmin.device)
+    inf = float("inf")
     tmin = torch.where(zero, torch.where(inside_axis, -inf, inf), tmin)
     tmax = torch.where(zero, torch.where(inside_axis, inf, -inf), tmax)
 

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pathtracer_tpu_torch.scene.parser import LIGHT, SPHERE
+from pathtracer_tpu_torch.scene.parser import SPHERE
 from pathtracer_tpu_torch.utils.config import TWO_PI
 from pathtracer_tpu_torch.ops import math as m
 from pathtracer_tpu_torch.ops.envmap import sample_env
@@ -88,10 +88,7 @@ def _sphere_cone_pdf(inv, view_pos):
 def _emit_by_geom(flat: FlatScene, static: SceneStatic, geom_idx):
     """Light albedo of each ray's geom; zero for geoms without a LIGHT
     material (as the JAX chain, which selects over light geoms only)."""
-    is_light = torch.tensor(
-        [t == LIGHT for t in static.geom_mat_types] or [False],
-        device=geom_idx.device,
-    )
+    is_light = flat.light_geoms
     albedo = flat.mat_f32[0:3].T[flat.geom_mat.long()]
     table = torch.where(is_light[:, None], albedo, 0.0)
     return table[geom_idx.long()]

@@ -75,7 +75,9 @@ def material_by_geom(flat: FlatScene, static: SceneStatic, geom_idx, uv) -> MatP
     const_albedo = f[:, 0:3]
     rough, metal = f[:, 3], f[:, 4]
     mtype = torch.where(geom_idx >= 0, i[:, 0], 0)
-    nmap_const = torch.tensor([0.5, 0.5, 1.0], device=uv.device).expand(const_albedo.shape)
+    # (0.5, 0.5, 1), the texel of no normal map, made on the device
+    flat_normal = torch.where(torch.arange(3, device=uv.device) == 2, 1.0, 0.5)
+    nmap_const = flat_normal.expand(const_albedo.shape)
 
     used = {int(m_) for m_ in static.geom_mats}
 

@@ -59,9 +59,10 @@ def process_nan(v):
     return torch.where(torch.isfinite(v), v, 0.0)
 
 
-def _vec3(x, y, z, like):
-    """Broadcast a constant 3-vector to `like`'s shape, dtype and device."""
-    return torch.tensor([x, y, z], dtype=like.dtype, device=like.device).expand(like.shape)
+def _unit(axis: int, like):
+    """The unit vector along `axis`, broadcast to `like`'s shape, dtype and
+    device (made on the device: no host copy)."""
+    return torch.eye(3, dtype=like.dtype, device=like.device)[axis].expand(like.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -221,8 +222,8 @@ def sample_normal_ggx(n, wo, alpha, r):
 
     t1 = torch.where(
         (wh[..., 2] < 0.99999)[..., None],
-        normalize(cross(_vec3(0.0, 0.0, 1.0, wh), wh)),
-        _vec3(1.0, 0.0, 0.0, wh),
+        normalize(cross(_unit(2, wh), wh)),
+        _unit(0, wh),
     )
     t2 = cross(wh, t1)
 

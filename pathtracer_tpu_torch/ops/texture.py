@@ -54,21 +54,24 @@ def _unpack_u32(v, is_rgbe):
     return torch.where(is_rgbe[..., None], _unpack_u32_rgbe(v), _unpack_u32_ldr(v))
 
 
-def _as_i32(x, like):
-    if isinstance(x, torch.Tensor):
-        return x.to(torch.int32)
-    return torch.tensor(int(x), dtype=torch.int32, device=like.device)
+def _as_i32(x):
+    """Texture metadata as int32 lanes, or a Python int (no host copy)."""
+    return x.to(torch.int32) if isinstance(x, torch.Tensor) else int(x)
+
+
+def _as_f32(x):
+    return x.to(torch.float32) if isinstance(x, torch.Tensor) else float(x)
 
 
 def _bilinear_taps_meta(offset, width, height, uv, p_max: int):
-    offset, width, height = (_as_i32(a, uv) for a in (offset, width, height))
+    offset, width, height = (_as_i32(a) for a in (offset, width, height))
     u, v = uv[..., 0], uv[..., 1]
-    x = u * (width - 1).to(uv.dtype)
-    y = v * (height - 1).to(uv.dtype)
+    x = u * _as_f32(width - 1)
+    y = v * _as_f32(height - 1)
     fl_x, fl_y = torch.floor(x), torch.floor(y)
     lx, ly = fl_x.to(torch.int32), fl_y.to(torch.int32)
-    ux = torch.where(x + 1.0 >= width.to(uv.dtype), lx, lx + 1)
-    uy = torch.where(y + 1.0 >= height.to(uv.dtype), ly, ly + 1)
+    ux = torch.where(x + 1.0 >= _as_f32(width), lx, lx + 1)
+    uy = torch.where(y + 1.0 >= _as_f32(height), ly, ly + 1)
     fx, fy = x - fl_x, y - fl_y
 
     def idx(ix, iy):

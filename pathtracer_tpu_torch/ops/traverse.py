@@ -195,13 +195,11 @@ def _stream_args(static: SceneStatic) -> dict:
 DEAD_KEY = 1 << 20
 
 
-def octant_cell_key(static: SceneStatic, o, d):
+def octant_cell_key(flat: FlatScene, o, d):
     """((octant * 8 + cx) * 8 + cy) * 8 + cz: the direction's octant and the
     origin's cell of an 8^3 grid over the scene bounds (the JAX package's
     ray sort key, `pathtracer_tpu/integrator/wavefront.py:292-307`)."""
-    sb = static.scene_bounds
-    bmin = torch.tensor(sb[0:3], dtype=torch.float32, device=o.device)
-    bmax = torch.tensor(sb[3:6], dtype=torch.float32, device=o.device)
+    bmin, bmax = flat.scene_lo, flat.scene_hi
     inv_ext = 7.999 / torch.clamp(bmax - bmin, min=1e-6)
     cell = torch.clamp((o - bmin) * inv_ext, 0.0, 7.999).to(torch.int32)
     octant = ((d[:, 0] > 0.0).to(torch.int32) + 2 * (d[:, 1] > 0.0).to(torch.int32)
@@ -209,11 +207,11 @@ def octant_cell_key(static: SceneStatic, o, d):
     return ((octant * 8 + cell[:, 0]) * 8 + cell[:, 1]) * 8 + cell[:, 2]
 
 
-def _root_box_cull(static: SceneStatic, o, d, t_cap):
+def _root_box_cull(flat: FlatScene, o, d, t_cap):
     """Lanes whose ray cannot reach the triangle root box within `t_cap`
     get DEAD_T, so the kernels skip them (the JAX pre-test at
     ops/traverse.py:377-383)."""
-    rb = torch.tensor(static.tri_root_box, dtype=torch.float32, device=o.device)
+    rb = flat.root_box
     rb_hit, rb_enter = ray_aabb(rb[0:3], rb[3:6], o, d)
     reachable = rb_hit & (rb_enter <= t_cap)
     return torch.where(reachable, t_cap, DEAD_T)
@@ -408,7 +406,7 @@ def _kernel_closest(flat: FlatScene, static: SceneStatic, o, d, t_min, alive):
     """The triangles' closest hit through K1, K3 or K5: dead lanes and those
     the root box culls carry DEAD_T into the kernel."""
     t_init = t_min if alive is None else torch.where(alive, t_min, DEAD_T)
-    t_init = _root_box_cull(static, o, d, t_init)
+    t_init = _root_box_cull(flat, o, d, t_init)
     if packet_mode(static) == "stream" and ts.STREAM_BLOCKMAJOR:
         return closest_hit_blockmajor(
             flat.str_roots, flat.str_subf, flat.str_subi, flat.str_subp,
@@ -505,10 +503,10 @@ def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=
         on = ~occluded if enabled is None else enabled & ~occluded
         return occluded | walk(flat, static, ori, dir, min_t, on)
     min_t_eff = min_t if enabled is None else torch.where(enabled, min_t, DEAD_T)
-    min_t_eff = _root_box_cull(static, ori, dir, min_t_eff)
+    min_t_eff = _root_box_cull(flat, ori, dir, min_t_eff)
     perm = None
     if shadow_sort:
-        key = torch.where(min_t_eff <= DEAD_T, DEAD_KEY, octant_cell_key(static, ori, dir))
+        key = torch.where(min_t_eff <= DEAD_T, DEAD_KEY, octant_cell_key(flat, ori, dir))
         perm = torch.sort(key, stable=True).indices
         ori, dir, min_t_eff, occluded = (
             a.index_select(0, perm) for a in (ori, dir, min_t_eff, occluded))

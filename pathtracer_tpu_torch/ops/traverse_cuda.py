@@ -276,12 +276,13 @@ def closest_hit_wbvh(wf, wi, wp, tri12, o, d, t_init, *, wide_depth: int):
     tri = torch.empty((n,), dtype=i32, device=o.device)
     u = torch.empty((n,), dtype=f32, device=o.device)
     v = torch.empty((n,), dtype=f32, device=o.device)
-    rc = lib.pt_closest_hit_wbvh(
-        wf.data_ptr(), wi.data_ptr(), wp.data_ptr(), tri12.data_ptr(),
-        o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n,
-        torch.cuda.current_stream(o.device).cuda_stream,
-    )
+    with torch.cuda.device(o.device):  # the runtime launches on the current card
+        rc = lib.pt_closest_hit_wbvh(
+            wf.data_ptr(), wi.data_ptr(), wp.data_ptr(), tri12.data_ptr(),
+            o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
+            t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n,
+            torch.cuda.current_stream(o.device).cuda_stream,
+        )
     _build.check(rc, "closest_hit_wbvh launch")
     closest_launches += 1
     return t, tri, u, v
@@ -308,11 +309,12 @@ def occlusion_wbvh(wf, wi, tri12, o, d, min_t, occluded0, *, wide_depth: int):
     lib = _build.load_library()
     n = o.shape[0]
     occ = torch.empty((n,), dtype=torch.bool, device=o.device)
-    rc = lib.pt_occlusion_wbvh(
-        wf.data_ptr(), wi.data_ptr(), tri12.data_ptr(), o.data_ptr(), d.data_ptr(),
-        min_t.data_ptr(), occluded0.data_ptr(), occ.data_ptr(), n,
-        torch.cuda.current_stream(o.device).cuda_stream,
-    )
+    with torch.cuda.device(o.device):  # the runtime launches on the current card
+        rc = lib.pt_occlusion_wbvh(
+            wf.data_ptr(), wi.data_ptr(), tri12.data_ptr(), o.data_ptr(), d.data_ptr(),
+            min_t.data_ptr(), occluded0.data_ptr(), occ.data_ptr(), n,
+            torch.cuda.current_stream(o.device).cuda_stream,
+        )
     _build.check(rc, "occlusion_wbvh launch")
     occlusion_launches += 1
     return occ

@@ -443,13 +443,14 @@ def closest_hit_stream(topf, topl, topp, subf, subi, subp, subt, base, o, d, t_i
     tri = torch.empty((n,), dtype=i32, device=o.device)
     u = torch.empty((n,), dtype=f32, device=o.device)
     v = torch.empty((n,), dtype=f32, device=o.device)
-    rc = lib.pt_closest_hit_stream(
-        topf.data_ptr(), topl.data_ptr(), topp.data_ptr(), subf.data_ptr(),
-        subi.data_ptr(), subp.data_ptr(), subt12.data_ptr(), blocks.data_ptr(),
-        o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n, sub_nodes, sub_tris,
-        torch.cuda.current_stream(o.device).cuda_stream,
-    )
+    with torch.cuda.device(o.device):  # the runtime launches on the current card
+        rc = lib.pt_closest_hit_stream(
+            topf.data_ptr(), topl.data_ptr(), topp.data_ptr(), subf.data_ptr(),
+            subi.data_ptr(), subp.data_ptr(), subt12.data_ptr(), blocks.data_ptr(),
+            o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
+            t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n, sub_nodes, sub_tris,
+            torch.cuda.current_stream(o.device).cuda_stream,
+        )
     _build.check(rc, "closest_hit_stream launch")
     closest_launches += 1
     return t, tri, u, v
@@ -494,12 +495,13 @@ def closest_hit_blockmajor(roots, subf, subi, subp, subt, base, o, d, t_init, *,
     tri = torch.empty((n,), dtype=i32, device=o.device)
     u = torch.empty((n,), dtype=f32, device=o.device)
     v = torch.empty((n,), dtype=f32, device=o.device)
-    rc = lib.pt_closest_hit_blockmajor(
-        groups.data_ptr(), roots8.data_ptr(), subf.data_ptr(), subi.data_ptr(),
-        subp.data_ptr(), subt12.data_ptr(), blocks.data_ptr(), o.data_ptr(), d.data_ptr(),
-        t_init.data_ptr(), t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n, n_sub,
-        STREAM_CULL_GROUP, sub_nodes, sub_tris, torch.cuda.current_stream(o.device).cuda_stream,
-    )
+    with torch.cuda.device(o.device):  # the runtime launches on the current card
+        rc = lib.pt_closest_hit_blockmajor(
+            groups.data_ptr(), roots8.data_ptr(), subf.data_ptr(), subi.data_ptr(),
+            subp.data_ptr(), subt12.data_ptr(), blocks.data_ptr(), o.data_ptr(), d.data_ptr(),
+            t_init.data_ptr(), t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n, n_sub,
+            STREAM_CULL_GROUP, sub_nodes, sub_tris, torch.cuda.current_stream(o.device).cuda_stream,
+        )
     _build.check(rc, "closest_hit_blockmajor launch")
     blockmajor_launches += 1
     return t, tri, u, v
@@ -535,12 +537,13 @@ def occlusion_stream(topf, topl, subf, subi, subt, base, o, d, min_t, occluded0,
     lib = _build.load_library()
     n = o.shape[0]
     occ = torch.empty((n,), dtype=torch.bool, device=o.device)
-    rc = lib.pt_occlusion_stream(
-        topf.data_ptr(), topl.data_ptr(), subf.data_ptr(), subi.data_ptr(), subt12.data_ptr(),
-        blocks.data_ptr(), o.data_ptr(), d.data_ptr(), min_t.data_ptr(), occluded0.data_ptr(),
-        occ.data_ptr(), n, sub_nodes, sub_tris,
-        torch.cuda.current_stream(o.device).cuda_stream,
-    )
+    with torch.cuda.device(o.device):  # the runtime launches on the current card
+        rc = lib.pt_occlusion_stream(
+            topf.data_ptr(), topl.data_ptr(), subf.data_ptr(), subi.data_ptr(), subt12.data_ptr(),
+            blocks.data_ptr(), o.data_ptr(), d.data_ptr(), min_t.data_ptr(), occluded0.data_ptr(),
+            occ.data_ptr(), n, sub_nodes, sub_tris,
+            torch.cuda.current_stream(o.device).cuda_stream,
+        )
     _build.check(rc, "occlusion_stream launch")
     occlusion_launches += 1
     return occ

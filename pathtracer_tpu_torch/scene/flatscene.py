@@ -20,6 +20,13 @@ its luminance * sin(theta) CDF over all texels (`env_flat_cdf`) and the
 matching pdf table (`env_pdf`).  The JAX package's float planes (`atlas`)
 feed only its `gather_material`, which the port does not have, so the port
 holds no copy of them.
+
+Four small tables of the port's own restate facts of `SceneStatic` on the
+device, for the code that runs every lap (`scene_constants`): the scene
+bounds (`scene_lo`, `scene_hi`), the triangle root box (`root_box`) and
+which geoms are lights (`light_geoms`).  Built with the other tables, they
+spare a lap every copy of host data to the device, which a CUDA graph could
+not hold (integrator/graphs.py).
 """
 
 from __future__ import annotations
@@ -95,6 +102,10 @@ class FlatScene:
     light_type: torch.Tensor       # (L,) int32
     env_flat_cdf: torch.Tensor     # (H*W+1,) f32: CDF of luminance * sin(theta) over env texels
     env_pdf: torch.Tensor          # (H, W) f32: the joint pdf over [0,1]^2
+    scene_lo: torch.Tensor         # (3,) f32: scene_bounds[0:3], the ray sort key's grid
+    scene_hi: torch.Tensor         # (3,) f32: scene_bounds[3:6]
+    root_box: torch.Tensor         # (6,) f32: tri_root_box [min, max], the kernels' cull
+    light_geoms: torch.Tensor      # (max(G, 1),) bool: the geom's material is a LIGHT
 
     @property
     def device(self) -> torch.device:
@@ -146,6 +157,16 @@ class SceneStatic:
     # The JAX package reads its route from the budgets at call time; the port
     # fixes it here, so the route always follows the tables
     traversal: str | None = "resident"
+
+
+def scene_constants(static) -> dict:
+    """FlatScene's tables made from a SceneStatic (the port's or the JAX
+    package's: the same fields): the scene bounds, the triangle root box
+    and the light-geom mask."""
+    sb = np.asarray(static.scene_bounds, np.float32)
+    return dict(scene_lo=sb[0:3], scene_hi=sb[3:6],
+                root_box=np.asarray(static.tri_root_box, np.float32),
+                light_geoms=np.array([t == LIGHT for t in static.geom_mat_types] or [False]))
 
 
 # copied from pathtracer_tpu/scene/flatscene.py:156 _pack_triangles
@@ -508,13 +529,18 @@ def _env_cdfs(scene: SceneData) -> tuple[np.ndarray, np.ndarray]:
     return flat_cdf.astype(np.float32), pdf
 
 
-def flat_from_arrays(arrays: Mapping[str, np.ndarray], device) -> FlatScene:
+def flat_from_arrays(arrays: Mapping[str, np.ndarray], device, static=None) -> FlatScene:
     """Tables as numpy arrays (for instance the JAX package's FlatScene
     fields) -> the port's FlatScene on `device`.  `str_roots`, `str_subt12`,
     `str_blocks`, `str_roots8` and `str_groups`, which the JAX package does
     not hold, are built from the stream tables when absent (the block sizes
-    follow from the tables: 24 ints a node, 9 floats a triangle).  A uint32
-    `atlas_u32` is carried over as int32, bit for bit."""
+    follow from the tables: 24 ints a node, 9 floats a triangle), and the
+    tables of `scene_constants` from `static` (a SceneStatic of either
+    package).  A uint32 `atlas_u32` is carried over as int32, bit for bit."""
+    if "root_box" not in arrays:
+        if static is None:
+            raise ValueError("flat_from_arrays: the tables lack root_box and no static is given")
+        arrays = {**arrays, **scene_constants(static)}
     atlas = np.asarray(arrays["atlas_u32"])
     if atlas.dtype == np.uint32:
         arrays = {**arrays, "atlas_u32": atlas.view(np.int32)}
@@ -727,4 +753,4 @@ def build_flat_scene(
         stream_sub_depth=sub_depth,
         traversal=traversal,
     )
-    return flat_from_arrays(arrays, device), static
+    return flat_from_arrays(arrays, device, static), static

@@ -51,10 +51,12 @@ def _threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def _u32(x, like: torch.Tensor) -> torch.Tensor:
+def _u32(x):
+    """A counter field as uint32 words in int64, or a Python int (no host
+    copy: the field may come from a CUDA graph's buffer or the host)."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & _M32
-    return torch.tensor(int(x) & _M32, dtype=torch.int64, device=like.device)
+    return int(x) & _M32
 
 
 def pixel_uniforms(
@@ -63,21 +65,23 @@ def pixel_uniforms(
 ) -> torch.Tensor:
     """U[0,1) block keyed by global pixel index, (N, ncols) float32.
 
-    `iteration` and `depth` may be Python ints or per-lane tensors shaped
-    like `pixel_idx`.  Counter word: block in bits 0-1, stage in 2-3, depth
-    in 4-11, iteration in 12-31.  A depth above 255 would overflow into the
-    iteration bits, so it raises.
+    `iteration` and `depth` may be Python ints, 0-d tensors (a CUDA
+    graph's buffers) or per-lane tensors shaped like `pixel_idx`.  Counter
+    word: block in bits 0-1, stage in 2-3, depth in 4-11, iteration in
+    12-31.  A depth above 255 would overflow into the iteration bits, so it
+    raises.
     """
     if not isinstance(depth, torch.Tensor) and int(depth) > MAX_DEPTH:
         raise ValueError(f"depth {depth} does not fit the counter's 8 depth bits")
     k0, k1 = (int(k) & _M32 for k in key)
     pix = pixel_idx.to(torch.int64) & _M32
     base = (
-        ((_u32(iteration, pix) << 12) & _M32)
-        | ((_u32(depth, pix) << 4) & _M32)
+        ((_u32(iteration) << 12) & _M32)
+        | ((_u32(depth) << 4) & _M32)
         | (int(stage) << 2)
     )
-    base = torch.broadcast_to(base, pix.shape)
+    base = (torch.broadcast_to(base, pix.shape) if isinstance(base, torch.Tensor)
+            else torch.full_like(pix, base))
 
     def u01(x):
         # uint32 -> U[0,1): the top 23 bits as a mantissa

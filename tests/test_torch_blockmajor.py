@@ -119,7 +119,8 @@ def test_block_roots_are_the_linking_slots(stream_soup):
     for slot in np.nonzero(links < -1)[0]:
         np.testing.assert_array_equal(roots[-(links[slot] + 2)], boxes[slot])
     assert sorted(-(links[links < -1] + 2)) == list(range(static.stream_subs))
-    from_jax = flat_from_arrays({k: np.asarray(v) for k, v in jflat._asdict().items()}, "cpu")
+    from_jax = flat_from_arrays({k: np.asarray(v) for k, v in jflat._asdict().items()}, "cpu",
+                                static)
     assert torch.equal(from_jax.str_roots, tflat.str_roots)
 
 

@@ -51,7 +51,8 @@ def _unit(g, n):
 
 def _tables(path):
     flat, static = build_flat_scene(load_scene(path))
-    port = flat_from_arrays({k: np.asarray(v) for k, v in flat._asdict().items()}, "cpu")
+    port = flat_from_arrays({k: np.asarray(v) for k, v in flat._asdict().items()}, "cpu",
+                            static)
     return flat, static, port
 
 

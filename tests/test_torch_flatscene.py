@@ -39,8 +39,10 @@ PORT_STATIC = {"stream_top_depth", "stream_sub_depth", "traversal"}
 # FlatScene fields that only the port has, each derived from the stream
 # tables: K5's block root boxes, which the JAX package builds inside its
 # kernel's call, K3's padded triangle rows and per-block rows, and K5's
-# padded root boxes and group boxes
-PORT_FLAT = {"str_roots", "str_subt12", "str_blocks", "str_roots8", "str_groups"}
+# padded root boxes and group boxes; and the SceneStatic facts that every
+# lap reads on the device (scene_constants)
+PORT_FLAT = {"str_roots", "str_subt12", "str_blocks", "str_roots8", "str_groups",
+             "scene_lo", "scene_hi", "root_box", "light_geoms"}
 # FlatScene fields that only the JAX package has: the float texture planes,
 # which feed only its gather_material (the main path samples atlas_u32)
 JAX_FLAT = {"atlas"}
@@ -65,6 +67,7 @@ def _assert_tables_equal(path):
         want["str_subi"], want["str_subt"], want["str_base"], tfs.STREAM_SUB_NODES,
         tfs.STREAM_SUB_TRIS)
     want["str_roots8"], want["str_groups"] = tfs.stream_cull_tables(want["str_roots"])
+    want.update(tfs.scene_constants(jstatic))
     for name, a in want.items():
         if name not in JAX_FLAT:
             assert _same_array(a, getattr(tflat, name).numpy()), name
@@ -80,9 +83,9 @@ def test_tables_equal(scene_path):
 
 
 def test_flat_from_arrays_round_trip(tmp_path):
-    jflat, _ = jax_build(jax_load(_soup(tmp_path)))
+    jflat, jstatic = jax_build(jax_load(_soup(tmp_path)))
     arrays = _jax_arrays(jflat)
-    flat = tfs.flat_from_arrays(arrays, "cpu")
+    flat = tfs.flat_from_arrays(arrays, "cpu", jstatic)
     for name, a in arrays.items():
         if name in JAX_FLAT:
             assert not hasattr(flat, name)

@@ -109,6 +109,7 @@ PORT_MODULES = [
     "pathtracer_tpu_torch.cli",
     "pathtracer_tpu_torch.entry",
     "pathtracer_tpu_torch.integrator",
+    "pathtracer_tpu_torch.integrator.graphs",
     "pathtracer_tpu_torch.integrator.render",
     "pathtracer_tpu_torch.integrator.wavefront",
     "pathtracer_tpu_torch.ops",
@@ -142,6 +143,7 @@ PORT_MODULES = [
     "tools.compare_probes",
     "tools.compare_walk_kernels",
     "tools.cuda_timing",
+    "tools.graphs_second_card",
     "tools.kernel_microbench_torch",
     "tools.make_texture_assets",
     "tools.profile_torch_port",

@@ -177,7 +177,7 @@ def test_ladder_runs(scenes, laps, scene, options, ladder):
 def torus_box(tmp_path_factory):
     path = small_torus_scene(tmp_path_factory.mktemp("schedule_torus"))
     flat, static = build_flat_scene(load_scene(path))
-    return flat, static, _port(flat)
+    return flat, static, _port(flat, static)
 
 
 def test_shadow_sort_matches_jax(torus_box):

@@ -118,7 +118,8 @@ def lit_box(tmp_path_factory):
     text = path.read_text().replace("material glass", "material light")
     path.write_text(text)
     flat, static = build_flat_scene(load_scene(path))
-    port = flat_from_arrays({k: np.asarray(v) for k, v in flat._asdict().items()}, "cpu")
+    port = flat_from_arrays({k: np.asarray(v) for k, v in flat._asdict().items()}, "cpu",
+                            static)
     return flat, static, port
 
 
@@ -173,7 +174,8 @@ def test_sphere_silhouettes_match_jax_op_by_op():
     leaves the port's by far more than the tolerance on these rays (printed)."""
     scene = Path(__file__).resolve().parent.parent / "scenes" / "cornell_spheres.txt"
     flat, static = build_flat_scene(load_scene(scene))
-    port = flat_from_arrays({k: np.asarray(v) for k, v in flat._asdict().items()}, "cpu")
+    port = flat_from_arrays({k: np.asarray(v) for k, v in flat._asdict().items()}, "cpu",
+                            static)
     g = np.random.default_rng(13)
     eye = np.array([0.0, 4.2, 9.5])
     spheres = [gi for gi, gt in enumerate(static.geom_types) if gt == 0]

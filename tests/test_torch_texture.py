@@ -177,7 +177,8 @@ def texcube():
     """scenes/texcube.txt's tables from the JAX package, and the port's copy."""
     ensure_texture_assets()
     flat, static = build_flat_scene(load_scene(ROOT / "scenes" / "texcube.txt"))
-    port = flat_from_arrays({k: np.asarray(v) for k, v in flat._asdict().items()}, "cpu")
+    port = flat_from_arrays({k: np.asarray(v) for k, v in flat._asdict().items()}, "cpu",
+                            static)
     return flat, static, port
 
 

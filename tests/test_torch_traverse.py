@@ -27,8 +27,8 @@ from tests.test_traverse import random_rays, tri_soup_scene
 FLT_MAX = jtv.FLT_MAX
 
 
-def _port(flat):
-    return flat_from_arrays({k: np.asarray(v) for k, v in flat._asdict().items()}, "cpu")
+def _port(flat, static):
+    return flat_from_arrays({k: np.asarray(v) for k, v in flat._asdict().items()}, "cpu", static)
 
 
 def port_static(static) -> SceneStatic:
@@ -44,7 +44,7 @@ def port_static(static) -> SceneStatic:
 def soup(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("soup_torch")
     flat, static = build_flat_scene(load_scene(tri_soup_scene(tmp, n=200, seed=3)))
-    return flat, static, _port(flat)
+    return flat, static, _port(flat, static)
 
 
 def _t(x):
@@ -222,7 +222,7 @@ class TestWrappers:
 def torus_box(tmp_path_factory):
     path = small_torus_scene(tmp_path_factory.mktemp("torus_box"))
     flat, static = build_flat_scene(load_scene(path))
-    return flat, static, _port(flat)
+    return flat, static, _port(flat, static)
 
 
 def _box_rays(n, seed):

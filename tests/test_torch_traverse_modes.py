@@ -53,14 +53,14 @@ def soup(request, tmp_path_factory):
     opts = jax_config.RenderOptions(**BUILDS[request.param])
     flat, static = build_flat_scene(load_scene(tri_soup_scene(tmp, n=300, seed=7)), opts=opts)
     assert static.num_bvh_trees == (1 if "one tree" in request.param else 6)
-    return flat, static, _port(flat)
+    return flat, static, _port(flat, static)
 
 
 @pytest.fixture(scope="module")
 def torus_box(tmp_path_factory):
     path = small_torus_scene(tmp_path_factory.mktemp("modes_box"))
     flat, static = build_flat_scene(load_scene(path))
-    return path, flat, static, _port(flat)
+    return path, flat, static, _port(flat, static)
 
 
 def _init(n, seed):

@@ -142,8 +142,9 @@ def test_derived_tables_equal_their_sources(scene, request):
 def test_flat_from_arrays_derives_them(multi_block):
     """The JAX package's tables lack the derived ones; flat_from_arrays builds
     the same rows from them."""
-    jflat, _, tflat, _ = multi_block
-    from_jax = tfs.flat_from_arrays({k: np.asarray(v) for k, v in jflat._asdict().items()}, "cpu")
+    jflat, jstatic, tflat, _ = multi_block
+    from_jax = tfs.flat_from_arrays({k: np.asarray(v) for k, v in jflat._asdict().items()}, "cpu",
+                                    jstatic)
     assert torch.equal(from_jax.str_subt12, tflat.str_subt12)
     assert torch.equal(from_jax.str_blocks, tflat.str_blocks)
 
