@@ -104,10 +104,21 @@ line):
    against K1 on 4,077 of glasstorus's lanes (lanes that differ must be
    exact-t ties); 128x128 MIS renders with pallas_traversal=False and with
    use_bvh=False held to the default render, seconds per iteration each;
-16. pixel sharding over [cuda:0, cuda:0] against the one-device render with
-   the swizzle off, bitwise (glasstorus, cornell_spheres, and glasstorus at
-   800x799, which pads a row), with both steps' seconds; one
-   sample_parallel_step against the sequential iterations;
+16. sharding over the visible cards (the first min(4, count) distinct ones;
+   with one card, [cuda:0, cuda:0], logged as measuring no concurrency):
+   Renderer(devices=N) on the graph route (each shard's iteration replayed
+   as CUDA graphs on its own card, the shards' laps in lockstep) against
+   the one-device graph route with the swizzle off, HDR sums bitwise and
+   rays equal, on glasstorus (K1/K2), glasstorus160k (K3/K4),
+   cornell_spheres at 800x800 depth 8 MIS, and glasstorus at 800x799, which
+   pads rows; K1-K5 launches equal to the sum of the shards' counters and,
+   for one more iteration under the profiler (glasstorus, glasstorus160k),
+   to what each card runs; printed: s/iteration, medians of 5, of the
+   one-device graphs, the sharded graphs and (glasstorus) the shards in
+   turn on the eager loop (its image bitwise too);
+   each shard's capture seconds, each card's memory reserved at most and
+   device-busy ms; then sample_parallel_step bitwise the sequential
+   iterations.  Held under SHARD_PHASE_S;
 17. profiling: a StageTimer report over one iteration's stages, and the top
    10 device ops of a device_trace of one iteration (top_ops_from_trace);
 18. a mesh that fits neither kernel table: glasstorus built with both
@@ -126,7 +137,7 @@ line):
 20. the driver entry (pathtracer_tpu_torch/entry.py), as a driver calls it:
    entry()'s step on the card ((4096, 3), rays > 0, depth >= 1) bitwise a
    Renderer's first iteration of cornell_spheres at 64x64, depth 4, MIS,
-   launching none of K1-K5; then dryrun_multichip(2) over [cuda:0, cuda:0]:
+   launching none of K1-K5; then dryrun_multichip over phase 16's mesh:
    pixel sharding on cornell_spheres and on glasstorus (K1 and K2 must
    launch, K3-K5 not) and sample sharding, each pass bitwise the one-device
    steps; the phase's seconds beside the card's name and power limit, held
@@ -152,9 +163,14 @@ line):
    Held under GRAPH_PHASE_S.
 
 Every Renderer on the card (phases 6-8, 11-14, 16, 18-19, 21) replays its
-iteration as CUDA graphs, but for the triangle scenes off the kernels
-(phase 15's and 18's walks), which run the eager loop as the JAX Renderer
-runs them staged; the main path (phase 6) must replay graphs.
+iteration as CUDA graphs, and so do the step factory and the sharded steps
+(phases 16, 20), but for the triangle scenes off the kernels (phase 15's
+and 18's walks), which run the eager loop as the JAX Renderer runs them
+staged; the main path (phase 6) must replay graphs.
+
+    python tools/shard_cards.py
+
+runs phases 1, 2, 16 and 20 alone (for a machine with four cards).
 
 The line before the last is a JSON object with one entry per kernel (times,
 errors, launches, and the least time the card could take for the same work:
@@ -272,6 +288,14 @@ SRC_STREAM = "pathtracer_tpu_torch/csrc/stream_traverse.cu"
 SRC_PROBES = "pathtracer_tpu_torch/csrc/probes.cu"
 ENTRY_PHASE_S = 30.0  # phase 20 fails past this many seconds
 GRAPH_PHASE_S = 60.0  # phase 21 fails past this many seconds
+SHARD_PHASE_S = 90.0  # phase 16 fails past this many seconds
+SHARD_CARDS, SHARD_ITERS = 4, 5  # phase 16: distinct cards at most, timed iterations
+SHARD_CASES = (  # phase 16: name, scene, film, kernels it launches, profiled
+    ("glasstorus", SCENE, (RES, RES), ("K1", "K2"), True),
+    ("glasstorus160k", SCENE_160K, (RES, RES), ("K3", "K4"), True),
+    ("cornell_spheres", SCENE_CORNELL, (RES, RES), (), False),
+    (f"glasstorus {RES}x{RES - 1}", SCENE, (RES, RES - 1), ("K1", "K2"), False),
+)
 GRAPH_CASES = (  # phase 21: name, scene, options, kernels it launches, the timed steps
     ("glasstorus", SCENE, {}, ("K1", "K2"), (1,) * 5),
     # five batches of 2 samples (refills and all): on H100 machines the eager loop's 40 samples
@@ -1319,55 +1343,251 @@ def phase_walks(resident, stream, card: str):
     log(f"walks phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def shard_mesh() -> list:
+    """The mesh of phases 16 and 20: the first min(4, count) distinct cards,
+    or with one card that card twice (the shards then share it, and no
+    concurrency is measured)."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        return [torch.device("cuda", i) for i in range(min(SHARD_CARDS, count))]
+    log("sharding: one card visible: two shards share cuda:0, no concurrency measured")
+    return [torch.device("cuda", 0)] * 2
+
+
+@contextlib.contextmanager
+def mesh_of(mesh: list):
+    """Renderer(devices=len(mesh)) takes `mesh` inside the block, which may
+    repeat the one card (make_mesh takes distinct visible cards)."""
+    from pathtracer_tpu_torch.parallel import sharding as sh
+
+    was = sh.make_mesh
+    sh.make_mesh = lambda n_devices=None, devices=None: list(mesh)
+    try:
+        yield
+    finally:
+        sh.make_mesh = was
+
+
+def sync_all(mesh: list) -> None:
+    import torch
+
+    for dev in dict.fromkeys(mesh):
+        torch.cuda.synchronize(dev)
+
+
+def shard_launches(r) -> list:
+    """The K1-K5 launches each shard's replays added (StaticIteration.launches)."""
+    return [it.launches for it in r.shard_step.shards.iterations]
+
+
+def eager_sharded_seconds(r, mesh: list, iterations: int):
+    """The eager sharded route, the shards one after another through
+    make_render_iteration on the eager loop, over iterations 1 ..
+    `iterations` (the graph route has loaded every kernel on every card):
+    (image, seconds per iteration)."""
+    from pathtracer_tpu_torch.integrator.wavefront import CameraArrays, make_render_iteration
+    from pathtracer_tpu_torch.parallel import sharding as sh
+    from tools.profile_torch_port import eager_route
+
+    ph = sh.padded_height(r.height, len(mesh))
+    local = ph // len(mesh)
+    step = make_render_iteration(r.static, r.opts, r.width, r.height, local_rows=local)
+    tables = r.shard_step.shards.tables
+    flats = [tables.flat(r.flat, dev) for dev in mesh]
+    cams = [CameraArrays(*(t.to(dev) for t in r._cam_arrays())) for dev in mesh]
+    img, secs = sh.zeros_image(r.width, r.height, mesh), []
+    with eager_route():
+        for it in range(1, iterations + 1):
+            t0 = time.perf_counter()
+            img = [step(flats[d], cams[d], img[d], it, r.key, d * local * r.width)[0]
+                   for d in range(len(mesh))]
+            sync_all(mesh)
+            secs.append(time.perf_counter() - t0)
+    return sh.fetch_image(img, r.width, r.height), secs
+
+
+def profile_shards(r, name: str, card: str) -> bool:
+    """One iteration of sharded renderer `r` under the profiler, logged:
+    each card's device-busy ms and K1-K5 runs.  True when each card's runs
+    equal the launch counts its shards' replays added, their sum the launch
+    counters', and every card of the mesh was busy."""
+    from tools.profile_torch_port import profile_step
+
+    tags = ("K1", "K2", "K3", "K4", "K5")
+    reset_launch_counts()
+    before = shard_launches(r)
+    prof = profile_step(r, 1)
+    counted = [launch_counts()[t] for t in tags]
+    by_card = {}
+    for dev, now, was in zip(r.mesh, shard_launches(r), before):
+        tally = by_card.setdefault(dev.index, [0] * len(tags))
+        by_card[dev.index] = [t + a - b for t, a, b in zip(tally, now, was)]
+    runs = {k: [v[t] for t in tags] for k, v in prof["traversal_by_card"].items()}
+    log(f"sharding: {name}, one iteration under the profiler: device busy ms by card "
+        + ", ".join(f"cuda:{k} {v / 1e3:.3f}" for k, v in sorted(prof["busy_by_card"].items()))
+        + f", wall {prof['wall'] * 1e3:.3f} ms; {prof['launches']} device ops, "
+        f"{prof['host_launches']} host-issued launches ({prof['graph_launches']} graph "
+        f"launches); host ms in " + ", ".join(
+            f"{k} {prof['host_us'].get(k, 0.0) / 1e3:.3f} ({prof['host_calls'].get(k, 0)} calls)"
+            for k in ("cudaGraphLaunch", "cudaStreamSynchronize", "cudaMemcpyAsync"))
+        + f"; K1-K5 runs on the device by card {runs}, counted {counted}, the shards' by "
+        f"card {by_card} on {card}")
+    return (runs == {k: v for k, v in by_card.items() if any(v)}
+            and counted == [sum(c) for c in zip(*by_card.values())]
+            and set(prof["busy_by_card"]) == {dev.index for dev in r.mesh})
+
+
+def one_device_seconds(r, iterations: int):
+    """The one-device graph route on sharded renderer `r`'s tables (on its
+    first card): make_render_iteration's step of the whole film, iterations
+    1 .. `iterations` + 1, the first its warm-up (the capture).  Returns
+    (the step, the HDR sum as (H, W, 3), the rays of the timed iterations,
+    their seconds, the warm-up's seconds)."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator.wavefront import make_render_iteration
+
+    step = make_render_iteration(r.static, r.opts, r.width, r.height)
+    cam, dev = r.camera.as_arrays(), r.flat.device
+    img, rays, secs = torch.zeros((r.width * r.height, 3), device=dev), 0, []
+    for it in range(1, iterations + 2):
+        t0 = time.perf_counter()
+        img, n, _ = step(r.flat, cam, img, it, r.key)
+        n = int(n)
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+        rays += n if it > 1 else 0
+    return step, img.cpu().numpy().reshape(r.height, r.width, 3), rays, secs[1:], secs[0]
+
+
 def phase_sharding(card: str):
-    """make_sharded_iteration over [cuda:0, cuda:0] against the one-device
-    render with swizzle=False: glasstorus at RES x RES and cornell_spheres
-    bitwise, and glasstorus at RES x (RES - 1), which pads one row; then one
-    sample_parallel_step against the sequential iterations."""
+    """Phase 16: Renderer(devices=N) over shard_mesh() on the graph route,
+    each shard's iteration replayed as CUDA graphs on its own card in
+    lockstep, against the one-device graph route (make_render_iteration's
+    step on the renderer's tables, swizzle off): the HDR sums bitwise and
+    the rays equal (more with padding rows) on SHARD_CASES; s/iteration
+    (medians of SHARD_ITERS) of both and, on glasstorus, of the eager route
+    (the shards in turn on the eager loop, its image bitwise too); each
+    shard's graphs and capture seconds, each card's memory reserved at most
+    and, for one more iteration under the profiler, each card's device-busy
+    ms and K1-K5 runs, held to the shards' launch counters (after every
+    case's timing); on glasstorus one sample_parallel_step against the
+    sequential one-device iterations, bitwise.  Held under SHARD_PHASE_S."""
     import numpy as np
     import torch
 
     from pathtracer_tpu_torch.integrator.render import Renderer
-    from pathtracer_tpu_torch.integrator.wavefront import render_iteration
     from pathtracer_tpu_torch.parallel import sharding as sh
     from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 
     t_phase = time.perf_counter()
-    mesh = sh.make_mesh(2, [DEVICE, DEVICE])
-    for scene_path, res in ((SCENE, (RES, RES)), (SCENE_CORNELL, (RES, RES)),
-                            (SCENE, (RES, RES - 1))):
-        r = Renderer(scene_path, RenderOptions(sample_mode=SampleMode.MIS, swizzle=False),
-                     resolution=res, trace_depth=DEPTH, device=DEVICE)
-        single_s = timed_step(r, 1)  # iterations 1 and 2
-        want, rays_single = r.hdr_sum(), r.stats.rays_traced
-        step, _, ph = sh.make_sharded_iteration(r.static, r.opts, r.width, r.height, mesh)
-        img = sh.zeros_image(r.width, r.height, mesh)
-        cam = r._cam_arrays()
-        img, _, _ = step(r.flat, cam, img, 1, r.key)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img, rays, depth = step(r.flat, cam, img, 2, r.key)
-        rays = int(rays)
-        sharded_s = time.perf_counter() - t0
-        got = sh.fetch_image(img, r.width, r.height)
+    mesh = shard_mesh()
+    cards = list(dict.fromkeys(mesh))
+    for dev in cards:
+        torch.cuda.reset_peak_memory_stats(dev)
+    n = len(mesh)
+    log(f"sharding: {n} shards on {len(cards)} distinct card(s): {', '.join(map(str, mesh))}")
+    secs, traced = {}, []
+    for name, scene_path, res, used, profiled in SHARD_CASES:
+        t_case = time.perf_counter()
+        opts = RenderOptions(sample_mode=SampleMode.MIS, swizzle=False)
+        with mesh_of(mesh) if len(cards) < n else contextlib.nullcontext():
+            r = Renderer(scene_path, opts, resolution=res, trace_depth=DEPTH, devices=n,
+                         device=DEVICE)
+        if not r.graph_route or r.mesh != mesh:
+            raise AssertionError(f"sharding: {name}: not on the graph route over {mesh}")
+        one, want, rays_one, one_s, one_warm = one_device_seconds(r, SHARD_ITERS)
+        r.step(1)
+        its = r.shard_step.shards.iterations
+        if len(its) != n or not all(it.graphs and it.num_graphs for it in its):
+            raise AssertionError(f"sharding: {name}: the shards did not capture graphs")
+        reset_launch_counts()
+        before = shard_launches(r)
+        for _ in range(SHARD_ITERS):
+            r.step(1)
+            if r.iteration == SHARD_ITERS:
+                got_eager_span = r.hdr_sum()  # iterations 1 .. SHARD_ITERS
+        counted = {k: v for k, v in launch_counts().items() if k[0] == "K"}
+        per_shard = [tuple(a - b for a, b in zip(x, y)) for x, y in zip(shard_launches(r), before)]
+        got, rays = r.hdr_sum(), r.stats.rays_traced
+        shard_s = list(r.stats.per_iter_seconds)
         same = np.array_equal(got, want)
-        log(f"sharding: {scene_path.name} MIS {res[0]}x{res[1]} depth {DEPTH}, 2 shards on "
-            f"{mesh}: rows padded to {ph}, HDR sum bitwise equal to one device (swizzle off): "
-            f"{same}; rays {rays} (one device {rays_single}); {depth} laps; s/iteration sharded "
-            f"{sharded_s:.4f}, one device {single_s:.4f} on {card}")
-        padded = ph != r.height
-        if not same or (rays != rays_single) != padded:
-            raise AssertionError(f"the sharded render of {scene_path.name} differs")
-    step, combine = sh.sample_parallel_step(r.static, r.opts, r.width, r.height, mesh)
-    img = [torch.zeros((r.width * r.height, 3), device=dev) for dev in mesh]
-    img, rays = step(r.flat, cam, img, 1, r.key)
-    got = combine(img).cpu().numpy()
-    seq = torch.zeros_like(img[0])
-    for it in (1, 2):
-        seq = seq + render_iteration(r.flat, r.static, r.opts, cam, r.key, it)[0]
-    compare_images(f"sharding: sample_parallel_step over {mesh} (iterations 1, 2) against "
-                   f"the sequential iterations", got, seq.cpu().numpy())
-    log(f"sharding phase: {time.perf_counter() - t_phase:.1f} s")
+        padded = r.shard_step.shards.local_rows * n != res[1]
+        summed = dict(zip(("K1", "K2", "K3", "K4", "K5"), map(sum, zip(*per_shard))))
+        log(f"sharding: {name} MIS {res[0]}x{res[1]} depth {DEPTH}, {n} shards on {len(cards)} "
+            f"card(s) (rows padded: {padded}): HDR sum bitwise the one-device graph route's: "
+            f"{same}; rays {rays} (one device {rays_one}); {r.traced_depth} laps at most; "
+            f"s/iteration medians of {SHARD_ITERS}: sharded graphs "
+            f"{statistics.median(shard_s):.4f} ({', '.join(f'{x:.4f}' for x in shard_s)}), one "
+            f"device graphs {statistics.median(one_s):.4f} "
+            f"({', '.join(f'{x:.4f}' for x in one_s)}); K1-K5 launches counted {counted}, the "
+            f"shards' {summed}; graphs per shard {[it.num_graphs for it in its]}, capture s "
+            f"{[round(it.capture_seconds, 3) for it in its]} (one device's warm-up with its "
+            f"capture {one_warm:.3f} s); memory reserved at most "
+            + ", ".join(f"{dev} {torch.cuda.max_memory_reserved(dev) / 2**20:.1f} MiB"
+                        for dev in cards) + f" on {card}")
+        secs[name] = {"sharded graphs": statistics.median(shard_s),
+                      "one-device graphs": statistics.median(one_s)}
+        if not same or (rays != rays_one) != padded or (padded and rays < rays_one):
+            raise AssertionError(f"sharding: the sharded render of {name} differs")
+        if counted != summed or not all(counted[k] > 0 for k in used) or any(
+                v for k, v in counted.items() if k not in used):
+            raise AssertionError(f"sharding: {name}: K1-K5 counted {counted}, the shards' "
+                                 f"{summed}; must be equal, only {used} launched")
+        if profiled:
+            traced.append((name, r))
+        if name == "glasstorus":
+            eager_img, eager_s = eager_sharded_seconds(r, mesh, SHARD_ITERS)
+            secs[name]["sharded eager"] = statistics.median(eager_s)
+            same = np.array_equal(eager_img, got_eager_span)
+            log(f"sharding: {name}: the eager shards (make_render_iteration on the eager loop, "
+                f"shards in turn) {statistics.median(eager_s):.4f} s/iteration (median of "
+                f"{len(eager_s)}: {', '.join(f'{x:.4f}' for x in eager_s)}); its image after "
+                f"{SHARD_ITERS} iterations bitwise the sharded graph route's: {same}")
+            if not same:
+                raise AssertionError("sharding: the eager shards differ from the graph route")
+            # sample space: device d renders iteration d + 1 of the whole film
+            sstep, combine = sh.sample_parallel_step(r.static, r.opts, r.width, r.height, mesh)
+            cam = r.camera.as_arrays()
+            img, srays = sstep(r.flat, cam, [torch.zeros((r.width * r.height, 3), device=d)
+                                             for d in mesh], 1, r.key)
+            sample = combine(img).cpu().numpy()
+            seq, seq_rays = torch.zeros((r.width * r.height, 3), device=r.flat.device), 0
+            for it in range(1, n + 1):
+                seq, r_it, _ = one(r.flat, cam, seq, it, r.key)
+                seq_rays += int(r_it)
+            same = np.array_equal(sample, seq.cpu().numpy())
+            on_graphs = all(it.graphs for it in sstep.shards.iterations)
+            log(f"sharding: sample_parallel_step over {mesh} (iterations 1-{n}) on {name} "
+                f"{r.width}x{r.height}: bitwise the sequential one-device iterations: {same}; "
+                f"rays {int(srays)} against {seq_rays}; the shards on the graph route: "
+                f"{on_graphs}")
+            if not same or int(srays) != seq_rays or not on_graphs:
+                raise AssertionError("sharding: sample_parallel_step differs from the "
+                                     "sequential iterations")
+            del sstep, img
+        log(f"sharding: {name}: {time.perf_counter() - t_case:.1f} s for the case")
+        del r, one
+    # traced last: once torch.profiler has run, the process's graph launches stay slower
+    # (four cards: 0.061 s an iteration of glasstorus before a trace, 0.088 after)
+    for name, r in traced:
+        if not profile_shards(r, name, card):
+            # a trace may miss events (one of 16 K2 runs, and a whole lap graph's 2,451
+            # events, while the graphs replayed are fixed): the next iteration's must agree
+            log(f"sharding: {name}: the trace disagrees with the counters; one more iteration")
+            if not profile_shards(r, name, card):
+                raise AssertionError(f"sharding: {name}: the device's K1-K5 runs differ from "
+                                     f"the shards' counters in two traced iterations")
+    del traced
+    log("sharding: s/iteration (medians): " + "; ".join(
+        f"{k}: " + ", ".join(f"{route} {v:.4f}" for route, v in d.items())
+        for k, d in secs.items()))
+    phase_s = time.perf_counter() - t_phase
+    log(f"sharding phase: {phase_s:.1f} s on {card}, {n} shards on {len(cards)} card(s)")
+    if phase_s > SHARD_PHASE_S:
+        raise AssertionError(f"the sharding phase took {phase_s:.1f} s, over {SHARD_PHASE_S} s")
 
 
 def phase_profiling(r, card: str):
@@ -1508,10 +1728,11 @@ def phase_oracle(card: str):
 
 def phase_entry(card: str):
     """entry()'s step against a Renderer's first iteration, bitwise, with no
-    kernel launched; dryrun_multichip(2) over [cuda:0, cuda:0] in full
-    mode, which holds each pass bitwise to the one-device steps itself; K1
-    and K2 launched in it, K3-K5 not.  Its only triangles are the mesh
-    pass's, so the dry run's counts are that pass's."""
+    kernel launched; dryrun_multichip over shard_mesh() (distinct cards, or
+    the one card twice) in full mode, which holds each pass bitwise to the
+    one-device steps itself; K1 and K2 launched in it, K3-K5 not.  Its only
+    triangles are the mesh pass's, so the dry run's counts are that
+    pass's."""
     import torch
 
     from pathtracer_tpu_torch import entry
@@ -1533,11 +1754,12 @@ def phase_entry(card: str):
     if (tuple(img.shape) != (64 * 64, 3) or int(rays) <= 0 or depth < 1 or not same
             or any(launches[k] for k in ("K1", "K2", "K3", "K4", "K5"))):
         raise AssertionError("entry()'s step is not the Renderer's first iteration")
+    mesh = shard_mesh()
     reset_launch_counts()
-    entry.dryrun_multichip(2, devices=[DEVICE, DEVICE])
-    torch.cuda.synchronize()
+    entry.dryrun_multichip(len(mesh), devices=mesh)
+    sync_all(mesh)
     launches = launch_counts()
-    log(f"entry: dryrun_multichip(2) over [{DEVICE}, {DEVICE}]: launches {launches}")
+    log(f"entry: dryrun_multichip({len(mesh)}) over {mesh}: launches {launches}")
     if not (launches["K1"] and launches["K2"]) or any(launches[k] for k in ("K3", "K4", "K5")):
         raise AssertionError(f"the dry run launched {launches}; needs K1 and K2, none of K3-K5")
     phase_s = time.perf_counter() - t_phase

@@ -1,7 +1,7 @@
 """Command-line interface of the PyTorch/CUDA port.
 
     python -m pathtracer_tpu_torch.cli render  <scene.txt> [options]
-    python -m pathtracer_tpu_torch.cli info    <scene.txt>
+    python -m pathtracer_tpu_torch.cli info    <scene.txt> [--device D]
     python -m pathtracer_tpu_torch.cli bench   <scene.txt> [options]
     python -m pathtracer_tpu_torch.cli preview <scene.txt> [options]
 
@@ -150,7 +150,7 @@ def cmd_info(args) -> int:
     from pathtracer_tpu_torch.scene.parser import load_scene
 
     scene = load_scene(args.scene)
-    _, static = build_flat_scene(scene)
+    _, static = build_flat_scene(scene, device=args.device)
     info = {
         "scene": str(scene.path),
         "resolution": list(scene.camera.resolution),
@@ -193,6 +193,7 @@ def main(argv=None) -> int:
 
     pi = sub.add_parser("info", help="print scene statistics as JSON")
     pi.add_argument("scene")
+    pi.add_argument("--device", default="cuda", help="torch device: cuda (default), cuda:N or cpu")
     pi.set_defaults(fn=cmd_info)
 
     pb = sub.add_parser("bench", help="measure Mrays/s")

@@ -16,8 +16,10 @@ PyTorch keeps no such process-wide backend, so this one runs in the caller's
 process.
 
     python -m pathtracer_tpu_torch.entry [--device cuda:0] [--shards 8]
+    python -m pathtracer_tpu_torch.entry --cards 4
 
-runs the entry step, then the dry run over `--shards` shards of the one device.
+runs the entry step on `--device`, then the dry run over `--shards` shards
+of that one device, or with `--cards N` over the first N visible cards.
 """
 
 from __future__ import annotations
@@ -28,11 +30,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pathtracer_tpu_torch.integrator.render import resolve_device
 from pathtracer_tpu_torch.integrator.wavefront import CameraArrays, make_render_iteration
 from pathtracer_tpu_torch.parallel import sharding as sh
 from pathtracer_tpu_torch.scene.camera import derive_camera
-from pathtracer_tpu_torch.scene.flatscene import build_flat_scene
+from pathtracer_tpu_torch.scene.flatscene import build_flat_scene, resolve_device
 from pathtracer_tpu_torch.scene.parser import load_scene
 from pathtracer_tpu_torch.utils import rng
 from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
@@ -123,12 +124,18 @@ def dryrun_multichip(n_devices: int, fast: bool = False, devices=None) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m pathtracer_tpu_torch.entry")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
-    ap.add_argument("--shards", type=int, default=8, help="shards of --device in the dry run")
+    mesh = ap.add_mutually_exclusive_group()
+    mesh.add_argument("--shards", type=int, default=8, help="shards of --device in the dry run")
+    mesh.add_argument("--cards", type=int, default=None,
+                      help="run the dry run over the first N visible cards instead")
     args = ap.parse_args(argv)
     fn, example_args = entry(args.device)
     img, rays, depth = fn(*example_args)
     print(f"entry ok: img {tuple(img.shape)} on {img.device}, rays {int(rays)}, depth {depth}")
-    dryrun_multichip(args.shards, devices=[args.device] * args.shards)
+    if args.cards is not None:
+        dryrun_multichip(args.cards)
+    else:
+        dryrun_multichip(args.shards, devices=[args.device] * args.shards)
     return 0
 
 

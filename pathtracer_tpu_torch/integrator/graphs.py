@@ -7,10 +7,18 @@ Port of the JAX Renderer's jitted iteration (`_iter_fn` and `_batch_fn`,
 650-748`).  The JAX program decides three things on the device: whether to
 run another lap, whether to drop to the next ladder level and whether to
 sort.  A CUDA graph cannot branch on data through PyTorch's API, so here
-the host decides, with `wavefront.drive_laps`, from the one read a lap the
+the host decides, with `wavefront.lap_plan`, from the one read a lap the
 eager loop pays (the live count); everything between two reads is one
 graph replay.  Every decision is the eager loop's, so the image, the rays
 and the laps are bit for bit `wavefront.render_iteration`'s.
+
+`StaticIteration` runs the whole film, or `local_rows` rows from pixel
+`pixel0` on (a shard's pool, as `render_iteration` takes them).  The
+sharded steps (parallel/sharding.py) and the step factory
+(`wavefront.make_render_iteration`) run one per shard or per first pixel;
+`run_lockstep` drives several at once from one host thread, each on its own
+card: a round issues every shard's next lap before it reads any live count,
+so distinct cards run their laps together.
 
 `StaticIteration` runs the steps of integrator/wavefront.py over fixed
 buffers: the camera and the scalars (iteration, regeneration batch size)
@@ -61,9 +69,9 @@ import torch
 from pathtracer_tpu_torch.integrator.wavefront import (
     CameraArrays,
     _Pool,
-    drive_laps,
     finish,
     lap_budget,
+    lap_plan,
     lap_spec,
     lap_step,
     level_down,
@@ -103,13 +111,25 @@ def graph_nodes(g: torch.cuda.CUDAGraph) -> int:
     return n.value
 
 
-def graph_key(static: SceneStatic, opts: RenderOptions, key, pixel_xy, regen: bool) -> tuple:
+def graph_route(static: SceneStatic, opts: RenderOptions, device) -> bool:
+    """Does an iteration on `device` replay CUDA graphs?  On a CUDA device,
+    where the JAX package runs its jitted iteration: not for a triangle
+    scene off the kernels (`pallas_traversal=False` or `use_bvh=False`),
+    whose MTBVH walk and sweep read the host inside a lap and which the JAX
+    package renders staged.  Elsewhere the steps run eagerly."""
+    staged = static.num_tris > 0 and not (opts.pallas_traversal and opts.use_bvh)
+    return torch.device(device).type == "cuda" and not staged
+
+
+def graph_key(static: SceneStatic, opts: RenderOptions, key, pixel_xy, regen: bool,
+              local_rows: int | None = None, pixel0: int = 0) -> tuple:
     """What a capture bakes in: the scene, the options, the RNG key words,
     the route flags read at call time (`packet_mode`, STREAM_BLOCKMAJOR),
-    the film (its size and lane -> pixel map) and regeneration."""
+    the film (its size and lane -> pixel map), regeneration and the pool's
+    rows (`local_rows` from pixel `pixel0`; None: the whole film)."""
     return (static, opts, tuple(int(k) for k in key), packet_mode(static),
             bool(ts.STREAM_BLOCKMAJOR), static.width, static.height, pixel_xy is not None,
-            bool(regen))
+            bool(regen), local_rows, int(pixel0))
 
 
 def launch_counts() -> tuple:
@@ -128,19 +148,20 @@ def _copy_pool(dst: _Pool, src: _Pool) -> None:
 
 
 class StaticIteration:
-    """One iteration (or regeneration batch) of a whole film over fixed
-    buffers on one device; with `graphs`, its steps replayed as CUDA
-    graphs."""
+    """One iteration (or regeneration batch) of a whole film, or of
+    `local_rows` rows from pixel `pixel0` on, over fixed buffers on one
+    device; with `graphs`, its steps replayed as CUDA graphs."""
 
     def __init__(self, flat: FlatScene, static: SceneStatic, opts: RenderOptions, key,
-                 pixel_xy=None, regen: bool = False, graphs: bool = True):
+                 pixel_xy=None, regen: bool = False, graphs: bool = True,
+                 local_rows: int | None = None, pixel0: int = 0):
         dev = flat.device
         if graphs and dev.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
-        self.key = graph_key(static, opts, key, pixel_xy, regen)
+        self.key = graph_key(static, opts, key, pixel_xy, regen, local_rows, pixel0)
         self.graphs = graphs
         self.static, self.device = static, dev
-        self.n = static.width * static.height
+        self.n = static.width * (static.height if local_rows is None else local_rows)
         # the inputs: the camera's 14 floats, then the iteration and the
         # batch size as int32 bits, filled by one host copy an iteration
         self.inputs = torch.zeros((CAM_FLOATS + 2,), dtype=torch.float32, device=dev)
@@ -149,7 +170,7 @@ class StaticIteration:
         scalars = self.inputs[CAM_FLOATS:].view(torch.int32)
         self.iteration, self.nk = scalars[0], scalars[1]
         self.spec = lap_spec(flat, static, opts, self.cam, key, self.n, pixel_xy=pixel_xy,
-                             nk=self.nk if regen else None)
+                             nk=self.nk if regen else None, pixel0=int(pixel0))
         self.sizes = (self.n,) + tuple(size for size, _ in self.spec.sched.shrink)
         self.pools = [new_pool(torch.zeros((m, 3), device=dev), torch.zeros((m, 3), device=dev),
                                regen=regen) for m in self.sizes]
@@ -161,6 +182,7 @@ class StaticIteration:
         self.nodes = {}    # key -> the nodes of its graph
         self.capture_seconds = 0.0
         self.replays = 0  # steps run, replayed or (without graphs) eager
+        self.launches = (0,) * len(COUNTERS)  # K1-K5 launches its replays added
 
     # -- the steps, over the buffers -------------------------------------
     def _start(self) -> None:
@@ -275,13 +297,22 @@ class StaticIteration:
         try:
             g, counts = self._graphs[key]
         except KeyError:
-            raise GraphError(f"step {key} was not captured") from None
+            raise GraphError(f"step {key} on {self.device} was not captured") from None
         try:
             with torch.cuda.device(self.device):
                 g.replay()
         except Exception as e:
-            raise GraphError(f"replay of step {key} failed: {e}") from e
+            raise GraphError(f"replay of step {key} on {self.device} failed: {e}") from e
         _set_counts(c + d for c, d in zip(launch_counts(), counts))
+        self.launches = tuple(c + d for c, d in zip(self.launches, counts))
+
+    def live(self, key: tuple) -> int:
+        """The live count lap step `key` stored: the one host read a lap,
+        which waits for this device alone."""
+        try:
+            return int(self.alive_n)
+        except Exception as e:
+            raise GraphError(f"step {key} on {self.device} failed: {e}") from e
 
     @property
     def num_graphs(self) -> int:
@@ -292,19 +323,65 @@ class StaticIteration:
         regeneration: (contrib in lane order, rays emitted, the pool's
         length at each lap), as `render_iteration` returns them.  contrib
         and rays are the buffers, overwritten by the next run."""
-        self.set_inputs(cam, iteration, nk)
-        self.prepare()
-        self.replay(("start",))
+        return run_lockstep([(self, cam, iteration, nk)])[0]
 
-        def lap(level: int, depth: int, sort: bool) -> int:
-            self.replay(("lap", level, sort))
+
+def run_lockstep(runs: list) -> list:
+    """One iteration on each StaticIteration of `runs`, a list of (the
+    StaticIteration, cam, iteration, nk) as `StaticIteration.run` takes
+    them, from one host thread.  The graphs of each are captured at its
+    first run.  Each round, every iteration whose plan (`lap_plan`) has laps
+    left replays its steps up to its next lap, issued on its card without a
+    wait; only then is each one's live count read, the first read waiting
+    for its own card alone, so distinct cards run the round's laps together.
+    Each makes the decisions its own `drive_laps` would.  Returns, in order,
+    what `StaticIteration.run` returns for each."""
+    plans = []
+    for it, cam, iteration, nk in runs:
+        it.set_inputs(cam, iteration, nk)
+        it.prepare()
+        it.replay(("start",))
+        plans.append(lap_plan(it.spec.sched, it.n, lap_budget(it.static, nk)))
+    replies = [None] * len(runs)
+    laps = [None] * len(runs)
+    going = list(range(len(runs)))
+    while going:
+        lapped = []
+        for i in going:
+            it = runs[i][0]
             try:
-                return int(self.alive_n)
-            except Exception as e:
-                raise GraphError(f"step {('lap', level, sort)} failed: {e}") from e
+                step = plans[i].send(replies[i])
+                while step[0] != "lap":  # ("down", level) or ("up", level)
+                    it.replay(step)
+                    step = plans[i].send(None)
+            except StopIteration as done:
+                laps[i] = done.value
+                continue
+            key = ("lap", step[1], step[3])
+            it.replay(key)
+            lapped.append((i, key))
+        for i, key in lapped:
+            replies[i] = runs[i][0].live(key)
+        going = [i for i, _ in lapped]
+    out = []
+    for (it, *_), shard_laps in zip(runs, laps):
+        it.replay(("finish",))
+        out.append((it.contrib, it.rays, shard_laps))
+    return out
 
-        laps = drive_laps(self.spec.sched, self.n, lap_budget(self.static, nk), lap,
-                          lambda level: self.replay(("down", level)),
-                          lambda level: self.replay(("up", level)))
-        self.replay(("finish",))
-        return self.contrib, self.rays, laps
+
+def held_iteration(held: dict, slot, flat: FlatScene, static: SceneStatic, opts: RenderOptions,
+                   key, **kwargs) -> StaticIteration:
+    """`held[slot]` if it was made for `flat`, for the graph_key of these
+    arguments and on the route `graph_route` gives for `flat`'s device;
+    else a new StaticIteration in its place, the old one and its graphs'
+    memory dropped first.  `kwargs`: StaticIteration's pixel_xy, regen,
+    local_rows, pixel0."""
+    k = graph_key(static, opts, key, kwargs.get("pixel_xy"), kwargs.get("regen", False),
+                  kwargs.get("local_rows"), kwargs.get("pixel0", 0))
+    graphs = graph_route(static, opts, flat.device)
+    it = held.get(slot)
+    if it is None or it.key != k or it.spec.flat is not flat or it.graphs != graphs:
+        held.pop(slot, None)
+        it = held[slot] = StaticIteration(flat, static, opts, key, graphs=graphs, **kwargs)
+    return it

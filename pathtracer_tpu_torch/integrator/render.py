@@ -11,12 +11,14 @@ Each iteration runs the steps of `integrator/wavefront.py` with the
 options' schedule (the per-bounce sort, the shrink ladder, the shadow sort)
 and adds its contributions, in lane order, to the image: one add per
 iteration, so the image does not depend on the schedule.  Where the JAX
-Renderer runs its jitted iteration (`_iter_fn`, `_batch_fn`), a one-device
-Renderer on CUDA replays the steps as CUDA graphs, captured in the warm-up
+Renderer runs its jitted iteration (`_iter_fn`, `_batch_fn`), a Renderer
+on CUDA replays the steps as CUDA graphs, captured in the warm-up
 iteration (`integrator/graphs.py`: one host read a lap, images bit for bit
-the eager loop's); where the JAX Renderer runs staged (a triangle scene off
-the kernels: the MTBVH walk and the sweep, whose `torch.nonzero` a graph
-cannot hold), and on the CPU, it runs the eager loop, `render_iteration`.
+the eager loop's), a sharded one each shard's on its own card; where the
+JAX Renderer runs staged (a triangle scene off the kernels: the MTBVH walk
+and the sweep, whose `torch.nonzero` a graph cannot hold), and on the CPU,
+it runs the eager loop, `render_iteration` (sharded: the shards' steps
+eagerly).
 With `ray_regen` K > 1, `step` renders batches of up to K samples per
 pixel in one persistent pool (the first, warm-up iteration alone);
 DIRECT_LI and `show_normal` paths end after one bounce, so there the option
@@ -29,7 +31,7 @@ instead of the kernels, and `use_bvh=False` sweeps every triangle
 kernel table turns `pallas_traversal` off when the tables are built, as the
 JAX Renderer does.  `devices=N` renders pixel rows sharded over N devices
 (parallel/sharding.py: the first N CUDA devices, or N shards on the CPU
-with device="cpu"); as in the JAX package a sharded
+with device="cpu", their laps in lockstep); as in the JAX package a sharded
 renderer turns the 32x32 swizzle off and ignores `ray_regen`.  These only
 change how the TPU runs, not the image, so they are accepted and ignored:
 `packet_p`, `packet_q`, `packet_dense`, `packet_auto` and `interpret`
@@ -55,11 +57,12 @@ from pathtracer_tpu_torch.scene.camera import RenderCamera, derive_camera
 from pathtracer_tpu_torch.scene.parser import SceneData, load_scene
 from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 from pathtracer_tpu_torch.utils.image_io import write_hdr, write_png
+from pathtracer_tpu_torch.integrator import graphs
 from pathtracer_tpu_torch.integrator.graphs import StaticIteration, graph_key
 from pathtracer_tpu_torch.integrator.wavefront import CameraArrays, render_iteration
 from pathtracer_tpu_torch.ops import math as m
 from pathtracer_tpu_torch.ops.traverse import packet_mode
-from pathtracer_tpu_torch.scene.flatscene import build_flat_scene
+from pathtracer_tpu_torch.scene.flatscene import build_flat_scene, resolve_device
 from pathtracer_tpu_torch.utils import rng
 
 
@@ -89,17 +92,6 @@ class RenderStats:
     def mrays_per_sec(self) -> float:
         t = self.wall_seconds
         return (self.rays_traced / t / 1e6) if t > 0 else 0.0
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for `device`; a CUDA request without CUDA raises (the
-    port never moves to the CPU on its own)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 class Renderer:
@@ -154,10 +146,7 @@ class Renderer:
                 torch.from_numpy(a.astype(np.float32)).to(self.device)
                 for a in (self.pixel_order % self.width, self.pixel_order // self.width)
             )
-        if self.devices > 1:
-            self._sharded_step = sh.make_sharded_iteration(
-                self.static, self.opts, self.width, self.height, self.mesh
-            )[0]
+        self.shard_step = None  # the sharded step (devices > 1), made for self.opts
         self.seed = 0
         self.key = rng.base_key(0)
         self.traced_depth = 0  # laps of the last iteration
@@ -180,13 +169,12 @@ class Renderer:
 
     @property
     def graph_route(self) -> bool:
-        """Does an iteration replay CUDA graphs?  On one CUDA device, where
-        the JAX Renderer runs its jitted iteration: not for a triangle scene
-        off the kernels (`pallas_traversal=False` or `use_bvh=False`),
-        which the JAX package renders staged."""
-        staged = self.static.num_tris > 0 and not (self.opts.pallas_traversal
-                                                   and self.opts.use_bvh)
-        return self.device.type == "cuda" and self.devices == 1 and not staged
+        """Does an iteration replay CUDA graphs?  On CUDA, where the JAX
+        Renderer runs its jitted iteration, sharded or not: not for a
+        triangle scene off the kernels (`pallas_traversal=False` or
+        `use_bvh=False`), which the JAX package renders staged
+        (`graphs.graph_route`)."""
+        return graphs.graph_route(self.static, self.opts, self.device)
 
     def _compiled(self) -> StaticIteration:
         """The graphs for the current options, seed, route flags and film;
@@ -197,6 +185,17 @@ class Renderer:
             self.graphs = StaticIteration(self.flat, self.static, self.opts, self.key,
                                           pixel_xy=self.pixel_xy, regen=bool(self.regen_k))
         return self.graphs
+
+    def _sharded(self):
+        """The sharded step for the current options, made anew when they
+        changed; its shards' graphs follow the seed themselves."""
+        if self.shard_step is None or self.shard_step.shards.opts != self.opts:
+            from pathtracer_tpu_torch.parallel import sharding as sh
+
+            self.shard_step = None  # the old shards' graphs and their memory go first
+            self.shard_step = sh.make_sharded_iteration(
+                self.static, self.opts, self.width, self.height, self.mesh)[0]
+        return self.shard_step
 
     def set_seed(self, seed: int):
         self.seed = int(seed)
@@ -259,16 +258,18 @@ class Renderer:
         return CameraArrays(*(torch.from_numpy(a).to(self.device) for a in self.camera.as_arrays()))
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for every device of the render (each card of a mesh)."""
+        for dev in dict.fromkeys(self.mesh if self.devices > 1 else [self.device]):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _run_iteration(self, cam, nk: int = 1):
         """`nk` samples per pixel: one classic iteration, or a regeneration
         batch when regeneration is on; one iteration over the shards when
         sharded."""
         if self.devices > 1:
-            self.img, rays, self.traced_depth = self._sharded_step(
-                self.flat, cam, self.img, self.iteration + 1, self.key)
+            self.img, rays, self.traced_depth = self._sharded()(
+                self.flat, self.camera.as_arrays(), self.img, self.iteration + 1, self.key)
             self.lap_pools = []
             self.iteration += 1
             return rays
@@ -292,7 +293,8 @@ class Renderer:
         iteration is a warm-up (here: kernel build, CUDA start-up and, on
         the graph route, the capture of every step's graph): its time goes
         to compile_seconds and its rays are not booked."""
-        cam = None if self.graph_route else self._cam_arrays()  # the graphs copy their own
+        # the graphs and the shards copy their own
+        cam = None if self.graph_route or self.devices > 1 else self._cam_arrays()
         if self.iteration == 0 and self.stats.compile_seconds == 0.0 and num_iterations > 0:
             t0 = time.perf_counter()
             self._run_iteration(cam)

@@ -551,32 +551,51 @@ def lap_budget(static: SceneStatic, nk=None) -> int:
     return (static.trace_depth + 1) * (1 if nk is None else int(nk))
 
 
-def drive_laps(sched: Schedule, n: int, budget: int, lap, down, up) -> list:
-    """The host's side of an iteration: every decision, from one read of the
-    live count a lap.  `lap(level, depth, sort)` runs one lap on the pool of
-    ladder level `level` (0: all n lanes) and returns its live count;
-    `down(level)` steps from level to level + 1 (`level_down`), `up(level)`
-    back (`merge_back`).  Laps run while lanes live and the budget lasts;
-    a level starts once alive * divisor <= the pool it leaves, and the
-    laps then end inside it, so the steps back up all come last.  The sort
-    runs at lap 0, then every `sort_every`-th lap while more than a quarter
-    of the pool lives.  Returns the pool's length at each lap run."""
+def lap_plan(sched: Schedule, n: int, budget: int):
+    """The host's side of an iteration as a plan that can be resumed: every
+    decision, from one read of the live count a lap.  A generator that
+    yields ("lap", level, depth, sort) (one lap on the pool of ladder level
+    `level`, 0: all n lanes; it is then sent the lap's live count),
+    ("down", level) (from level to level + 1, `level_down`) and ("up",
+    level) (back, `merge_back`).  Laps run while lanes live and the budget
+    lasts; a level starts once alive * divisor <= the pool it leaves, and
+    the laps then end inside it, so the steps back up all come last.  The
+    sort runs at lap 0, then every `sort_every`-th lap while more than a
+    quarter of the pool lives.  Returns (as StopIteration's value) the
+    pool's length at each lap run.  Several plans advanced in turns keep
+    several devices' laps in flight at once (integrator/graphs.py
+    run_lockstep)."""
     laps = []
     level, pool_n, alive_n = 0, n, n
     while alive_n > 0 and len(laps) < budget:
         if level < len(sched.shrink) and alive_n * sched.shrink[level][1] <= pool_n:
-            down(level)
+            yield ("down", level)
             pool_n = sched.shrink[level][0]
             level += 1
             continue
         depth = len(laps)
         sort = sched.sort_rays and (depth == 0 or (depth % sched.sort_every == 0
                                                    and alive_n * 4 > pool_n))
-        alive_n = lap(level, depth, sort)
+        alive_n = yield ("lap", level, depth, sort)
         laps.append(pool_n)
     for back in reversed(range(level)):
-        up(back)
+        yield ("up", back)
     return laps
+
+
+def drive_laps(sched: Schedule, n: int, budget: int, lap, down, up) -> list:
+    """`lap_plan` run to its end by callbacks: `lap(level, depth, sort)` runs
+    one lap and returns its live count, `down(level)` and `up(level)` step
+    the ladder.  Returns the pool's length at each lap run."""
+    plan = lap_plan(sched, n, budget)
+    reply = None
+    while True:
+        try:
+            step = plan.send(reply)
+        except StopIteration as done:
+            return done.value
+        kind, *args = step
+        reply = lap(*args) if kind == "lap" else (down if kind == "down" else up)(*args)
 
 
 def render_iteration(flat: FlatScene, static: SceneStatic, opts: RenderOptions,
@@ -618,6 +637,13 @@ def render_iteration(flat: FlatScene, static: SceneStatic, opts: RenderOptions,
     return finish(spec, pools[0]), rays, laps
 
 
+def check_film(static: SceneStatic, width: int, height: int) -> None:
+    """A step is made for the film its tables were built for."""
+    if (static.width, static.height) != (width, height):
+        raise ValueError(f"the tables were built for a {static.width}x{static.height} film, "
+                         f"not {width}x{height}")
+
+
 def make_render_iteration(static: SceneStatic, opts: RenderOptions, width: int, height: int,
                           local_rows: int | None = None, pixel_xy=None, regen_k: int = 1):
     """The JAX package's step factory (`pathtracer_tpu/integrator/
@@ -634,23 +660,41 @@ def make_render_iteration(static: SceneStatic, opts: RenderOptions, width: int, 
     `nk` and `pixel0` may be ints or 0-d tensors: the lap loop runs on the
     host, so a CUDA tensor costs one host read each.  The image add is the
     Renderer's, so a step is bit for bit a Renderer iteration on the same
-    lanes.  The JAX package's staged entries (start_state, bounce_step,
-    finish_state) are not ported: the port's iteration is a host loop of
-    laps already."""
-    if (static.width, static.height) != (width, height):
-        raise ValueError(f"the tables were built for a {static.width}x{static.height} film, "
-                         f"not {width}x{height}")
+    lanes.
+
+    Where the JAX package jits the step, on a CUDA `flat` the step runs
+    through `integrator/graphs.py StaticIteration`: one per device and first
+    pixel, kept in the factory and made anew when the tables, the key words
+    or the route flags change (its graphs captured at its first run, then
+    replayed); it returns new tensors, so a result a caller holds is never
+    overwritten.  On the CPU, and for a triangle scene off the kernels
+    (`graphs.graph_route`), the step runs the eager loop,
+    `render_iteration`.  The JAX package's staged entries (start_state,
+    bounce_step, finish_state) are not ported: the port's iteration is a
+    host loop of laps already."""
+    check_film(static, width, height)
     regen = int(regen_k) > 1
     if regen and (opts.sample_mode == SampleMode.DIRECT_LI or bool(opts.show_normal)):
         raise ValueError(
             "ray regeneration applies to the multi-bounce BSDF/MIS integrators (DIRECT_LI / "
             "show_normal pools die after one bounce by construction)")
 
+    held = {}  # (device, pixel0) -> the StaticIteration last run there
+
     def run(flat, cam, img, iteration, key, nk, pixel0):
-        contrib, rays, laps = render_iteration(
-            flat, static, opts, cam, key, int(iteration), pixel_xy=pixel_xy, nk=nk,
-            pixel0=int(pixel0), local_rows=local_rows)
-        return img + contrib, rays, len(laps)
+        from pathtracer_tpu_torch.integrator import graphs  # it imports this module
+
+        pixel0 = int(pixel0)
+        if not graphs.graph_route(static, opts, flat.device):
+            contrib, rays, laps = render_iteration(
+                flat, static, opts, cam, key, int(iteration), pixel_xy=pixel_xy, nk=nk,
+                pixel0=pixel0, local_rows=local_rows)
+            return img + contrib, rays, len(laps)
+        it = graphs.held_iteration(held, (flat.device, pixel0), flat, static, opts, key,
+                                   pixel_xy=pixel_xy, regen=regen, local_rows=local_rows,
+                                   pixel0=pixel0)
+        contrib, rays, laps = it.run(cam, int(iteration), nk)
+        return img + contrib, rays.clone(), len(laps)  # the buffers: the next run overwrites them
 
     def render_step(flat: FlatScene, cam: CameraArrays, img, iteration, key, pixel0=0):
         return run(flat, cam, img, iteration, key, None, pixel0)

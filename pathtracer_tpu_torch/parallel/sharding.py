@@ -16,10 +16,19 @@ are copied once per distinct device.
   film, device d the iteration (it - 1) * n + d + 1, and `combine` sums the
   accumulators.
 
-Each shard runs the step of `integrator/wavefront.py make_render_iteration`
-(with `local_rows` in pixel space), as the JAX package's shard_map bodies do.
-The shards run one after another from the calling thread, each with the
-single-device loop's one host read a lap.
+Where the JAX package runs one jitted shard_map dispatch, each shard here
+runs its iteration through its own `integrator/graphs.py StaticIteration`
+on its shard's device: CUDA graphs captured at the first step, as the JAX
+package compiles at its first call, and replayed after.  `run_lockstep`
+drives the shards from one host thread, each round issuing every shard's
+next lap before it reads any shard's live count, so distinct cards run
+their laps at the same time.  The ray count is summed on the first device
+(the JAX package's psum), the depth is the most laps a shard ran (its
+pmax), and each shard adds its contributions on its own device.  Where the
+JAX package runs staged (a triangle scene with `pallas_traversal=False` or
+`use_bvh=False`: the MTBVH walk and the sweep read the host inside a lap),
+and on the CPU, the shards' steps run eagerly (`graphs.graph_route`), in the
+same lockstep.
 """
 
 from __future__ import annotations
@@ -29,9 +38,9 @@ from dataclasses import fields
 import numpy as np
 import torch
 
-from pathtracer_tpu_torch.integrator.render import resolve_device
-from pathtracer_tpu_torch.integrator.wavefront import CameraArrays, make_render_iteration
-from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
+from pathtracer_tpu_torch.integrator import graphs
+from pathtracer_tpu_torch.integrator.wavefront import check_film
+from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic, resolve_device
 from pathtracer_tpu_torch.utils.config import RenderOptions
 
 
@@ -70,9 +79,9 @@ def padded_height(height: int, n_dev: int) -> int:
 
 
 class _Tables:
-    """The scene tables and camera on each device of a mesh, copied from
-    the caller's once per distinct device (and again if the caller hands
-    another FlatScene)."""
+    """The scene tables on each device of a mesh, copied from the caller's
+    once per distinct device (and again if the caller hands another
+    FlatScene)."""
 
     def __init__(self):
         self.copies = {}
@@ -86,9 +95,43 @@ class _Tables:
             self.copies[dev] = (flat, copy)
         return copy
 
-    @staticmethod
-    def cam(cam: CameraArrays, dev: torch.device) -> CameraArrays:
-        return CameraArrays(*(t.to(dev) for t in cam))
+
+class ShardIterations:
+    """The shards' iterations: one StaticIteration per shard of `mesh`, on
+    its device and over the tables copied there, the pool `local_rows` rows
+    from pixel `pixel0s[d]` (None: the whole film).  Each is made at its
+    first run, and made anew where the key or the tables change
+    (`graphs.held_iteration`)."""
+
+    def __init__(self, static: SceneStatic, opts: RenderOptions, mesh: list,
+                 local_rows: int | None = None, pixel0s=None):
+        self.static, self.opts, self.mesh = static, opts, list(mesh)
+        self.local_rows = local_rows
+        self.pixel0s = list(pixel0s) if pixel0s is not None else [0] * len(mesh)
+        self.tables = _Tables()
+        self.held = {}  # shard -> its StaticIteration
+
+    @property
+    def iterations(self) -> list:
+        """The shards' StaticIterations made so far, in shard order."""
+        return [self.held[d] for d in sorted(self.held)]
+
+    def run(self, flat: FlatScene, cam, key, iterations: list) -> list:
+        """Shard d's iteration `iterations[d]` on each shard, in lockstep:
+        (contrib, rays, laps) per shard, the contributions and rays in the
+        shard's buffers (overwritten by the next run)."""
+        runs = []
+        for d, dev in enumerate(self.mesh):
+            it = graphs.held_iteration(self.held, d, self.tables.flat(flat, dev), self.static,
+                                       self.opts, key, local_rows=self.local_rows,
+                                       pixel0=self.pixel0s[d])
+            runs.append((it, cam, iterations[d], None))
+        return graphs.run_lockstep(runs)
+
+    def total_rays(self, outs: list) -> torch.Tensor:
+        """The shards' rays summed on the first device (the JAX package's
+        psum), a new tensor."""
+        return torch.stack([rays.to(self.mesh[0]) for _, rays, _ in outs]).sum()
 
 
 def make_sharded_iteration(
@@ -103,25 +146,24 @@ def make_sharded_iteration(
     Returns (step, shard_devices, padded_height): step(flat, cam, img,
     iteration, key) -> (img, rays_traced, depth), where img is the list of
     the shards' accumulators ((local_rows * W, 3) each, on its shard's
-    device), rays_traced the count over all shards (an int64 tensor on the
-    first device) and depth the most bounce laps a shard ran.
+    device; new tensors), rays_traced the count over all shards (an int64
+    tensor on the first device) and depth the most bounce laps a shard ran.
+    `cam` is CameraArrays, or `RenderCamera.as_arrays()`'s numpy arrays.
+    `step.shards` is the step's ShardIterations.
     """
+    check_film(static, width, height)
     n_dev = len(mesh)
     ph = padded_height(height, n_dev)
     local_h = ph // n_dev
-    local_iter = make_render_iteration(static, opts, width, height, local_rows=local_h)
-    tables = _Tables()
+    shards = ShardIterations(static, opts, mesh, local_h,
+                             [d * local_h * width for d in range(n_dev)])
 
     def step(flat, cam, img, iteration, key):
-        out, rays, depth = [], [], 0
-        for d, dev in enumerate(mesh):
-            part, r, laps = local_iter(tables.flat(flat, dev), tables.cam(cam, dev), img[d],
-                                       iteration, key, d * local_h * width)
-            out.append(part)
-            rays.append(r)
-            depth = max(depth, laps)
-        return out, sum(r.to(mesh[0]) for r in rays), depth
+        outs = shards.run(flat, cam, key, [int(iteration)] * n_dev)
+        return ([part + contrib for part, (contrib, _, _) in zip(img, outs)],
+                shards.total_rays(outs), max(len(laps) for _, _, laps in outs))
 
+    step.shards = shards
     return step, list(mesh), ph
 
 
@@ -146,20 +188,18 @@ def sample_parallel_step(
     """Sample-space parallelism: each device renders the whole frame with a
     different iteration stripe.  Returns (step, combine): step(flat, cam,
     img, iteration, key) -> (img, rays_traced), img a list of one (W*H, 3)
-    accumulator per device; combine(img) sums them on the first device."""
+    accumulator per device (new tensors); combine(img) sums them on the
+    first device.  `step.shards` is the step's ShardIterations."""
+    check_film(static, width, height)
     n_dev = len(mesh)
-    full_iter = make_render_iteration(static, opts, width, height)
-    tables = _Tables()
+    shards = ShardIterations(static, opts, mesh)
 
     def step(flat, cam, img, iteration, key):
-        out, rays = [], []
-        for d, dev in enumerate(mesh):
-            # device d renders iteration n_dev * (iteration - 1) + d + 1
-            it = (int(iteration) - 1) * n_dev + d + 1
-            part, r, _ = full_iter(tables.flat(flat, dev), tables.cam(cam, dev), img[d], it, key)
-            out.append(part)
-            rays.append(r)
-        return out, sum(r.to(mesh[0]) for r in rays)
+        # device d renders iteration n_dev * (iteration - 1) + d + 1
+        outs = shards.run(flat, cam, key,
+                          [(int(iteration) - 1) * n_dev + d + 1 for d in range(n_dev)])
+        return ([part + contrib for part, (contrib, _, _) in zip(img, outs)],
+                shards.total_rays(outs))
 
     def combine(img):
         total = img[0]
@@ -167,4 +207,5 @@ def sample_parallel_step(
             total = total + part.to(mesh[0])
         return total
 
+    step.shards = shards
     return step, combine

@@ -562,11 +562,25 @@ def flat_from_arrays(arrays: Mapping[str, np.ndarray], device, static=None) -> F
     })
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; a CUDA request without CUDA raises (the
+    port never moves to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
 def build_flat_scene(
-    scene: SceneData, opts=None, device="cpu"
+    scene: SceneData, opts=None, device="cuda"
 ) -> tuple[FlatScene, SceneStatic]:
-    """Build the scene tables on `device`.  `opts` (RenderOptions) wires the
-    build knobs use_sah/use_mtbvh/max_prim/bucket_num/vertex_normal."""
+    """Build the scene tables on `device` (the card unless the caller asks
+    for the CPU; a CUDA request without CUDA raises before the build).
+    `opts` (RenderOptions) wires the build knobs
+    use_sah/use_mtbvh/max_prim/bucket_num/vertex_normal."""
+    device = resolve_device(device)
     use_sah = opts.use_sah if opts is not None else True
     use_mtbvh = opts.use_mtbvh if opts is not None else True
     max_prim = opts.max_prim if opts is not None else 1

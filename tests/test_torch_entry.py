@@ -14,8 +14,13 @@ and driver entry (`pathtracer_tpu_torch/entry.py`) on the CPU.
   against a Renderer's first iteration, and the dry run's passes (pixel
   sharding on the Cornell box and a 576-triangle torus box, sample sharding)
   against the one-device steps, over two CPU shards.
+- The card by default: entry(), the dry run, `build_flat_scene` and `cli
+  info` raise without CUDA unless asked for the CPU; `--cards` takes the
+  visible cards.
 """
 
+import inspect
+import json
 import os
 import subprocess
 import sys
@@ -33,9 +38,11 @@ from pathtracer_tpu.scene.flatscene import build_flat_scene as jax_build_flat_sc
 from pathtracer_tpu.scene.parser import load_scene as jax_load_scene
 from pathtracer_tpu.utils import config as jax_config
 from pathtracer_tpu.utils import rng as jax_rng
-from pathtracer_tpu_torch import entry
+from pathtracer_tpu_torch import cli, entry
 from pathtracer_tpu_torch.integrator.render import Renderer
 from pathtracer_tpu_torch.integrator.wavefront import make_render_iteration, render_iteration
+from pathtracer_tpu_torch.scene.flatscene import build_flat_scene
+from pathtracer_tpu_torch.scene.parser import load_scene
 from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 from tests.test_regen import lit_soup_scene
 from tests.test_torch_cornell import XLA_ONE_ROUNDING
@@ -229,6 +236,29 @@ def test_entry_needs_cuda():
         entry.dryrun_multichip(2, devices=["cuda:0", "cuda:0"])
 
 
+def test_tables_need_cuda_by_default():
+    """build_flat_scene builds on the card unless asked for the CPU: without
+    CUDA the default raises before the build, as entry() does."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the rule is checked where it does not")
+    assert inspect.signature(build_flat_scene).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_flat_scene(load_scene(entry.SCENE))
+    flat, _ = build_flat_scene(load_scene(entry.SCENE), device="cpu")
+    assert flat.device.type == "cpu"
+
+
+def test_cli_info_device(capsys):
+    """`cli info` builds on `--device` (the card by default, an error
+    without one) and prints the scene's statistics."""
+    assert cli.main(["info", str(entry.SCENE), "--device", "cpu"]) == 0
+    info = json.loads(capsys.readouterr().out)
+    assert info["geoms"] == 11 and info["triangles"] == 0 and info["traversal"] is None
+    if not torch.cuda.is_available():
+        assert cli.main(["info", str(entry.SCENE)]) == 2
+        assert "CUDA is not available" in capsys.readouterr().err
+
+
 def test_dryrun_fast(capsys):
     entry.dryrun_multichip(2, fast=True, devices=["cpu", "cpu"])
     lines = capsys.readouterr().out.splitlines()
@@ -236,6 +266,18 @@ def test_dryrun_fast(capsys):
     assert "scene cornell_spheres (tris=0, traversal=none)" in lines[0]
     assert "(cpu, cpu)" in lines[0] and "bitwise the one-device step" in lines[0]
     assert "sample-space sharding" in lines[1] and "bitwise the sequential" in lines[1]
+
+
+def test_main_cards_takes_the_visible_cards(monkeypatch):
+    """`--cards N` runs the dry run over the first N visible cards (the mesh
+    make_mesh gives, no device list); `--shards` over shards of --device."""
+    calls = []
+    monkeypatch.setattr(entry, "dryrun_multichip", lambda n, **kw: calls.append((n, kw)))
+    assert entry.main(["--device", "cpu", "--cards", "3"]) == 0
+    assert entry.main(["--device", "cpu", "--shards", "2"]) == 0
+    assert calls == [(3, {}), (2, {"devices": ["cpu", "cpu"]})]
+    with pytest.raises(SystemExit):
+        entry.main(["--cards", "2", "--shards", "2"])
 
 
 def test_main_runs_entry_and_full_dryrun(tmp_path, monkeypatch, capsys):

@@ -102,7 +102,7 @@ def test_tables_and_route(scene, no_table, capsys):
     assert ttv.packet_mode(tstatic) is None
     assert tstatic.stream_top_depth == tstatic.stream_sub_depth == 0
     assert jax_packet_mode(jfs.build_flat_scene(jax_load(scene))[1]) is None
-    assert cli.main(["info", str(scene)]) == 0
+    assert cli.main(["info", str(scene), "--device", "cpu"]) == 0
     info = json.loads(capsys.readouterr().out)
     assert info["traversal"] is None and info["triangles"] == 576
 

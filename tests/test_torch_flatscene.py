@@ -185,10 +185,10 @@ def test_mesh_past_resident_budget_not_ported(tmp_path, monkeypatch):
     tables are built without a split and record no kernel route (the JAX
     package's XLA-walk fallback, ported as the MTBVH walk)."""
     monkeypatch.setattr(tfs, "RESIDENT_SMEM_BUDGET", 0)
-    _, static = tfs.build_flat_scene(load_scene(_soup(tmp_path)))
+    _, static = tfs.build_flat_scene(load_scene(_soup(tmp_path)), device="cpu")
     assert static.stream_subs > 0 and static.stream_top > 0
     assert static.traversal == "stream"
     monkeypatch.setattr(tfs, "STREAM_SMEM_BUDGET", 0)
-    _, static = tfs.build_flat_scene(load_scene(_soup(tmp_path)))
+    _, static = tfs.build_flat_scene(load_scene(_soup(tmp_path)), device="cpu")
     assert static.stream_subs == 0 and static.traversal is None
     assert static.stream_top_depth == static.stream_sub_depth == 0

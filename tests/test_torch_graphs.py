@@ -27,6 +27,20 @@ fixed buffers the card's graphs hold.
 - Capture and replay on the buffers' card: with torch.cuda's calls faked,
   every capture and replay of a renderer on a second card runs with that
   card current and a capture stream of it; a graph with no node raises.
+- A shard's pool: `StaticIteration(local_rows, pixel0, graphs=False)` bit
+  for bit `render_iteration(..., pixel0, local_rows)`, rows past the film
+  included; the key changes with the pool's rows.
+- `lap_plan` driven by hand makes `drive_laps`'s decisions, and the JAX
+  package's ladder rule's (tests/test_torch_schedule.py expected_pools), on
+  the ladders of tests/test_torch_schedule.py.
+- Lockstep on two cards, faked: `run_lockstep` over shards on cuda:0 and
+  cuda:1 captures and replays each shard's steps with its card current, on
+  a stream of it, and issues every shard's lap of a round before the first
+  live-count read of that round; a shard whose capture fails raises
+  GraphError naming its card and step.
+- The step factory on the card, faked: one StaticIteration per device and
+  first pixel, kept across calls with the same key and made anew for
+  another; results that a later call does not overwrite.
 """
 
 import contextlib
@@ -43,12 +57,15 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from pathtracer_tpu_torch.integrator import graphs, render
 from pathtracer_tpu_torch.integrator.graphs import StaticIteration, graph_key
 from pathtracer_tpu_torch.integrator.render import Renderer
-from pathtracer_tpu_torch.integrator.wavefront import render_iteration
+from pathtracer_tpu_torch.integrator import wavefront
+from pathtracer_tpu_torch.integrator.wavefront import Schedule, render_iteration
 from pathtracer_tpu_torch.ops import traverse as ttv
 from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
 from pathtracer_tpu_torch.scene import flatscene as tfs
+from pathtracer_tpu_torch.utils import rng
 from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 from tests.test_torch_render import jax_reference, render_and_compare, small_torus_scene
+from tests.test_torch_schedule import expected_pools
 from tests.test_torch_stream import force_stream
 from tools.make_texture_assets import ensure_texture_assets
 
@@ -345,3 +362,225 @@ def test_capture_of_no_node_raises(monkeypatch):
                                                 r"the graph holds no node"):
         it.run(r._cam_arrays(), 1)
     assert not [e for e in fake.log if e[0] == "replay"]
+
+
+# case: (CASES entry, local_rows, first row): rows 16-31; the last 8 rows and
+# 8 padding rows past the film; a regeneration batch over rows 40-55
+SHARD_POOLS = {"cornell_spheres": ("cornell_spheres", 16, 16),
+               "glasstorus, past the film": ("glasstorus", 16, 56),
+               "ray_regen": ("ray_regen", 16, 40)}
+
+
+@pytest.mark.parametrize("pool", SHARD_POOLS)
+def test_shard_pool_matches_eager(pool, torus576):
+    """A StaticIteration over `local_rows` rows from `pixel0` gives
+    render_iteration's contributions, rays and laps over the same rows bit
+    for bit, twice in a row."""
+    case, rows, row0 = SHARD_POOLS[pool]
+    r = make_renderer(case, torus576)
+    r.pixel_xy = None  # a shard's lanes are its pixels, as a sharded renderer's
+    regen = bool(r.regen_k)
+    pixel0 = row0 * RES
+    it = StaticIteration(r.flat, r.static, r.opts, r.key, regen=regen, graphs=False,
+                         local_rows=rows, pixel0=pixel0)
+    assert it.n == rows * RES and it.spec.pixel0 == pixel0
+    cam = r._cam_arrays()
+    for iteration, nk in ((1, 1), (2, REGEN_K)):
+        nk = nk if regen else None
+        want, want_rays, want_laps = render_iteration(r.flat, r.static, r.opts, cam, r.key,
+                                                      iteration, nk=nk, pixel0=pixel0,
+                                                      local_rows=rows)
+        got, rays, laps = it.run(cam, iteration, nk)
+        assert got.shape == (rows * RES, 3)
+        assert laps == want_laps and int(rays) == int(want_rays) > 0
+        assert torch.equal(got, want), f"{pool} iteration {iteration}"
+
+
+def test_graph_key_changes_with_the_pool(torus576):
+    """A capture is never replayed for another shard's rows."""
+    r = Renderer(torus576, RenderOptions(), resolution=(RES, RES), trace_depth=DEPTH,
+                 device="cpu")
+    keys = {graph_key(r.static, r.opts, r.key, None, False, rows, pixel0)
+            for rows, pixel0 in ((None, 0), (32, 0), (32, 32 * RES), (16, 32 * RES))}
+    assert len(keys) == 4
+    assert graph_key(r.static, r.opts, r.key, None, False) == graph_key(
+        r.static, r.opts, r.key, None, False, None, 0)
+
+
+# the ladders of tests/test_torch_schedule.py test_ladder_runs, sorted and not
+PLANS = {
+    "sorted, two levels": (Schedule(True, False, 1, ((1024, 4), (256, 4))), 4096),
+    "sort_every=2, half level": (Schedule(True, True, 2, ((2048, 2), (512, 4), (128, 4))), 4096),
+    "analytic, two levels": (Schedule(False, False, 1, ((1024, 4), (256, 4))), 4096),
+    "no ladder": (Schedule(True, False, 3, ()), 4096),
+}
+# live counts after each lap; the plan stops at 0 or at the budget
+LIVES = {"dwindling": [3900, 2600, 1100, 700, 240, 90, 20, 3, 0],
+         "stays alive": [4000, 3900, 3800, 3700, 3600, 3500, 3400],
+         "dies at once": [0]}
+
+
+@pytest.mark.parametrize("lives", LIVES)
+@pytest.mark.parametrize("plan", PLANS)
+def test_lap_plan_by_hand(plan, lives):
+    """lap_plan sent each lap's live count by hand: drive_laps's decisions
+    and return value; its pools those of the JAX package's ladder rule, its
+    sorts the sort rule, every step down just before the first lap on the
+    smaller pool, the steps back up last, in reverse."""
+    sched, n = PLANS[plan]
+    live, budget = LIVES[lives], 7
+    steps, it, reply = [], wavefront.lap_plan(sched, n, budget), None
+    while True:
+        try:
+            step = it.send(reply)
+        except StopIteration as done:
+            laps = done.value
+            break
+        steps.append(step)
+        reply = live[sum(s[0] == "lap" for s in steps) - 1] if step[0] == "lap" else None
+
+    seen, feed = [], iter(live)
+
+    def lap(level, depth, sort):
+        seen.append(("lap", level, depth, sort))
+        return next(feed)
+
+    assert wavefront.drive_laps(sched, n, budget, lap, lambda lv: seen.append(("down", lv)),
+                                lambda lv: seen.append(("up", lv))) == laps
+    assert seen == steps
+    lap_steps = [s for s in steps if s[0] == "lap"]
+    assert len(laps) == len(lap_steps) == min(budget, live.index(0) + 1 if 0 in live else budget)
+    assert [s[2] for s in lap_steps] == list(range(len(laps)))
+    assert laps == expected_pools(n, sched.shrink, live[:len(laps)])
+    alive = [n] + live
+    pools = [n] + [size for size, _ in sched.shrink]
+    for depth, (_, level, _, sort) in enumerate(lap_steps):
+        assert laps[depth] == pools[level]
+        assert sort == (sched.sort_rays and (depth == 0 or (depth % sched.sort_every == 0 and
+                                                            alive[depth] * 4 > laps[depth])))
+    levels = max((s[1] for s in lap_steps), default=0)
+    downs = [i for i, s in enumerate(steps) if s[0] == "down"]
+    assert [steps[i][1] for i in downs] == list(range(levels))
+    assert all(steps[i + 1][0] in ("lap", "down") for i in downs)
+    assert [s for s in steps if s[0] == "up"] == [("up", lv) for lv in reversed(range(levels))]
+    assert all(s[0] == "up" for s in steps[len(steps) - levels:])
+
+
+def _shards_on_two_cards(monkeypatch, nodes: int = 3):
+    """Two StaticIterations of a small cornell_spheres, rows 0-15 and 16-31,
+    whose buffers claim to lie on cuda:0 and cuda:1, with torch.cuda faked;
+    every step, replay and live-count read logged with its shard's card."""
+    r = Renderer(SCENES["cornell_spheres"], RenderOptions(sample_mode=SampleMode.MIS),
+                 resolution=(32, 32), trace_depth=2, device="cpu")
+    shards = []
+    for card in (0, 1):
+        it = StaticIteration(r.flat, r.static, r.opts, r.key, graphs=False, local_rows=16,
+                             pixel0=card * 16 * 32)
+        it.graphs, it.device = True, torch.device("cuda", card)
+        shards.append(it)
+    fake = FakeCuda(monkeypatch)
+    monkeypatch.setattr(graphs, "graph_nodes", lambda g: nodes)
+    replay, live = StaticIteration.replay, StaticIteration.live
+
+    def logged_replay(self, key):
+        fake.log.append(("step", self.device.index, key))
+        return replay(self, key)
+
+    def logged_live(self, key):
+        fake.log.append(("read", self.device.index, key))
+        return live(self, key)
+
+    monkeypatch.setattr(StaticIteration, "replay", logged_replay)
+    monkeypatch.setattr(StaticIteration, "live", logged_live)
+    return r, shards, fake
+
+
+def test_lockstep_on_two_cards(monkeypatch):
+    """With cuda:0 current, run_lockstep over shards on cuda:0 and cuda:1:
+    each shard's captures on a stream of its card with its card current, its
+    replays with its card current; in every round each shard's lap is issued
+    before the round's first live-count read, and each shard's laps are the
+    ones its own run takes."""
+    r, shards, fake = _shards_on_two_cards(monkeypatch)
+    out = graphs.run_lockstep([(it, r.camera.as_arrays(), 1, None) for it in shards])
+    captures = [e for e in fake.log if e[0] == "capture"]
+    assert [e[1:] for e in captures] == (
+        [(0, torch.device("cuda", 0), "thread_local")] * shards[0].num_graphs
+        + [(1, torch.device("cuda", 1), "thread_local")] * shards[1].num_graphs)
+    assert fake.current == 0
+    steps = [i for i, e in enumerate(fake.log) if e[0] == "step"]
+    assert steps and all(fake.log[i + 1] == ("replay", fake.log[i][1]) for i in steps)
+    # the rounds: each shard's lap, then the reads
+    events = [e for e in fake.log if e[0] == "read" or (e[0] == "step" and e[2][0] == "lap")]
+    rounds, i = [], 0
+    while i < len(events):
+        laps = []
+        while i < len(events) and events[i][0] == "step":
+            laps.append(events[i][1])
+            i += 1
+        reads = []
+        while i < len(events) and events[i][0] == "read":
+            reads.append(events[i][1])
+            i += 1
+        assert laps == reads and len(set(laps)) == len(laps), (laps, reads)
+        rounds.append(laps)
+    assert rounds[0] == [0, 1]
+    for d, (_, _, shard_laps) in enumerate(out):
+        assert sum(d in lapped for lapped in rounds) == len(shard_laps) > 0
+    finishes = [e[1] for e in fake.log if e[0] == "step" and e[2] == ("finish",)]
+    assert finishes == [0, 1]
+
+
+def test_lockstep_capture_failure_names_the_card(monkeypatch):
+    """A shard whose graph holds no node raises GraphError naming its card
+    and its step; nothing runs eagerly after it."""
+    r, shards, fake = _shards_on_two_cards(monkeypatch)
+    nodes = {0: 3, 1: 0}
+    monkeypatch.setattr(graphs, "graph_nodes", lambda g: nodes[fake.current])
+    with pytest.raises(graphs.GraphError, match=r"capture of step \('start',\) on cuda:1 failed"):
+        graphs.run_lockstep([(it, r.camera.as_arrays(), 1, None) for it in shards])
+    assert not [e for e in fake.log if e[0] == "read"]
+
+
+def test_factory_on_the_card_keeps_its_iterations(monkeypatch):
+    """make_render_iteration's step on a card (faked): a second call with
+    the same key replays the same StaticIteration; another first pixel gets
+    its own, another key a new one in its place; every result is a new
+    tensor that no later call writes."""
+    r = Renderer(SCENES["cornell_spheres"], RenderOptions(sample_mode=SampleMode.MIS,
+                                                          swizzle=False),
+                 resolution=(32, 32), trace_depth=2, device="cpu")
+    made = []
+
+    class OnCard(StaticIteration):
+        def __init__(self, flat, *args, graphs=True, **kwargs):
+            super().__init__(flat, *args, graphs=False, **kwargs)
+            self.graphs, self.device = graphs, torch.device("cuda", 0)
+            made.append(self)
+
+    monkeypatch.setattr(graphs, "StaticIteration", OnCard)
+    monkeypatch.setattr(graphs, "graph_route", lambda static, opts, device: True)
+    fake = FakeCuda(monkeypatch)
+    monkeypatch.setattr(graphs, "graph_nodes", lambda g: 3)
+    step = wavefront.make_render_iteration(r.static, r.opts, 32, 32, local_rows=16)
+    cam, img = r._cam_arrays(), torch.zeros((16 * 32, 3))
+    first = step(r.flat, cam, img, 1, r.key)
+    kept = [t.clone() for t in first[:2]]
+    second = step(r.flat, cam, first[0], 2, r.key)
+    assert len(made) == 1 and made[0].graphs and made[0].num_graphs
+    captures = len([e for e in fake.log if e[0] == "capture"])
+    assert captures == made[0].num_graphs  # the second call captured nothing
+    it = made[0]
+    for out in (first, second):
+        assert out[0].data_ptr() not in (it.contrib.data_ptr(), img.data_ptr())
+        assert out[1].data_ptr() != it.rays.data_ptr()
+        assert isinstance(out[2], int) and out[2] >= 1
+    it.contrib.fill_(-1.0)
+    it.rays.fill_(-1)
+    assert torch.equal(first[0], kept[0]) and torch.equal(first[1], kept[1])
+    step(r.flat, cam, img, 1, r.key, 16 * 32)
+    assert len(made) == 2 and made[1].spec.pixel0 == 16 * 32
+    step(r.flat, cam, img, 1, r.key, 16 * 32)
+    assert len(made) == 2
+    step(r.flat, cam, img, 1, rng.base_key(1))
+    assert len(made) == 3 and made[2].key != made[0].key

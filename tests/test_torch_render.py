@@ -143,11 +143,13 @@ PORT_MODULES = [
     "tools.compare_probes",
     "tools.compare_walk_kernels",
     "tools.cuda_timing",
+    "tools.graph_launch_cost",
     "tools.graphs_second_card",
     "tools.kernel_microbench_torch",
     "tools.make_texture_assets",
     "tools.profile_torch_port",
     "tools.rowprim_probe_torch",
+    "tools.shard_cards",
     "tools.stage_diff_torch",
     "tools.time_lines",
     "tools.turns",

@@ -345,11 +345,11 @@ def test_stream_slice_matches_jax(torus_scene, mode, blockmajor, monkeypatch):
 
 
 def test_cli_info_names_the_path(torus_scene, monkeypatch, capsys):
-    assert cli.main(["info", str(torus_scene)]) == 0
+    assert cli.main(["info", str(torus_scene), "--device", "cpu"]) == 0
     resident = json.loads(capsys.readouterr().out)
     assert resident["traversal"] == "resident" and resident["stream_blocks"] == 0
     force_stream(monkeypatch, tfs)
-    assert cli.main(["info", str(torus_scene)]) == 0
+    assert cli.main(["info", str(torus_scene), "--device", "cpu"]) == 0
     stream = json.loads(capsys.readouterr().out)
     assert stream["traversal"] == "stream" and stream["stream_blocks"] > 1
     assert stream["stream_block_nodes"] == 8 and stream["stream_top_nodes"] >= 1

@@ -64,9 +64,12 @@ def profile_step(r, samples: int) -> dict:
     - on the host, the CUDA API calls (`cuda*`, `cu*`) that put work on the
       device (`host_launches`: kernel launches, graph launches, copies,
       fills), of which `graph_launches` are graph replays, and every CUDA
-      API call by name (`host_calls`);
+      API call by name (`host_calls`) with its host microseconds
+      (`host_us`);
     - the traversal kernels' runs on the device by tag (`traversal`, K1-K5:
-      each count), which the launch counters must match."""
+      each count), which the launch counters must match;
+    - per CUDA device index, its busy microseconds (`busy_by_card`) and its
+      K1-K5 runs (`traversal_by_card`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -75,15 +78,22 @@ def profile_step(r, samples: int) -> dict:
         r.step(samples)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name, host = {}, {}
+    by_name, host, host_us, by_card, trav_by_card = {}, {}, {}, {}, {}
     for e in prof.profiler.kineto_results.events():
         name = e.name()
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             if e.duration_ns() > 0:
                 us, count = by_name.get(name, (0.0, 0))
                 by_name[name] = (us + e.duration_ns() / 1e3, count + 1)
+                card = e.device_index()
+                by_card[card] = by_card.get(card, 0.0) + e.duration_ns() / 1e3
+                tag = next((t for kname, t in TRAVERSAL.items() if kname in name), None)
+                if tag:
+                    runs = trav_by_card.setdefault(card, dict.fromkeys(TRAVERSAL.values(), 0))
+                    runs[tag] += 1
         elif name.startswith("cu"):
             host[name] = host.get(name, 0) + 1
+            host_us[name] = host_us.get(name, 0.0) + e.duration_ns() / 1e3
     kernels = sorted(((name, us, n) for name, (us, n) in by_name.items()), key=lambda k: -k[1])
     traversal = dict.fromkeys(TRAVERSAL.values(), 0)
     for name, _, n in kernels:
@@ -91,8 +101,8 @@ def profile_step(r, samples: int) -> dict:
             if kname in name:
                 traversal[tag] += n
     return {"wall": wall, "kernels": kernels, "busy_us": sum(k[1] for k in kernels),
-            "traversal": traversal,
-            "launches": sum(k[2] for k in kernels), "host_calls": host,
+            "traversal": traversal, "busy_by_card": by_card, "traversal_by_card": trav_by_card,
+            "launches": sum(k[2] for k in kernels), "host_calls": host, "host_us": host_us,
             "host_launches": sum(n for name, n in host.items()
                                  if any(w in name for w in HOST_LAUNCH_WORDS)),
             "graph_launches": sum(n for name, n in host.items() if "GraphLaunch" in name)}
@@ -100,16 +110,18 @@ def profile_step(r, samples: int) -> dict:
 
 @contextlib.contextmanager
 def eager_route():
-    """Renderers run the eager loop (`render_iteration`) inside the block,
-    as on the CPU: the graph route's yardstick on the card."""
-    from pathtracer_tpu_torch.integrator.render import Renderer
+    """Inside the block every iteration runs its steps eagerly, as on the
+    CPU: a Renderer its eager loop (`render_iteration`), the step factory
+    too, a sharded step its shards' steps (`graphs.graph_route` is false):
+    the graph route's yardstick on the card."""
+    from pathtracer_tpu_torch.integrator import graphs
 
-    was = Renderer.graph_route
-    Renderer.graph_route = property(lambda self: False)
+    was = graphs.graph_route
+    graphs.graph_route = lambda static, opts, device: False
     try:
         yield
     finally:
-        Renderer.graph_route = was
+        graphs.graph_route = was
 
 
 def pool_runs(pools: list) -> str:
