@@ -119,8 +119,15 @@ line):
    each shard's capture seconds, each card's memory reserved at most and
    device-busy ms; then sample_parallel_step bitwise the sequential
    iterations.  Held under SHARD_PHASE_S;
-17. profiling: a StageTimer report over one iteration's stages, and the top
-   10 device ops of a device_trace of one iteration (top_ops_from_trace);
+17. profiling: the program's spans (utils/profiling.py) on glasstorus's
+   graph route: a step with tracing on (it captures the traced graphs)
+   bitwise the untraced step from the same state, the untraced graphs'
+   nodes unchanged; three traced steps' device ms by step key and by stage
+   and the idle gaps by host span (Tracer.summary); %globaltimer's
+   resolution; one traced step under device_trace, where each replay's
+   device span must bracket its graph launch's kernels in the profiler's
+   trace (the edges' error printed); the trace's top 10 device ops
+   (top_ops_from_trace);
 18. a mesh that fits neither kernel table: glasstorus built with both
    budgets at 0 (restored after) has no streaming split, packet_mode None,
    pallas_traversal turned off and ray_regen ignored; closest_hit's
@@ -1590,39 +1597,119 @@ def phase_sharding(card: str):
         raise AssertionError(f"the sharding phase took {phase_s:.1f} s, over {SHARD_PHASE_S} s")
 
 
+def bracket_check(trace_file: Path) -> dict:
+    """Each host `replay` span of the program in a device_trace with tracing
+    on, its graph launch (the cudaGraphLaunch inside it) and that launch's
+    device ops (by correlation), against the replay's device span: the
+    edges in us (first op's start - span's start, last op's end - span's
+    end; the first and last ops are the step's own stamp kernels, so where
+    the clocks agree the first edge lies in [-t, 0] and the last in [0, t],
+    t a stamp kernel's time), the shift between the two clocks (the edges'
+    mean, the median over the replays), and how far the step's other ops
+    lie outside its span once the shift is taken out."""
+    from pathtracer_tpu_torch.utils.profiling import DEVICE_CATEGORIES, TRACE_PID
+
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    ours = [e for e in events if e.get("pid") == TRACE_PID and e.get("ph") == "X"]
+    dev = {e["args"]["parent"]: e for e in ours if e["name"] == "device.replay"}
+    replays = [e for e in ours if e["name"] == "replay" and e["args"]["id"] in dev]
+    launches = sorted((e for e in events if e.get("name", "").startswith("cudaGraphLaunch")),
+                      key=lambda e: e["ts"])
+    ops = {}
+    for e in events:
+        if e.get("cat") in DEVICE_CATEGORIES and "correlation" in e.get("args", {}):
+            ops.setdefault(e["args"]["correlation"], []).append(e)
+    runs = []
+    for rep in replays:
+        inside = [e for e in launches if rep["ts"] <= e["ts"] <= rep["ts"] + rep["dur"]]
+        if len(inside) == 1:
+            run = sorted(ops.get(inside[0]["args"].get("correlation"), []), key=lambda e: e["ts"])
+            if run:
+                span = dev[rep["args"]["id"]]
+                runs.append((span["ts"], span["ts"] + span["dur"], run))
+    if not runs:
+        return {"replays": len(replays), "matched": 0}
+    first = [run[0]["ts"] - s0 for s0, _, run in runs]
+    last = [run[-1]["ts"] + run[-1]["dur"] - s1 for _, s1, run in runs]
+    shift = statistics.median((a + b) / 2 for a, b in zip(first, last))
+    outside = 0.0
+    for s0, s1, run in runs:
+        body = [e for e in run if "stamp_kernel" not in e["name"]]
+        if body:
+            outside = max(outside, s0 + shift - min(e["ts"] for e in body),
+                          max(e["ts"] + e["dur"] for e in body) - s1 - shift)
+
+    def spread(v):
+        return [round(min(v), 3), round(statistics.median(v), 3), round(max(v), 3)]
+
+    return {"replays": len(replays), "matched": len(runs), "first_us": spread(first),
+            "last_us": spread(last), "shift_us": round(shift, 3),
+            "outside_us_max": round(outside, 3)}
+
+
 def phase_profiling(r, card: str):
-    """A StageTimer report over one iteration's stages (camera rays, then per
-    lap the sort and the bounce, each synchronized), and the top 10 device
-    ops of a device_trace of one step, read by top_ops_from_trace."""
+    """The program's spans (utils/profiling.py) over renderer r's graph
+    route: a traced step bitwise the untraced one from the same state and
+    the untraced graphs unchanged; three traced steps' device ms by step
+    key and by stage and the idle gaps by host span (Tracer.summary);
+    %globaltimer's resolution; a traced step under device_trace whose
+    replays' device spans must bracket their graph launches' kernels; the
+    trace's top 10 device ops (top_ops_from_trace)."""
     import torch
 
-    from pathtracer_tpu_torch.integrator.wavefront import (
-        bounce, camera_rays, new_pool, schedule, sort_pool)
-    from pathtracer_tpu_torch.utils.config import SampleMode
-    from pathtracer_tpu_torch.utils.profiling import StageTimer, device_trace, top_ops_from_trace
+    from pathtracer_tpu_torch.utils import profiling
+    from pathtracer_tpu_torch.utils.profiling import device_trace, top_ops_from_trace, tracing
 
     t_phase = time.perf_counter()
-    flat, static = r.flat, r.static
-    timer = StageTimer()
-    sched = schedule(static, r.opts, RES * RES)
-    with timer.stage("camera rays", sync=flat.tri_pk):
-        pool = new_pool(*camera_rays(r._cam_arrays(), RES, RES, r.key, 1, pixel_xy=r.pixel_xy))
-    for depth in range(DEPTH + 1):
-        if sched.sort_rays:
-            with timer.stage("sort", sync=flat.tri_pk):
-                pool = sort_pool(flat, static, pool)
-        with timer.stage("bounce", sync=flat.tri_pk):
-            pool, _ = bounce(flat, static, SampleMode.MIS, r.key, 1, depth, pool,
-                             shadow_sort=sched.shadow_sort)
-        if not bool(pool.alive.any()):
-            break
-    log(f"profiling: StageTimer over one iteration of {r_name(r)} MIS {RES}x{RES} on {card}:\n"
-        + timer.report())
-    trace_dir = ROOT / "pathtracer_tpu_torch" / "_build" / "trace"
     r.step(1)
-    with device_trace(str(trace_dir)):
-        r.step(1)
-        torch.cuda.synchronize()
+    nodes = dict(r.graphs.nodes)
+    img0, it0 = r.img.clone(), r.iteration
+    r.step(1)
+    untraced = r.img.clone()
+    r.img, r.iteration = img0, it0
+    t0 = time.perf_counter()
+    with tracing() as tr:
+        r.step(1)  # captures the traced graphs
+    capture_s = time.perf_counter() - t0
+    if not torch.equal(r.img, untraced):
+        raise AssertionError("profiling: the traced step's image differs from the untraced one's")
+    if r.graphs.nodes != nodes:
+        raise AssertionError("profiling: the traced capture changed the untraced graphs' nodes")
+    extra = {profiling.key_name(k): r.graphs.traced_nodes[k] - n for k, n in nodes.items()}
+    if min(extra.values()) < 2:
+        raise AssertionError(f"profiling: a traced graph lacks its step's stamps: {extra}")
+    log(f"profiling: traced step bitwise the untraced one; traced captures and step "
+        f"{capture_s:.2f} s; the traced graphs' nodes besides the untraced ones' (the stamps): "
+        f"{json.dumps(extra)}")
+    with tracing() as tr:
+        r.step(3)
+        summ = tr.summary()
+    for c, sm in summ["cards"].items():
+        log(f"profiling: spans of 3 traced steps of {r_name(r)} on card {c} ({card}), ms a step: "
+            f"replays {sm['replay_total_ms']:.3f} (laps {sm['lap_ms']:.3f}), stages "
+            f"{json.dumps({k: round(v, 3) for k, v in sm['stage_ms'].items()})}, laps outside "
+            f"their stages {sm['lap_unstaged_ms']:.3f}, coverage {sm['coverage']:.5f}, gaps "
+            f"{sm['gap_total_ms']:.3f} {json.dumps({k: round(v, 4) for k, v in sm['gap_ms'].items()})}, "
+            f"anchor +-{sm['anchor_us']} us; by step key "
+            f"{json.dumps({k: round(v, 3) for k, v in sm['replay_ms'].items()})}")
+        if not 0.99 <= sm["coverage"] <= 1.0:
+            raise AssertionError(f"profiling: the stages and other steps cover {sm['coverage']} "
+                                 f"of the replays' device time")
+    res = profiling.globaltimer_resolution(r.device)
+    trace_dir = ROOT / "pathtracer_tpu_torch" / "_build" / "trace"
+    with tracing():
+        with device_trace(str(trace_dir)):
+            res_traced = profiling.globaltimer_resolution(r.device)
+            r.step(1)
+            torch.cuda.synchronize()
+    br = bracket_check(trace_dir / "trace.json")
+    log(f"profiling: %globaltimer {json.dumps(res)}, under the profiler {json.dumps(res_traced)}; "
+        f"stamps against the profiler's kernels: {json.dumps(br)}")
+    if (not br["matched"] or br["matched"] != br["replays"] or br["outside_us_max"] > 5.0
+            or abs(br["shift_us"]) > 100.0):
+        raise AssertionError(f"profiling: the replays' device spans do not bracket their kernels: "
+                             f"{br}")
     t0 = time.perf_counter()
     top = top_ops_from_trace(str(trace_dir), top=10)
     log(f"profiling: top 10 device ops of one iteration (top_ops_from_trace, "

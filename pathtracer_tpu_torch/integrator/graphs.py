@@ -50,7 +50,21 @@ capture bakes in the options, the key words, the route flags and the film:
 
 The traversal kernels count their launches in Python (ops/traverse_cuda.py,
 ops/traverse_stream_cuda.py), which a replay does not run: each graph's
-counts are taken at capture and added at every replay.
+counts are taken at capture and added at every replay.  Each step's
+replays are counted by its key (`key_replays`, one dict increment a
+replay, tracing or not); `counts()` derives the graph nodes they ran, the
+laps, the sorted laps and the ladder's steps.
+
+Tracing (utils/profiling.py).  With tracing on, `run_lockstep` records the
+iteration's host spans, and each StaticIteration runs its traced steps:
+the same steps with stamps around each and at the lap's stage edges,
+written into its stamp table (one row a step, every lap in its own row
+from the lap counter on the card), captured as graphs of their own beside
+the untraced ones, so the untraced graphs keep their nodes and switching
+back captures nothing.  One copy of the table an iteration goes to pinned
+memory behind the finish step; the tracer reads it later.  Each capture
+is recorded in `setup` (a `graph.capture` span with its `eager` and
+`instantiate`), tracing or not.
 
 With `graphs=False` each step runs eagerly on the same buffers: the loop
 the CPU tests hold to `render_iteration`.  There is no fallback: a capture
@@ -83,6 +97,7 @@ from pathtracer_tpu_torch.ops import traverse_cuda as tc
 from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
 from pathtracer_tpu_torch.ops.traverse import packet_mode
 from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
+from pathtracer_tpu_torch.utils import profiling
 from pathtracer_tpu_torch.utils.config import RenderOptions
 
 # the launch counters of K1-K5, bumped by their wrappers
@@ -178,48 +193,104 @@ class StaticIteration:
         self.alive_n = torch.zeros((), dtype=torch.int64, device=dev)
         self.depth = torch.zeros((), dtype=torch.int32, device=dev)
         self.contrib = torch.zeros((self.n, 3), device=dev)
-        self._graphs = {}  # key -> (CUDAGraph, launch counts per replay)
-        self.nodes = {}    # key -> the nodes of its graph
+        self._graphs = {}        # (key, traced) -> (CUDAGraph, launch counts per replay)
+        self._mempool = None     # the graphs' one memory pool
+        self.nodes = {}          # key -> the nodes of its graph
+        self.traced_nodes = {}   # key -> the nodes of its traced graph, stamps included
         self.capture_seconds = 0.0
-        self.replays = 0  # steps run, replayed or (without graphs) eager
+        self.key_replays = {}    # key -> its runs, replayed or (without graphs) eager
         self.launches = (0,) * len(COUNTERS)  # K1-K5 launches its replays added
+        self.setup = profiling.Tracer(6 * len(self.step_keys()) + 8)  # the captures' spans
+        self.stamps = None       # (rows, STAMP_COLS) int64, made at the first traced run
+        self._lap_row = 1 + 2 * len(self.sizes)  # the first lap's row of the stamp table
 
     # -- the steps, over the buffers -------------------------------------
-    def _start(self) -> None:
+    # Each takes `mark`, None or a function of a stamp column that stamps
+    # the step's row (utils/profiling.py), at the lap's stage edges.
+    def _start(self, mark=None) -> None:
         _copy_pool(self.pools[0], start_pool(self.spec, self.cam, self.iteration, self.n))
         self.rays.zero_()
         self.depth.zero_()
 
-    def _lap(self, level: int, sort: bool) -> None:
-        s, r = lap_step(self.spec, self.pools[level], self.iteration, self.depth, sort)
+    def _lap(self, level: int, sort: bool, mark=None) -> None:
+        s, r = lap_step(self.spec, self.pools[level], self.iteration, self.depth, sort, mark=mark)
         _copy_pool(self.pools[level], s)
         self.rays.add_(r)
         self.alive_n.copy_(s.alive.sum())
+        if mark is not None:
+            mark(profiling.STAGES_END)
         self.depth.add_(1)
 
-    def _down(self, level: int) -> None:
+    def _down(self, level: int, mark=None) -> None:
         full, small = level_down(self.spec.flat, self.static, self.pools[level],
-                                 self.sizes[level + 1])
+                                 self.sizes[level + 1], mark=mark)
         _copy_pool(self.pools[level], full)
         _copy_pool(self.pools[level + 1], small)
 
-    def _up(self, level: int) -> None:
+    def _up(self, level: int, mark=None) -> None:
         _copy_pool(self.pools[level], merge_back(self.pools[level + 1], self.pools[level]))
 
-    def _finish(self) -> None:
+    def _finish(self, mark=None) -> None:
         self.contrib.copy_(finish(self.spec, self.pools[0]))
 
-    def _body(self, key: tuple):
+    def _body(self, key: tuple, traced: bool = False):
+        """Step `key` as a function of no argument; `traced`, with the
+        stamps of its row: its first and last node, the stage edges inside
+        (the start step zeroes the table first, but for its anchor row)."""
+        kind, args = key[0], key[1:]
+        step = {"start": self._start, "lap": self._lap, "down": self._down, "up": self._up,
+                "finish": self._finish}[kind]
+        if not traced:
+            return lambda: step(*args)
+        row = self.stamp_row(key)
+        lap = self.depth if kind == "lap" else None
+
+        def mark(col: int) -> None:
+            profiling.stamp(self.stamps, col, row, lap)
+
+        def run() -> None:
+            if kind == "start":
+                self.stamps[1:].zero_()
+            mark(profiling.STEP_BEGIN)
+            step(*args, mark=mark)
+            # a lap has advanced the lap counter: its last stamp goes a row back
+            profiling.stamp(self.stamps, profiling.STEP_END, row - (kind == "lap"), lap)
+
+        return run
+
+    def stamp_row(self, key: tuple, lap: int = 0) -> int:
+        """The stamp table's row of step `key` (a lap: of lap `lap`, the
+        row its lap counter adds to): the anchor 0, start 1, finish 2,
+        ladder level l's step down 3 + 2l and back up 4 + 2l, then one row a
+        lap, then the spill row, where a lap past the table's last lands."""
         kind = key[0]
-        if kind == "start":
-            return self._start
         if kind == "lap":
-            return lambda: self._lap(key[1], key[2])
-        if kind == "down":
-            return lambda: self._down(key[1])
-        if kind == "up":
-            return lambda: self._up(key[1])
-        return self._finish
+            return min(self._lap_row + lap, self.stamps.shape[0] - 1)
+        if kind in ("start", "finish"):
+            return 1 + (kind == "finish")
+        return 3 + 2 * key[1] + (kind == "up")
+
+    def _new_stamps(self, nk) -> None:
+        """The stamp table, with a row for each lap an iteration of `nk`
+        samples may run."""
+        rows = self._lap_row + lap_budget(self.static, nk) + 1
+        self.stamps = torch.zeros((rows, profiling.STAMP_COLS), dtype=torch.int64,
+                                  device=self.device)
+
+    def read_stamps(self, card: int, iteration: int, steps: list, reads: list,
+                    anchor: list) -> profiling.StampRead:
+        """The stamp table of the iteration just issued: on the card a copy
+        to pinned memory issued behind it and an event after the copy, on
+        the CPU a copy."""
+        if self.device.type != "cuda":
+            return profiling.StampRead(card, iteration, self.stamps.numpy().copy(), None, steps,
+                                       reads, anchor)
+        with torch.cuda.device(self.device):
+            host = torch.empty(self.stamps.shape, dtype=torch.int64, pin_memory=True)
+            host.copy_(self.stamps, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        return profiling.StampRead(card, iteration, host, done, steps, reads, anchor)
 
     def step_keys(self) -> list:
         """Every step `schedule` can reach, in an order that keeps each pool
@@ -247,20 +318,29 @@ class StaticIteration:
         self._host[CAM_FLOATS:].view(np.int32)[:] = (int(iteration), 1 if nk is None else int(nk))
         self.inputs.copy_(torch.from_numpy(self._host))
 
-    def prepare(self) -> None:
-        """Capture every step's graph (after `set_inputs`): each step runs
-        once eagerly, then is captured, on the buffers' card; the launch
-        counts of the capture are taken back and kept for the replays."""
-        if not self.graphs or self._graphs:
+    def prepare(self, traced: bool = False, nk=None) -> None:
+        """Capture every step's graph (after `set_inputs`), traced or not:
+        each step runs once eagerly, then is captured, on the buffers' card;
+        the launch counts of the capture are taken back and kept for the
+        replays.  `traced` first makes the stamp table, for batches of `nk`
+        samples, without graphs too."""
+        if traced and self.stamps is None:
+            self._new_stamps(nk)
+        if not self.graphs or (("start",), traced) in self._graphs:
             return
         t0 = time.perf_counter()
         with torch.cuda.device(self.device):
-            mempool = torch.cuda.graph_pool_handle()  # one pool for all the steps
+            if self._mempool is None:
+                self._mempool = torch.cuda.graph_pool_handle()  # one pool for all the steps
             stream = torch.cuda.Stream(self.device)
             for key in self.step_keys():
-                body = self._body(key)
+                cap = self.setup.open("graph.capture.traced" if traced else "graph.capture",
+                                      card=self.card, key=key)
+                body = self._body(key, traced)
+                t = time.perf_counter_ns()
                 body()  # loads the library and every kernel the step launches
                 torch.cuda.synchronize(self.device)
+                self.setup.add("eager", t, time.perf_counter_ns(), card=self.card, key=key)
                 before = launch_counts()
                 g = torch.cuda.CUDAGraph(keep_graph=True)
                 # a collection inside the capture could destroy another graph
@@ -268,13 +348,16 @@ class StaticIteration:
                 gc_was = gc.isenabled()
                 gc.disable()
                 try:
-                    with torch.cuda.graph(g, pool=mempool, stream=stream,
+                    with torch.cuda.graph(g, pool=self._mempool, stream=stream,
                                           capture_error_mode="thread_local"):
                         body()
                     nodes = graph_nodes(g)
                     if not nodes:
                         raise GraphError("the graph holds no node")
+                    t = time.perf_counter_ns()
                     g.instantiate()
+                    self.setup.add("instantiate", t, time.perf_counter_ns(), card=self.card,
+                                   key=key)
                 except Exception as e:
                     raise GraphError(f"capture of step {key} on {self.device} failed: {e}") from e
                 finally:
@@ -282,20 +365,23 @@ class StaticIteration:
                         gc.enable()
                 after = launch_counts()
                 _set_counts(before)  # a capture launches nothing
-                self._graphs[key] = (g, tuple(a - b for a, b in zip(after, before)))
-                self.nodes[key] = nodes
+                self._graphs[key, traced] = (g, tuple(a - b for a, b in zip(after, before)))
+                (self.traced_nodes if traced else self.nodes)[key] = nodes
+                self.setup.close(cap)
             torch.cuda.synchronize(self.device)
-        self.capture_seconds = time.perf_counter() - t0
+        if not traced:  # the traced captures' time is in their spans
+            self.capture_seconds = time.perf_counter() - t0
 
     def replay(self, key: tuple) -> None:
-        """Run step `key`: its graph's replay on the buffers' card, or the
-        step itself without graphs."""
-        self.replays += 1
+        """Run step `key`, traced while tracing is on: its graph's replay on
+        the buffers' card, or the step itself without graphs."""
+        self.key_replays[key] = self.key_replays.get(key, 0) + 1
+        traced = profiling.ON
         if not self.graphs:
-            self._body(key)()
+            self._body(key, traced)()
             return
         try:
-            g, counts = self._graphs[key]
+            g, counts = self._graphs[key, traced]
         except KeyError:
             raise GraphError(f"step {key} on {self.device} was not captured") from None
         try:
@@ -315,8 +401,32 @@ class StaticIteration:
             raise GraphError(f"step {key} on {self.device} failed: {e}") from e
 
     @property
+    def card(self) -> int:
+        """The card's index (-1 off a card), for the spans."""
+        return self.device.index if self.device.type == "cuda" else -1
+
+    @property
+    def replays(self) -> int:
+        """Steps run, replayed or eager, traced or not."""
+        return sum(self.key_replays.values())
+
+    def counts(self) -> dict:
+        """From the replays by key: the replays, the graph nodes they ran
+        (each key's untraced graph's nodes times its replays: the program's
+        nodes, not the stamps), the laps, the sorted laps and the ladder's
+        steps down and up."""
+        k = self.key_replays
+        return {"replays": sum(k.values()),
+                "nodes": sum(self.nodes.get(key, 0) * n for key, n in k.items()),
+                "laps": sum(n for key, n in k.items() if key[0] == "lap"),
+                "sorted_laps": sum(n for key, n in k.items() if key[0] == "lap" and key[2]),
+                "down": sum(n for key, n in k.items() if key[0] == "down"),
+                "up": sum(n for key, n in k.items() if key[0] == "up")}
+
+    @property
     def num_graphs(self) -> int:
-        return len(self._graphs)
+        """The untraced steps captured."""
+        return sum(1 for _, traced in self._graphs if not traced)
 
     def run(self, cam, iteration: int, nk: int | None = None):
         """One iteration, samples `iteration` .. `iteration` + nk - 1 under
@@ -324,6 +434,65 @@ class StaticIteration:
         length at each lap), as `render_iteration` returns them.  contrib
         and rays are the buffers, overwritten by the next run."""
         return run_lockstep([(self, cam, iteration, nk)])[0]
+
+
+class _Traced:
+    """One StaticIteration's iteration with tracing on, driven as
+    `run_lockstep` drives a StaticIteration: its host spans (`set_inputs`,
+    `replay`, `live_read`, `plan`), its anchor before its first step and,
+    after its finish step, its stamp table handed to the tracer with each
+    step's row and host clock."""
+
+    def __init__(self, tr: profiling.Tracer, it: StaticIteration, card: int, iteration: int):
+        self.tr, self.it, self.card, self.iteration = tr, it, card, iteration
+        self.steps, self.reads = [], []  # see profiling.StampRead
+        self.laps, self.nk, self.anchored = 0, None, []
+
+    def _span(self, name: str, t0: int, key=None, lap: int = -1) -> int:
+        return self.tr.add(name, t0, time.perf_counter_ns(), card=self.card, key=key,
+                           iteration=self.iteration, lap=lap)
+
+    def set_inputs(self, cam, iteration: int, nk) -> None:
+        t0 = time.perf_counter_ns()
+        self.it.set_inputs(cam, iteration, nk)
+        self.nk = nk
+        self._span("set_inputs", t0)
+
+    def prepare(self) -> None:
+        self.it.prepare(traced=True, nk=self.nk)
+        self.anchored = profiling.anchor_stamps(self.it.stamps)
+
+    def replay(self, key: tuple) -> None:
+        lap = self.laps if key[0] == "lap" else -1
+        t0 = time.perf_counter_ns()
+        self.it.replay(key)
+        sid = self._span("replay", t0, key, lap)
+        self.steps.append((key, self.it.stamp_row(key, max(lap, 0)), lap, sid, t0))
+        self.laps += lap >= 0
+        if key[0] == "finish":
+            self.tr.stamp_read(self.it.read_stamps(self.card, self.iteration, self.steps,
+                                                   self.reads, self.anchored))
+
+    def live(self, key: tuple) -> int:
+        t0 = time.perf_counter_ns()
+        n = self.it.live(key)
+        lap = self.laps - 1
+        self._span("live_read", t0, key, lap)
+        self.reads.append((self.it.stamp_row(key, lap), time.perf_counter_ns()))
+        return n
+
+    def timed(self, plan):
+        """`plan` (a lap_plan) with a `plan` span around each decision."""
+        reply = None
+        while True:
+            t0 = time.perf_counter_ns()
+            try:
+                step = plan.send(reply)
+            except StopIteration as done:
+                self._span("plan", t0)
+                return done.value
+            self._span("plan", t0)
+            reply = yield step
 
 
 def run_lockstep(runs: list) -> list:
@@ -335,38 +504,57 @@ def run_lockstep(runs: list) -> list:
     wait; only then is each one's live count read, the first read waiting
     for its own card alone, so distinct cards run the round's laps together.
     Each makes the decisions its own `drive_laps` would.  Returns, in order,
-    what `StaticIteration.run` returns for each."""
+    what `StaticIteration.run` returns for each.
+
+    With tracing on, the iteration is a `step` span (the first run's
+    iteration) holding each card's `set_inputs`, `replay` and `plan` spans
+    and one `round` a lap of the cards' `replay`, `plan` and `live_read`
+    (and a last round, of the steps back up the ladder);
+    each StaticIteration runs its traced steps (card: its CUDA device's
+    index, else its place in `runs`)."""
+    tr = profiling.TRACER if profiling.ON else None
+    if tr is None:
+        runners = [it for it, *_ in runs]
+    else:
+        top = tr.open("step", iteration=int(runs[0][2]), root=True)
+        runners = [_Traced(tr, it, it.card if it.card >= 0 else i, int(iteration))
+                   for i, (it, _, iteration, _) in enumerate(runs)]
     plans = []
-    for it, cam, iteration, nk in runs:
-        it.set_inputs(cam, iteration, nk)
-        it.prepare()
-        it.replay(("start",))
-        plans.append(lap_plan(it.spec.sched, it.n, lap_budget(it.static, nk)))
+    for d, (it, cam, iteration, nk) in zip(runners, runs):
+        d.set_inputs(cam, iteration, nk)
+        d.prepare()
+        d.replay(("start",))
+        plan = lap_plan(it.spec.sched, it.n, lap_budget(it.static, nk))
+        plans.append(plan if d is it else d.timed(plan))
     replies = [None] * len(runs)
     laps = [None] * len(runs)
     going = list(range(len(runs)))
     while going:
+        rnd = tr.open("round") if tr is not None else 0
         lapped = []
         for i in going:
-            it = runs[i][0]
             try:
                 step = plans[i].send(replies[i])
                 while step[0] != "lap":  # ("down", level) or ("up", level)
-                    it.replay(step)
+                    runners[i].replay(step)
                     step = plans[i].send(None)
             except StopIteration as done:
                 laps[i] = done.value
                 continue
             key = ("lap", step[1], step[3])
-            it.replay(key)
+            runners[i].replay(key)
             lapped.append((i, key))
         for i, key in lapped:
-            replies[i] = runs[i][0].live(key)
+            replies[i] = runners[i].live(key)
+        if tr is not None:
+            tr.close(rnd)
         going = [i for i, _ in lapped]
     out = []
-    for (it, *_), shard_laps in zip(runs, laps):
-        it.replay(("finish",))
+    for d, (it, *_), shard_laps in zip(runners, runs, laps):
+        d.replay(("finish",))
         out.append((it.contrib, it.rays, shard_laps))
+    if tr is not None:
+        tr.close(top)
     return out
 
 

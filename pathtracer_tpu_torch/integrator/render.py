@@ -40,6 +40,13 @@ change how the TPU runs, not the image, so they are accepted and ignored:
 iterations into one dispatch to hide a TPU dispatch latency, and the port's
 read of the live count a lap rules out a graph of several iterations until
 CUDA's conditional graph nodes carry the loop.
+
+`Renderer.setup` holds the set-up's spans (utils/profiling.py), recorded
+whether tracing is on or not: `renderer.init` (its children `cuda.context`,
+`scene.load`, `bvh.build`, `tables.upload`) and `renderer.warmup` (the warm-up
+iteration, `compile_seconds`; its children `kernels.load` where the kernels
+were loaded in it, with `RenderStats.kernel_builds` the libraries nvcc
+built, and each card's `graph.capture` of each step).
 """
 
 from __future__ import annotations
@@ -60,10 +67,13 @@ from pathtracer_tpu_torch.utils.image_io import write_hdr, write_png
 from pathtracer_tpu_torch.integrator import graphs
 from pathtracer_tpu_torch.integrator.graphs import StaticIteration, graph_key
 from pathtracer_tpu_torch.integrator.wavefront import CameraArrays, render_iteration
+from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops import math as m
 from pathtracer_tpu_torch.ops.traverse import packet_mode
 from pathtracer_tpu_torch.scene.flatscene import build_flat_scene, resolve_device
-from pathtracer_tpu_torch.utils import rng
+from pathtracer_tpu_torch.utils import profiling, rng
+
+SETUP_SPANS = 1024  # a Renderer's set-up spans: its own and each capture's
 
 
 # copied from pathtracer_tpu/integrator/render.py:37 swizzle_map
@@ -87,6 +97,7 @@ class RenderStats:
     compile_seconds: float = 0.0  # first iteration: kernel build + warm-up, not booked
     per_iter_seconds: list = field(default_factory=list)
     laps: int = 0  # bounce laps run in the booked iterations
+    kernel_builds: int = 0  # kernel libraries nvcc built in the warm-up (0: loaded from the cache)
 
     @property
     def mrays_per_sec(self) -> float:
@@ -107,6 +118,8 @@ class Renderer:
         devices: int | None = None,
         device="cuda",
     ):
+        self.setup = profiling.Tracer(SETUP_SPANS)
+        init = self.setup.open("renderer.init")
         self.opts = opts or RenderOptions()
         self.devices = int(devices) if devices else 1
         if self.devices > 1:
@@ -119,14 +132,21 @@ class Renderer:
             self.device = self.mesh[0]
         else:
             self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            t = time.perf_counter_ns()
+            torch.cuda.synchronize(self.device)  # the card's context, made here and not in the upload
+            self.setup.add("cuda.context", t, time.perf_counter_ns())
         if not isinstance(scene, SceneData):
+            t = time.perf_counter_ns()
             scene = load_scene(scene)
+            self.setup.add("scene.load", t, time.perf_counter_ns())
         self.scene = scene
         if resolution is not None:
             scene.camera.resolution = resolution
         if trace_depth is not None:
             scene.trace_depth = trace_depth
-        self.flat, self.static = build_flat_scene(scene, opts=self.opts, device=self.device)
+        self.flat, self.static = build_flat_scene(scene, opts=self.opts, device=self.device,
+                                                  spans=self.setup)
         if self.static.num_tris > 0 and packet_mode(self.static) is None:
             # no kernel table fits the mesh: the MTBVH walk, as the JAX
             # Renderer turns pallas_traversal off for its XLA walk
@@ -154,6 +174,7 @@ class Renderer:
         self.graphs = None     # the CUDA graphs of the iteration (graph_route)
         self.stats = RenderStats()
         self.reset()
+        self.setup.close(init)
 
     @property
     def regen_k(self) -> int:
@@ -185,6 +206,13 @@ class Renderer:
             self.graphs = StaticIteration(self.flat, self.static, self.opts, self.key,
                                           pixel_xy=self.pixel_xy, regen=bool(self.regen_k))
         return self.graphs
+
+    def compiled_iterations(self) -> list:
+        """The StaticIterations made so far: the Renderer's own, or each
+        shard's."""
+        if self.devices > 1:
+            return self.shard_step.shards.iterations if self.shard_step is not None else []
+        return [self.graphs] if self.graphs is not None else []
 
     def _sharded(self):
         """The sharded step for the current options, made anew when they
@@ -297,10 +325,14 @@ class Renderer:
         cam = None if self.graph_route or self.devices > 1 else self._cam_arrays()
         if self.iteration == 0 and self.stats.compile_seconds == 0.0 and num_iterations > 0:
             t0 = time.perf_counter()
+            warm = self.setup.open("renderer.warmup")
+            builds = _build.builds
             self._run_iteration(cam)
             self._sync()
             self.stats.iterations_done += 1
             self.stats.compile_seconds = time.perf_counter() - t0
+            self.setup.close(warm)
+            self._warmup_spans(warm, builds)
             num_iterations -= 1
 
         t0 = time.perf_counter()
@@ -322,6 +354,17 @@ class Renderer:
         if booked > 0:
             self.stats.per_iter_seconds.append(dt / booked)
         return self.stats
+
+    def _warmup_spans(self, warm: int, builds: int) -> None:
+        """The warm-up's children: the kernels' load where it fell in the
+        warm-up (and how many libraries nvcc built for it), each card's
+        captures."""
+        self.stats.kernel_builds = _build.builds - builds
+        span = self.setup.spans()[-1]  # the warm-up's own
+        if _build.load_ns is not None and span.start <= _build.load_ns[0] <= span.end:
+            self.setup.add("kernels.load", *_build.load_ns, parent=warm)
+        for it in self.compiled_iterations():
+            self.setup.adopt(it.setup.drain(), warm)
 
     # -- output -------------------------------------------------------------
     def _lane_image(self) -> torch.Tensor:

@@ -77,7 +77,7 @@ from pathtracer_tpu_torch.ops.texture import bilinear_sample_u32_meta
 from pathtracer_tpu_torch.ops.intersect import ray_aabb
 from pathtracer_tpu_torch.ops.traverse import DEAD_KEY, closest_hit, octant_cell_key
 from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
-from pathtracer_tpu_torch.utils import rng
+from pathtracer_tpu_torch.utils import profiling, rng
 
 
 class CameraArrays(NamedTuple):
@@ -234,7 +234,7 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
            iteration: int, depth: int, s: _Pool,
            trace: dict | None = None, env_nee: bool = False,
            show_normal: bool = False, shadow_sort: bool = False, pixel0: int = 0,
-           use_kernels: bool = True, use_bvh: bool = True) -> tuple[_Pool, torch.Tensor]:
+           use_kernels: bool = True, use_bvh: bool = True, mark=None) -> tuple[_Pool, torch.Tensor]:
     """One intersect + shade pass over the pool; returns (pool, rays emitted).
     Lanes draw their random numbers at (`iteration`, `depth`), or under
     regeneration at their own sample and depth from `meta`.
@@ -246,7 +246,10 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     `trace`, if given, receives the pass's stage arrays by name (the hit, the
     material parameters and shading normal, the scatter sample, the light
     sample and the BSDF evaluations at its direction, the light-hit and NEE
-    terms before process_nan), as tools/stage_diff_torch.py compares them."""
+    terms before process_nan), as tools/stage_diff_torch.py compares them.
+    `mark`, if given, is called with utils/profiling.py's stamp column at
+    each stage edge: the closest hit (INTERSECT), the shading after it
+    (SHADE), the NEE (NEE) and the shading after that (SHADE_AFTER_NEE)."""
     note = trace.update if trace is not None else (lambda **_: None)
     present = static.material_types
     alive = s.alive
@@ -257,7 +260,11 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     else:
         rng_it, rng_dp = iteration + (s.meta >> 8), s.meta & 0xFF
     contrib = s.contrib
+    if mark is not None:
+        mark(profiling.INTERSECT)
     hit = closest_hit(flat, static, s.o, s.d, alive=alive, **walk)
+    if mark is not None:
+        mark(profiling.SHADE)
     rays = alive.sum()
     miss = hit.geom < 0
 
@@ -286,6 +293,8 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
         nee_on = alive & ~is_light & ~is_delta
         rays = rays + nee_on.sum()
         if nee_live(static, env_nee):
+            if mark is not None:
+                mark(profiling.NEE)
             li_rand = rng.pixel_uniforms(key, rng_it, rng_dp, rng.STAGE_LIGHT, pixel_idx,
                                          4 if env_nee else 3)
             lrec = light_sample(flat, static, hit.point, li_rand, enabled=nee_on,
@@ -299,6 +308,8 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
             note(lrec=lrec, li_bsdf=bsdf, nee=nee)
             add_nee = alive & ~is_light & (lrec.pdf > 0.0)
             contrib = contrib + torch.where(add_nee[..., None], m.process_nan(nee), 0.0)
+            if mark is not None:
+                mark(profiling.SHADE_AFTER_NEE)
         return s._replace(contrib=contrib, alive=torch.zeros_like(alive), env_miss=env_miss), rays
 
     # light hit term
@@ -317,6 +328,8 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     if mode == SampleMode.MIS:
         rays = rays + (cont & ~is_delta).sum()
         if nee_live(static, env_nee):
+            if mark is not None:
+                mark(profiling.NEE)
             li_rand = rng.pixel_uniforms(key, rng_it, rng_dp, rng.STAGE_LIGHT, pixel_idx,
                                          4 if env_nee else 3)
             lrec = light_sample(flat, static, hit.point, li_rand, enabled=cont & ~is_delta,
@@ -332,6 +345,8 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
             note(lrec=lrec, b_pdf=b_pdf, li_bsdf=li_bsdf, nee=nee)
             add_nee = cont & ~is_delta
             contrib = contrib + torch.where(add_nee[..., None], m.process_nan(nee), 0.0)
+            if mark is not None:
+                mark(profiling.SHADE_AFTER_NEE)
 
     # continuation
     offset_dir = torch.where((m.dot(srec.dir, nrm) > 0.0)[..., None], nrm, -nrm)
@@ -504,15 +519,20 @@ def start_pool(spec: LapSpec, cam: CameraArrays, iteration, n: int) -> _Pool:
     return new_pool(o, d, regen=spec.rg is not None)
 
 
-def lap_step(spec: LapSpec, s: _Pool, iteration, depth, sort: bool) -> tuple[_Pool, torch.Tensor]:
+def lap_step(spec: LapSpec, s: _Pool, iteration, depth, sort: bool,
+             mark=None) -> tuple[_Pool, torch.Tensor]:
     """One lap at lap index `depth`: the per-bounce sort when `sort`, one
     bounce, and the refill under regeneration.  Returns (pool, rays
-    emitted)."""
+    emitted).  `mark` as `bounce` takes it, called at the sort's start too
+    (SORT)."""
     if sort:
+        if mark is not None:
+            mark(profiling.SORT)
         s = sort_pool(spec.flat, spec.static, s)
     s, rays = bounce(spec.flat, spec.static, spec.mode, spec.key, iteration, depth, s,
                      env_nee=spec.env_nee, show_normal=spec.show_normal,
-                     shadow_sort=spec.sched.shadow_sort, pixel0=spec.pixel0, **spec.walk)
+                     shadow_sort=spec.sched.shadow_sort, pixel0=spec.pixel0, **spec.walk,
+                     mark=mark)
     if spec.rg is not None:
         s = refill(spec.flat, spec.static, spec.mode, spec.key, iteration, s, spec.rg,
                    spec.env_nee)
@@ -520,10 +540,16 @@ def lap_step(spec: LapSpec, s: _Pool, iteration, depth, sort: bool) -> tuple[_Po
 
 
 def level_down(flat: FlatScene, static: SceneStatic, s: _Pool,
-               size: int) -> tuple[_Pool, _Pool]:
+               size: int, mark=None) -> tuple[_Pool, _Pool]:
     """A step down the shrink ladder: the pool sorted, live lanes first, and
-    its first `size` lanes, over which the laps go on."""
+    its first `size` lanes, over which the laps go on.  `mark`, if given,
+    is called with utils/profiling.py's stamp column at the sort's edges
+    (SORT, STAGES_END)."""
+    if mark is not None:
+        mark(profiling.SORT)
     full = sort_pool(flat, static, s)
+    if mark is not None:
+        mark(profiling.STAGES_END)
     return full, _map_pool(full, lambda c: c[:size])
 
 

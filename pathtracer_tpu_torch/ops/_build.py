@@ -14,6 +14,13 @@ IEEE division by zero gives +-inf.  `-Xptxas=-v` makes ptxas report each
 kernel's registers, stack frame and spills; `ptxas_report()` returns them.
 `sass_census()` counts, in the machine code of each kernel as `cuobjdump
 -sass` prints it, the opcodes that say how it loads and branches.
+
+`builds` counts the libraries nvcc compiled in this process and `load_ns`
+holds the host clock (perf_counter_ns) at the start and the end of
+`load_library`'s first call: the Renderer's set-up spans read both
+(`kernels.load`, `kernel_builds`).  `load_stamps` loads the stamp kernel's
+library alone (csrc/stamp.cu), so that tracing a scene that launches no
+other kernel builds no other library.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -44,6 +52,8 @@ ARGTYPES = {
     "pt_closest_hit_blockmajor": [_P] * 14 + [_I] * 5 + [_P],
     "pt_probe_rowprim": [_P] * 3 + [_I, _I, _P],
     "pt_probe_pop": [_I] + [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
+    "pt_stamp": [_P, _P, _I, _I, _I, _I, _P],
+    "pt_timer_probe": [_P, _I, _P],
 }
 
 KERNELS = (
@@ -53,11 +63,15 @@ KERNELS = (
     *(f"p2_{v}_kernel" for v in (
         "loop_empty", "while_empty", "loop_and", "loop_only", "loads", "loads4", "aabb", "any1",
         "aabb_any", "push_branchless", "push_packed", "leaf_mt")),
+    "stamp_kernel", "timer_probe_kernel",
 )
 
 _lock = threading.Lock()
 _lib: SimpleNamespace | None = None
+_stamp_lib: SimpleNamespace | None = None
 _ptxas_log: dict[str, str] = {}
+builds = 0  # libraries nvcc compiled in this process
+load_ns: tuple[int, int] | None = None  # load_library's first call, perf_counter_ns
 
 
 def find_nvcc() -> str | None:
@@ -89,6 +103,7 @@ def _stale(src: Path) -> bool:
 
 def _compile(srcs: list[Path]) -> None:
     """One nvcc per source, all started together."""
+    global builds
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -113,37 +128,63 @@ def _compile(srcs: list[Path]) -> None:
             failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
         else:
             os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+            builds += 1
     if failures:
         raise RuntimeError("\n".join(failures))
+
+
+def _load(srcs: list[Path]) -> dict:
+    """The C entry points of the libraries of `srcs`, built if missing or
+    stale, with argtypes set."""
+    stale = [s for s in srcs if _stale(s)]
+    if stale:
+        _compile(stale)
+    fns = {}
+    for src in srcs:
+        dll = ctypes.CDLL(str(_lib_path(src)))
+        for name, argtypes in ARGTYPES.items():
+            if hasattr(dll, name):
+                fn = getattr(dll, name)
+                fn.argtypes, fn.restype = argtypes, _I
+                fns[name] = fn
+        if hasattr(dll, "pt_error_string"):
+            fn = dll.pt_error_string
+            fn.argtypes, fn.restype = [_I], ctypes.c_char_p
+            fns["pt_error_string"] = fn
+    return fns
 
 
 def load_library() -> SimpleNamespace:
     """The kernels' C entry points, built if missing or stale, with argtypes
     set; one attribute per entry point, plus `pt_error_string`."""
-    global _lib
+    global _lib, load_ns
     with _lock:
         if _lib is None:
-            srcs = _sources()
-            stale = [s for s in srcs if _stale(s)]
-            if stale:
-                _compile(stale)
-            fns = {}
-            for src in srcs:
-                dll = ctypes.CDLL(str(_lib_path(src)))
-                for name, argtypes in ARGTYPES.items():
-                    if hasattr(dll, name):
-                        fn = getattr(dll, name)
-                        fn.argtypes, fn.restype = argtypes, _I
-                        fns[name] = fn
-                if hasattr(dll, "pt_error_string"):
-                    fn = dll.pt_error_string
-                    fn.argtypes, fn.restype = [_I], ctypes.c_char_p
-                    fns["pt_error_string"] = fn
+            t0 = time.perf_counter_ns()
+            fns = _load(_sources())
             missing = sorted((set(ARGTYPES) | {"pt_error_string"}) - set(fns))
             if missing:
                 raise RuntimeError(f"kernel libraries lack entry points {missing}")
             _lib = SimpleNamespace(**fns)
+            load_ns = (t0, time.perf_counter_ns())
         return _lib
+
+
+def load_stamps() -> SimpleNamespace:
+    """The stamp kernel's entry points (`pt_stamp`, `pt_timer_probe`,
+    `pt_error_string`): `load_library`'s if it is loaded, else
+    csrc/stamp.cu's library alone, built if missing or stale."""
+    global _stamp_lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if _stamp_lib is None:
+            fns = _load([CSRC / "stamp.cu"])
+            missing = sorted({"pt_stamp", "pt_timer_probe", "pt_error_string"} - set(fns))
+            if missing:
+                raise RuntimeError(f"the stamp library lacks entry points {missing}")
+            _stamp_lib = SimpleNamespace(**fns)
+        return _stamp_lib
 
 
 def ptxas_report() -> dict[str, dict[str, int]]:
@@ -202,5 +243,5 @@ def sass_census() -> dict[str, dict[str, int]]:
 def check(rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if rc != 0:
-        msg = load_library().pt_error_string(rc).decode()
+        msg = (_lib or _stamp_lib or load_library()).pt_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -32,6 +32,7 @@ not hold (integrator/graphs.py).
 from __future__ import annotations
 
 import os
+import time
 import warnings
 from dataclasses import dataclass, fields
 from typing import Mapping
@@ -574,12 +575,15 @@ def resolve_device(device) -> torch.device:
 
 
 def build_flat_scene(
-    scene: SceneData, opts=None, device="cuda"
+    scene: SceneData, opts=None, device="cuda", spans=None
 ) -> tuple[FlatScene, SceneStatic]:
     """Build the scene tables on `device` (the card unless the caller asks
     for the CPU; a CUDA request without CUDA raises before the build).
     `opts` (RenderOptions) wires the build knobs
-    use_sah/use_mtbvh/max_prim/bucket_num/vertex_normal."""
+    use_sah/use_mtbvh/max_prim/bucket_num/vertex_normal.  `spans`, a
+    utils/profiling.py Tracer, gets the host's build (`bvh.build`: the BVH
+    and every table) and the upload (`tables.upload`)."""
+    t_build = time.perf_counter_ns()
     device = resolve_device(device)
     use_sah = opts.use_sah if opts is not None else True
     use_mtbvh = opts.use_mtbvh if opts is not None else True
@@ -767,4 +771,9 @@ def build_flat_scene(
         stream_sub_depth=sub_depth,
         traversal=traversal,
     )
-    return flat_from_arrays(arrays, device, static), static
+    t_upload = time.perf_counter_ns()
+    flat = flat_from_arrays(arrays, device, static)
+    if spans is not None:
+        spans.add("bvh.build", t_build, t_upload)
+        spans.add("tables.upload", t_upload, time.perf_counter_ns())
+    return flat, static

@@ -69,7 +69,7 @@ def main() -> int:
     r = Renderer(ROOT / "scenes" / "glasstorus.txt", opts, resolution=(RES, RES),
                  trace_depth=DEPTH, device="cuda")
     r.step(2)
-    graph = r.graphs._graphs[KEY][0]
+    graph = r.graphs._graphs[KEY, False][0]  # the untraced graph
     pairs = []
     for _ in range(10):
         torch.cuda.synchronize()
@@ -85,7 +85,7 @@ def main() -> int:
     cam = r.camera.as_arrays()
     img, _, _ = step(r.flat, cam, sh.zeros_image(RES, RES, mesh), 1, r.key)
     its = step.shards.iterations
-    laps = [(it.device, it._graphs[KEY][0]) for it in its]
+    laps = [(it.device, it._graphs[KEY, False][0]) for it in its]
 
     def replay(dev, g):
         with torch.cuda.device(dev):
