@@ -54,18 +54,19 @@ which a replay does not run: each graph's counts are taken at capture and
 added at every replay.  Each step's replays are counted by its key
 (`key_replays`, one dict increment a replay, tracing or not); `counts()`
 derives the graph nodes they ran, the laps, the sorted laps and the
-ladder's steps.
+ladder's steps; `tables()` the walk's route and its streaming tables' shape.
 
 Tracing (utils/profiling.py).  With tracing on, `run_lockstep` records the
 iteration's host spans, and each StaticIteration runs its traced steps:
-the same steps with stamps around each and at the lap's stage edges,
-written into its stamp table (one row a step, every lap in its own row
-from the lap counter on the card), captured as graphs of their own beside
-the untraced ones, so the untraced graphs keep their nodes and switching
-back captures nothing.  One copy of the table an iteration goes to pinned
-memory behind the finish step; the tracer reads it later.  Each capture
-is recorded in `setup` (a `graph.capture` span with its `eager` and
-`instantiate`), tracing or not.
+the same steps with stamps around each, at the lap's stage edges and
+around the triangle walks' kernels, written into its stamp table (one row
+a step, every lap in its own row from the lap counter on the card),
+captured as graphs of their own beside the untraced ones, so the
+untraced graphs keep their nodes and switching back captures nothing.
+One copy of the table an iteration goes to pinned memory behind the
+finish step; the tracer reads it later.  Each capture is recorded in
+`setup` (a `graph.capture` span with its `eager` and `instantiate`),
+tracing or not.
 
 With `graphs=False` each step runs eagerly on the same buffers: the loop
 the CPU tests hold to `render_iteration`.  There is no fallback: a capture
@@ -77,6 +78,7 @@ from __future__ import annotations
 import ctypes
 import gc
 import time
+from dataclasses import fields
 
 import numpy as np
 import torch
@@ -434,6 +436,22 @@ class StaticIteration:
                 "sorted_laps": sum(n for key, n in k.items() if key[0] == "lap" and key[2]),
                 "down": sum(n for key, n in k.items() if key[0] == "down"),
                 "up": sum(n for key, n in k.items() if key[0] == "up")}
+
+    def tables(self) -> dict:
+        """The walk's tables beside `counts()`: the route (`traversal`:
+        "resident", "stream" or None) and, on the streaming route, its
+        blocks, a block's nodes and triangles, and the stream tables' bytes
+        on the card (0 on the other routes)."""
+        st = self.static
+        streamed = st.traversal == "stream"
+        flat = self.spec.flat
+        nbytes = sum(getattr(flat, f.name).nbytes for f in fields(flat)
+                     if f.name.startswith("str_"))
+        return {"traversal": st.traversal,
+                "stream_subs": st.stream_subs if streamed else 0,
+                "stream_sub_nodes": st.stream_sub_nodes if streamed else 0,
+                "stream_sub_tris": st.stream_sub_tris if streamed else 0,
+                "stream_table_bytes": nbytes if streamed else 0}
 
     @property
     def num_graphs(self) -> int:

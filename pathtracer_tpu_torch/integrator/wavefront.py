@@ -249,12 +249,13 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     terms before process_nan), as tools/stage_diff_torch.py compares them.
     `mark`, if given, is called with utils/profiling.py's stamp column at
     each stage edge: the closest hit (INTERSECT), the shading after it
-    (SHADE), the NEE (NEE) and the shading after that (SHADE_AFTER_NEE)."""
+    (SHADE), the NEE (NEE) and the shading after that (SHADE_AFTER_NEE),
+    and around the triangle walks' kernels inside them (ops/traverse.py)."""
     note = trace.update if trace is not None else (lambda **_: None)
     present = static.material_types
     alive = s.alive
     pixel_idx = s.lane + pixel0 if pixel0 else s.lane
-    walk = dict(use_kernels=use_kernels, use_bvh=use_bvh)
+    walk = dict(use_kernels=use_kernels, use_bvh=use_bvh, mark=mark)
     if s.meta is None:
         rng_it, rng_dp = iteration, depth
     else:

@@ -18,6 +18,11 @@ the brute-force sweep over every triangle (`use_bvh=False`, the reference's
 USE_BVH=0).  They are cross-checks, not fast paths, but for one case: a
 mesh that fits neither kernel table (`packet_mode` None) takes the MTBVH
 walk, as the JAX package's takes its XLA walk.
+
+`mark`, where `closest_hit` and `occlusion_test` are given one (the traced
+lap steps, integrator/graphs.py), is called with utils/profiling.py's stamp
+columns just before and just after the kernel's launch: the spans
+`device.walk_closest` and `device.walk_shadow`.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from pathtracer_tpu_torch.ops.traverse_stream_cuda import (
     occlusion_stream,
 )
 from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
+from pathtracer_tpu_torch.utils import profiling
 
 # Dead or unreachable lanes carry this t: node visits need
 # `t_enter <= t`, and -FLT_MAX is below every finite t_enter.
@@ -290,37 +296,44 @@ def mtbvh_occluded(flat: FlatScene, static: SceneStatic, ori, dir, min_t, enable
     return occ
 
 
-def _kernel_closest(flat: FlatScene, static: SceneStatic, o, d, t_min, alive):
+def _kernel_closest(flat: FlatScene, static: SceneStatic, o, d, t_min, alive, mark=None):
     """The triangles' closest hit through K1, K3 or K5: dead lanes and those
     the root box culls carry DEAD_T into the kernel."""
     t_init = t_min if alive is None else torch.where(alive, t_min, DEAD_T)
     t_init = _root_box_cull(flat, o, d, t_init)
+    if mark is not None:
+        mark(profiling.WALK_CLOSEST)
     if packet_mode(static) == "stream" and ts.STREAM_BLOCKMAJOR:
-        return closest_hit_blockmajor(
+        hit = closest_hit_blockmajor(
             flat.str_roots, flat.str_subf, flat.str_subi, flat.str_subp,
             flat.str_subt, flat.str_base, o, d, t_init, sub_nodes=static.stream_sub_nodes,
             sub_tris=static.stream_sub_tris, sub_depth=static.stream_sub_depth,
             subt12=flat.str_subt12, blocks=flat.str_blocks, roots8=flat.str_roots8,
             groups=flat.str_groups,
         )
-    if packet_mode(static) == "stream":
-        return closest_hit_stream(
+    elif packet_mode(static) == "stream":
+        hit = closest_hit_stream(
             flat.str_topf, flat.str_topl, flat.str_topp, flat.str_subf, flat.str_subi,
             flat.str_subp, flat.str_subt, flat.str_base, o, d, t_init,
             **_stream_args(static), subt12=flat.str_subt12, blocks=flat.str_blocks,
         )
-    return closest_hit_wbvh(
-        flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk, o, d, t_init,
-        wide_depth=static.wide_depth,
-    )
+    else:
+        hit = closest_hit_wbvh(
+            flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk, o, d, t_init,
+            wide_depth=static.wide_depth,
+        )
+    if mark is not None:
+        mark(profiling.WALK_CLOSEST_END)
+    return hit
 
 
 def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None,
-                use_kernels: bool = True, use_bvh: bool = True) -> Hit:
+                use_kernels: bool = True, use_bvh: bool = True, mark=None) -> Hit:
     """Full-scene closest hit: analytic geoms through S1, then triangles
     through the kernels, or with `use_kernels=False` (or no kernel table,
     `packet_mode` None) the MTBVH walk, or with `use_bvh=False` the
-    brute-force sweep; lanes not `alive` test no triangle."""
+    brute-force sweep; lanes not `alive` test no triangle.  `mark` stamps
+    the kernel's launch (the module's docstring)."""
     N = o.shape[0]
     dev = o.device
     # without a sphere or cube, no launch: the plain version's empty sweep, all misses
@@ -337,7 +350,7 @@ def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None,
         walk = sweep_closest if not use_bvh else mtbvh_closest
         t_tri, tri, u, v = walk(flat, static, o, d, t_min, live=alive)
     else:
-        t_tri, tri, u, v = _kernel_closest(flat, static, o, d, t_min, alive)
+        t_tri, tri, u, v = _kernel_closest(flat, static, o, d, t_min, alive, mark)
     t_min = torch.where(tri >= 0, t_tri, t_min)
 
     # barycentric hit attributes
@@ -359,7 +372,8 @@ def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None,
 
 
 def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=None,
-                   shadow_sort: bool = False, use_kernels: bool = True, use_bvh: bool = True):
+                   shadow_sort: bool = False, use_kernels: bool = True, use_bvh: bool = True,
+                   mark=None):
     """Is the segment ori -> des blocked?  Analytic geoms (S2) with the window
     (t < minT-1e-5 && |t-minT| > 1e-2), then triangles through K2 (K4 for a
     streamed mesh), or with `use_kernels=False` (or no kernel table,
@@ -371,7 +385,8 @@ def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=
     the lanes that do not enter the walk (disabled or culled by the root
     box) behind them, and un-permutes the result: the same booleans, in
     an order whose neighbouring lanes share nodes.  The walks ignore it, as
-    the JAX package's do."""
+    the JAX package's do.  `mark` stamps the kernel's launch (the module's
+    docstring)."""
     N = ori.shape[0]
     e = des - ori
     min_t = torch.sqrt(torch.clamp(e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2], min=0.0))
@@ -394,6 +409,8 @@ def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=
         perm = torch.sort(key, stable=True).indices
         ori, dir, min_t_eff, occluded = (
             a.index_select(0, perm) for a in (ori, dir, min_t_eff, occluded))
+    if mark is not None:
+        mark(profiling.WALK_SHADOW)
     if packet_mode(static) == "stream":
         occluded = occlusion_stream(
             flat.str_topf, flat.str_topl, flat.str_subf, flat.str_subi, flat.str_subt,
@@ -405,6 +422,8 @@ def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=
             flat.bvh_wf, flat.bvh_wi, flat.tri_pk, ori, dir, min_t_eff, occluded,
             wide_depth=static.wide_depth,
         )
+    if mark is not None:
+        mark(profiling.WALK_SHADOW_END)
     if perm is not None:
         out = torch.empty_like(occluded)
         out[perm] = occluded

@@ -530,14 +530,33 @@ def _env_cdfs(scene: SceneData) -> tuple[np.ndarray, np.ndarray]:
     return flat_cdf.astype(np.float32), pdf
 
 
+def derived_stream_tables(arrays: Mapping[str, np.ndarray]) -> dict:
+    """The stream tables the JAX package does not hold, built from those it
+    does: `str_roots` (`stream_roots`), `str_roots8` and `str_groups`
+    (`stream_cull_tables`), `str_subt12` and `str_blocks`
+    (`stream_walk_tables`; the block sizes follow from the tables: 24 ints
+    a node, 9 floats a triangle).  Those `arrays` holds are left out."""
+    out = {}
+    base = np.asarray(arrays["str_base"])
+    roots = arrays.get("str_roots")
+    if roots is None:
+        roots = out["str_roots"] = stream_roots(arrays["str_topf"], arrays["str_topl"], base.size)
+    if "str_roots8" not in arrays:
+        out["str_roots8"], out["str_groups"] = stream_cull_tables(roots)
+    if "str_subt12" not in arrays:
+        subi, subt = np.asarray(arrays["str_subi"]), np.asarray(arrays["str_subt"])
+        out["str_subt12"], out["str_blocks"] = stream_walk_tables(
+            subi, subt, base, subi.size // (24 * base.size), subt.size // (9 * base.size))
+    return out
+
+
 def flat_from_arrays(arrays: Mapping[str, np.ndarray], device, static=None) -> FlatScene:
     """Tables as numpy arrays (for instance the JAX package's FlatScene
-    fields) -> the port's FlatScene on `device`.  `str_roots`, `str_subt12`,
-    `str_blocks`, `str_roots8` and `str_groups`, which the JAX package does
-    not hold, are built from the stream tables when absent (the block sizes
-    follow from the tables: 24 ints a node, 9 floats a triangle), and the
-    tables of `scene_constants` from `static` (a SceneStatic of either
-    package).  A uint32 `atlas_u32` is carried over as int32, bit for bit."""
+    fields) -> the port's FlatScene on `device`.  The stream tables the JAX
+    package does not hold are built when absent (`derived_stream_tables`),
+    and the tables of `scene_constants` from `static` (a SceneStatic of
+    either package).  A uint32 `atlas_u32` is carried over as int32, bit for
+    bit."""
     if "root_box" not in arrays:
         if static is None:
             raise ValueError("flat_from_arrays: the tables lack root_box and no static is given")
@@ -545,18 +564,7 @@ def flat_from_arrays(arrays: Mapping[str, np.ndarray], device, static=None) -> F
     atlas = np.asarray(arrays["atlas_u32"])
     if atlas.dtype == np.uint32:
         arrays = {**arrays, "atlas_u32": atlas.view(np.int32)}
-    base = np.asarray(arrays["str_base"])
-    if "str_roots" not in arrays:
-        arrays = {**arrays, "str_roots": stream_roots(arrays["str_topf"], arrays["str_topl"],
-                                                      base.size)}
-    if "str_roots8" not in arrays:
-        roots8, groups = stream_cull_tables(arrays["str_roots"])
-        arrays = {**arrays, "str_roots8": roots8, "str_groups": groups}
-    if "str_subt12" not in arrays:
-        subi, subt = np.asarray(arrays["str_subi"]), np.asarray(arrays["str_subt"])
-        subt12, blocks = stream_walk_tables(subi, subt, base, subi.size // (24 * base.size),
-                                            subt.size // (9 * base.size))
-        arrays = {**arrays, "str_subt12": subt12, "str_blocks": blocks}
+    arrays = {**arrays, **derived_stream_tables(arrays)}
     return FlatScene(**{
         f.name: torch.from_numpy(np.array(arrays[f.name])).to(device)
         for f in fields(FlatScene)
@@ -582,7 +590,9 @@ def build_flat_scene(
     `opts` (RenderOptions) wires the build knobs
     use_sah/use_mtbvh/max_prim/bucket_num/vertex_normal.  `spans`, a
     utils/profiling.py Tracer, gets the host's build (`bvh.build`: the BVH
-    and every table) and the upload (`tables.upload`)."""
+    and every table; inside it, on a streamed mesh, `stream.tables`: the
+    streaming split and the tables derived from it) and the upload
+    (`tables.upload`)."""
     t_build = time.perf_counter_ns()
     device = resolve_device(device)
     use_sah = opts.use_sah if opts is not None else True
@@ -686,6 +696,7 @@ def build_flat_scene(
         tri_data[:, 6:9].astype(np.float32) - tri_data[:, 0:3].astype(np.float32)
     )
     # streaming split for meshes past the resident budget (K3/K4)
+    t_stream = time.perf_counter_ns()
     (str_topf, str_topl, str_topp, str_subf, str_subi, str_subp, str_subt,
      str_base, stream_top, stream_subs, stream_sub_nodes, stream_sub_tris
      ) = build_stream_tables(bvh, tri_pk, wide_nodes, leaf_k=wide_k, wide=wide)
@@ -699,6 +710,10 @@ def build_flat_scene(
             # neither table fits: the triangles take the MTBVH walk, as the
             # JAX package's take its XLA walk (`packet_mode` None there too)
             traversal = None
+    stream = dict(str_topf=str_topf, str_topl=str_topl, str_topp=str_topp, str_subf=str_subf,
+                  str_subi=str_subi, str_subp=str_subp, str_subt=str_subt, str_base=str_base)
+    stream.update(derived_stream_tables(stream))
+    t_stream_end = time.perf_counter_ns()
 
     _, atlas_u32, tex_table = _pack_textures(scene)
     env_flat_cdf, env_pdf = _env_cdfs(scene)
@@ -706,11 +721,7 @@ def build_flat_scene(
         geom_type=geom_type, geom_mat=geom_mat, geom_transform=xf,
         geom_inv=inv, geom_invt=invt, tri_data=tri_data, tri_geom=tri_geom,
         bvh_f32=bvh_f32, bvh_i32=bvh_i32, bvh_wf=bvh_wf, bvh_wi=bvh_wi,
-        bvh_wp=bvh_wp, tri_pk=tri_pk,
-        str_topf=str_topf, str_topl=str_topl, str_topp=str_topp,
-        str_subf=str_subf, str_subi=str_subi, str_subp=str_subp,
-        str_subt=str_subt, str_base=str_base,
-        str_roots=stream_roots(str_topf, str_topl, str_base.size),
+        bvh_wp=bvh_wp, tri_pk=tri_pk, **stream,
         mat_f32=mat_f32.T.copy(), mat_i32=mat_i32.T.copy(),
         light_geom=light_geom, light_tri=light_tri, light_type=light_type,
         atlas_u32=atlas_u32, tex_table=tex_table, env_flat_cdf=env_flat_cdf, env_pdf=env_pdf,
@@ -774,6 +785,8 @@ def build_flat_scene(
     t_upload = time.perf_counter_ns()
     flat = flat_from_arrays(arrays, device, static)
     if spans is not None:
-        spans.add("bvh.build", t_build, t_upload)
+        build = spans.add("bvh.build", t_build, t_upload)
+        if traversal == "stream":
+            spans.add("stream.tables", t_stream, t_stream_end, parent=build)
         spans.add("tables.upload", t_upload, time.perf_counter_ns())
     return flat, static

@@ -42,18 +42,23 @@ Device spans: `device.replay` (a step, its parent the host's `replay`) and
 its stages `device.sort`, `device.intersect`, `device.nee` and
 `device.shade` (a lap's time from the closest hit to its pool written back,
 outside the NEE: material lookup, scatter sample, light hit and MIS weight,
-continuation, the refill under regeneration).
+continuation, the refill under regeneration).  Inside `device.intersect`,
+`device.walk_closest`, and inside `device.nee`, `device.walk_shadow`: the
+triangle walk's kernel launch (K1, K3 or K5; K2 or K4), between a stamp
+just before it and one just after (ops/traverse.py), where the lap walks
+its triangles through a kernel.
 
-Set-up spans (`renderer.init`, `cuda.context`, `scene.load`, `bvh.build`,
-`tables.upload`, `renderer.warmup`, `kernels.load`, `graph.capture` with
-its `eager` and `instantiate`) are recorded whatever the state, each into
-a small Tracer of the object that does the set-up (`Renderer.setup`,
+Set-up spans (`renderer.init`, `cuda.context`, `scene.load`, `bvh.build`
+with `stream.tables` inside it on a streamed mesh, `tables.upload`,
+`renderer.warmup`, `kernels.load`, `graph.capture` with its `eager` and
+`instantiate`) are recorded whatever the state, each into a small Tracer
+of the object that does the set-up (`Renderer.setup`,
 `StaticIteration.setup`).
 
 `summary` turns spans into per-card, per-sample numbers: device ms of every
-replay by step key and by stage, and the card's idle gaps between the
-consecutive replays of an iteration, each split over the host spans that
-overlap it.
+replay by step key, by stage and in the triangle walks, and the card's idle
+gaps between the consecutive replays of an iteration, each split over the
+host spans that overlap it.
 
 `device_trace` writes a torch.profiler trace as a Chrome trace; with
 tracing on, it also carries the program's spans, on the profiler's clock,
@@ -80,9 +85,14 @@ import numpy as np
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 # Stamp-table columns: a step's first node, the lap's stage edges (each
-# stage runs from its column to the next column stamped), its last node.
+# stage runs from its column to the next column stamped), its last node;
+# then the edges of the triangle walks, each inside its stage.
 STEP_BEGIN, SORT, INTERSECT, SHADE, NEE, SHADE_AFTER_NEE, STAGES_END, STEP_END = range(8)
-STAMP_COLS = 8
+WALK_CLOSEST, WALK_CLOSEST_END, WALK_SHADOW, WALK_SHADOW_END = range(8, 12)
+STAMP_COLS = 12
+# the walks' spans: (first column, last column, the stage column they lie in)
+WALK_SPANS = {"walk_closest": (WALK_CLOSEST, WALK_CLOSEST_END, INTERSECT),
+              "walk_shadow": (WALK_SHADOW, WALK_SHADOW_END, NEE)}
 STAGE_NAMES = {SORT: "sort", INTERSECT: "intersect", SHADE: "shade", NEE: "nee",
                SHADE_AFTER_NEE: "shade"}
 STAGES = ("sort", "intersect", "nee", "shade")
@@ -345,11 +355,18 @@ def _device_spans(tr: Tracer, read: StampRead) -> None:
         did = tr.add("device.replay", r[STEP_BEGIN] + off, r[STEP_END] + off, parent=parent,
                      card=read.card, key=key, iteration=read.iteration, lap=lap)
         cols = [c for c in range(SORT, STEP_END) if r[c]]
+        stage_ids = {}
         for c, nxt in zip(cols, cols[1:] + [STEP_END]):
             if c == STAGES_END:
                 break
-            tr.add("device." + STAGE_NAMES[c], r[c] + off, r[nxt] + off, parent=did,
-                   card=read.card, key=key, iteration=read.iteration, lap=lap)
+            stage_ids[c] = tr.add("device." + STAGE_NAMES[c], r[c] + off, r[nxt] + off,
+                                  parent=did, card=read.card, key=key,
+                                  iteration=read.iteration, lap=lap)
+        for name, (first, last, stage) in WALK_SPANS.items():
+            if r[first] and r[last]:
+                tr.add("device." + name, r[first] + off, r[last] + off,
+                       parent=stage_ids.get(stage, did), card=read.card, key=key,
+                       iteration=read.iteration, lap=lap)
 
 
 # -- the numbers ------------------------------------------------------------
@@ -387,10 +404,12 @@ def summary(spans: list, samples: int | None = None) -> dict:
     default the iterations it ran): device ms of every replay by step key
     (`replay_ms`) and in all (`replay_total_ms`), of the laps (`lap_ms`),
     by stage (`stage_ms`: sort, intersect, nee, shade; the sorts of the
-    ladder's steps down included), the laps' time outside their stages
-    (`lap_unstaged_ms`), the share of the replays' time the laps' stages and
-    the other steps account for (`coverage`), the card's idle gaps between
-    the consecutive replays of an iteration by the host span in flight
+    ladder's steps down included), in the triangle walks' kernels
+    (`walk_ms`: walk_closest, inside intersect, and walk_shadow, inside
+    nee), the laps' time outside their stages (`lap_unstaged_ms`), the
+    share of the replays' time the laps' stages and the other steps
+    account for (`coverage`), the card's idle gaps between the consecutive
+    replays of an iteration by the host span in flight
     (`gap_ms`, `gap_total_ms`), the host's own spans of the card
     (`host_ms`), and the anchor's error (`anchor_us`: half the widest
     interval the card's clock was put in)."""
@@ -406,7 +425,7 @@ def summary(spans: list, samples: int | None = None) -> dict:
         steps = [s for s in dev if s.name == "device.replay"]
         n = samples or len({s.iteration for s in steps}) or 1
         ms = 1e-6 / n
-        replay, stage = {}, dict.fromkeys(STAGES, 0)
+        replay, stage, walk = {}, dict.fromkeys(STAGES, 0), dict.fromkeys(WALK_SPANS, 0)
         lap_stages = 0
         for s in steps:
             name = key_name(s.key)
@@ -416,6 +435,8 @@ def summary(spans: list, samples: int | None = None) -> dict:
                 stage[s.name[7:]] += _dur(s)
                 if s.key[0] == "lap":
                     lap_stages += _dur(s)
+            elif s.name[7:] in walk:
+                walk[s.name[7:]] += _dur(s)
         total = sum(replay.values())
         laps = sum(_dur(s) for s in steps if s.key[0] == "lap")
         gaps = {}
@@ -440,6 +461,7 @@ def summary(spans: list, samples: int | None = None) -> dict:
             "replay_total_ms": total * ms,
             "lap_ms": laps * ms,
             "stage_ms": {k: v * ms for k, v in stage.items()},
+            "walk_ms": {k: v * ms for k, v in walk.items()},
             "lap_unstaged_ms": (laps - lap_stages) * ms,
             "coverage": (lap_stages + total - laps) / total if total else None,
             "gap_ms": {k: v * ms for k, v in sorted(gaps.items(), key=lambda kv: -kv[1])},

@@ -298,3 +298,83 @@ def test_renderer_setup_spans(monkeypatch):
     assert warm.parent == 0 and warm.start >= init.end
     assert (warm.end - warm.start) / 1e9 == pytest.approx(r.stats.compile_seconds, abs=0.01)
     assert r.stats.kernel_builds == 0 and r.compiled_iterations() == [r.graphs]
+
+
+@pytest.mark.parametrize("route", ["stream", "resident"])
+def test_stream_tables_span(route, monkeypatch):
+    """`stream.tables` lies inside `bvh.build` on a streamed mesh (glasstorus
+    forced onto the streaming tables) and is absent on a resident one;
+    `StaticIteration.tables()` gives the streaming tables' shape, zeros on
+    the resident route."""
+    if route == "stream":
+        monkeypatch.setenv("PT_FORCE_STREAM", "1")
+    r = renderer(SCENES["glasstorus"], res=16)
+    spans = r.setup.spans()
+    ids = by_id(spans)
+    stream = [s for s in spans if s.name == "stream.tables"]
+    t = eager(r).tables()
+    assert t["traversal"] == route == r.static.traversal
+    if route == "resident":
+        assert stream == [] and t == {"traversal": "resident", "stream_subs": 0,
+                                      "stream_sub_nodes": 0, "stream_sub_tris": 0,
+                                      "stream_table_bytes": 0}
+        return
+    (s,) = stream
+    build = ids[s.parent]
+    assert build.name == "bvh.build" and build.start <= s.start <= s.end <= build.end
+    assert t["stream_subs"] == r.static.stream_subs > 1
+    assert (t["stream_sub_nodes"], t["stream_sub_tris"]) == (r.static.stream_sub_nodes,
+                                                            r.static.stream_sub_tris)
+    # the streaming tables hold each block's triangles, 48 bytes a row in subt12
+    assert t["stream_table_bytes"] >= t["stream_subs"] * t["stream_sub_tris"] * 48
+
+
+@pytest.mark.parametrize("case", ["resident-mis", "stream-mis", "stream-bsdf"])
+def test_walk_spans_nest(case, monkeypatch):
+    """With tracing on, each lap's triangle walk has its span inside its
+    stage: `device.walk_closest` in `device.intersect` and
+    `device.walk_shadow` in `device.nee`, one of each a lap (none of the
+    shadow walk under BSDF sampling); the image bitwise the untraced run's;
+    the summary's walk ms no more than their stages'."""
+    route, mode = case.split("-")
+    if route == "stream":
+        monkeypatch.setenv("PT_FORCE_STREAM", "1")
+    r = renderer(SCENES["glasstorus"], SampleMode[mode.upper()])
+    assert r.static.traversal == route
+    it = eager(r)
+    c0 = it.run(r.camera.as_arrays(), 1)[0].clone()
+    (c1, _, laps), spans = traced_run(it, r)
+    assert torch.equal(c0, c1)
+    ids = by_id(spans)
+    for name, stage in (("device.walk_closest", "device.intersect"),
+                        ("device.walk_shadow", "device.nee")):
+        walks = [s for s in spans if s.name == name]
+        assert len(walks) == (len(laps) if mode == "mis" or stage == "device.intersect" else 0)
+        for w in walks:
+            p = ids[w.parent]
+            assert p.name == stage and p.start <= w.start <= w.end <= p.end
+            assert (p.key, p.lap, p.iteration) == (w.key, w.lap, w.iteration)
+    sm = summary(spans)["cards"][0]
+    assert 0 < sm["walk_ms"]["walk_closest"] <= sm["stage_ms"]["intersect"]
+    assert sm["walk_ms"]["walk_shadow"] <= sm["stage_ms"]["nee"]
+    assert (sm["walk_ms"]["walk_shadow"] > 0) == (mode == "mis")
+
+
+def test_tracing_off_stamps_no_walk(monkeypatch):
+    """A streamed mesh on a faked card with tracing off: the lap steps,
+    whose traced graphs stamp around the walks, stamp nothing, capture no
+    traced graph and keep one node count per step key."""
+    monkeypatch.setenv("PT_FORCE_STREAM", "1")
+    r = renderer(SCENES["glasstorus"])
+    it = eager(r)
+    it.graphs, it.device = True, torch.device("cuda", 1)
+    FakeCuda(monkeypatch)
+    monkeypatch.setattr(graphs, "graph_nodes", lambda g: 3)
+
+    def no_stamp(*args, **kwargs):
+        raise AssertionError("a stamp with tracing off")
+
+    monkeypatch.setattr(profiling, "stamp", no_stamp)
+    it.run(r.camera.as_arrays(), 1)
+    assert it.stamps is None and it.traced_nodes == {}
+    assert it.nodes == dict.fromkeys(it.step_keys(), 3)
