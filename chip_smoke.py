@@ -131,8 +131,8 @@ line):
    trace (the edges' error printed); the trace's top 10 device ops
    (top_ops_from_trace);
 18. a mesh that fits neither kernel table: glasstorus built with both
-   budgets at 0 (restored after) has no streaming split, packet_mode None,
-   pallas_traversal turned off and ray_regen ignored; closest_hit's
+   budgets at 0 (restored after) has no streaming split, its walk_route the
+   MTBVH walk off the kernels and ray_regen ignored; closest_hit's
    triangle ids on the 640,000 camera rays against K1's on the normal build
    (lanes that differ must be exact-t ties); a 128x128 MIS render, depth 8,
    2 spp, that launches none of K1-K5 (S1 and S2 do), held to the normal
@@ -219,6 +219,7 @@ import sys
 import time
 from pathlib import Path
 
+from pathtracer_tpu_torch.ops import _build
 from tools.cuda_timing import median_ms
 
 ROOT = Path(__file__).resolve().parent
@@ -1059,11 +1060,11 @@ def phase_sweep_kernels(r, scene: str) -> dict:
             ("S1", closest, sw.geoms_closest, sw.geoms_closest_plain),
             ("S2", shadow, sw.geoms_occluded, sw.geoms_occluded_plain)):
         for k, (label, rays) in enumerate(cases.items()):
-            n0 = sw.closest_launches + sw.occlusion_launches
+            n0 = _build.launches[kname]
             got = kernel(flat, static, *rays)
             want = plain(flat, static, *rays)
             torch.cuda.synchronize()
-            if sw.closest_launches + sw.occlusion_launches != n0 + 1:
+            if _build.launches[kname] != n0 + 1:
                 raise AssertionError(f"{kname} {label}: the wrapper did not launch once")
             if kname == "S1":
                 same = {k: torch.equal(a, b) for k, a, b in zip(("t", "geom", "point", "normal"),
@@ -1191,10 +1192,10 @@ def phase_shade_kernels(r, scene: str) -> dict:
         }
         types = {t: int((p.type == t).sum()) for t in range(5)}
         for kname, (kernel, plain) in calls.items():
-            n0 = sh.scatter_launches + sh.eval_launches
+            n0 = _build.launches[kname]
             got, want = kernel(), plain()
             torch.cuda.synchronize()
-            if sh.scatter_launches + sh.eval_launches != n0 + 1:
+            if _build.launches[kname] != n0 + 1:
                 raise AssertionError(f"{kname} {label}: the wrapper did not launch once")
             if kname == "M1":
                 names, got, want = ("bsdf", "pdf", "dir"), (got.bsdf, got.pdf, got.dir), \
@@ -1230,33 +1231,10 @@ def phase_shade_kernels(r, scene: str) -> dict:
     }
 
 
-def reset_launch_counts() -> None:
-    from pathtracer_tpu_torch.ops import probes
-    from pathtracer_tpu_torch.ops import shade_cuda as sh
-    from pathtracer_tpu_torch.ops import sweep_cuda as sw
-    from pathtracer_tpu_torch.ops import traverse_cuda as tc
-    from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
-
-    tc.reset_launch_counts()
-    ts.reset_launch_counts()
-    sw.reset_launch_counts()
-    sh.reset_launch_counts()
-    probes.reset_launch_counts()
-
-
-def launch_counts() -> dict:
-    from pathtracer_tpu_torch.ops import probes
-    from pathtracer_tpu_torch.ops import shade_cuda as sh
-    from pathtracer_tpu_torch.ops import sweep_cuda as sw
-    from pathtracer_tpu_torch.ops import traverse_cuda as tc
-    from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
-
-    return {"K1": tc.closest_launches, "K2": tc.occlusion_launches,
-            "K3": ts.closest_launches, "K4": ts.occlusion_launches,
-            "K5": ts.blockmajor_launches, "S1": sw.closest_launches,
-            "S2": sw.occlusion_launches, "M1": sh.scatter_launches,
-            "M2": sh.eval_launches, "P1": probes.rowprim_launches,
-            "P2": probes.pop_launches}
+def launches_since(k0: dict) -> dict:
+    """The kernel launches by tag since `k0`, a copy of the launch table
+    (ops/_build.py launches)."""
+    return {tag: n - k0[tag] for tag, n in _build.launches.items()}
 
 
 @contextlib.contextmanager
@@ -1284,9 +1262,9 @@ def phase_main_path(built, used: tuple, unused: tuple, card: str, label: str = "
     r, parse_s, tables_s = built
     r.reset()
     r.stats = RenderStats()
-    reset_launch_counts()
+    k0 = dict(_build.launches)
     stats = r.step(SPP)
-    launches = launch_counts()
+    launches = launches_since(k0)
     img = r.hdr_sum()
     out = ROOT / "pathtracer_tpu_torch" / "_build" / f"{r.static.image_name}{label}_mis_{RES}.png"
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -1338,9 +1316,9 @@ def phase_schedules(built, card: str, used: tuple, unused: tuple, label: str = "
             r.opts = dataclasses.replace(base, **options)
             r.reset()
             r.stats = RenderStats()
-            reset_launch_counts()
+            k0 = dict(_build.launches)
             stats = r.step(1 + REGEN_K)
-            launches = launch_counts()
+            launches = launches_since(k0)
             img, pools = r.hdr_sum(), list(r.lap_pools)
             stats = dataclasses.replace(stats, per_iter_seconds=list(stats.per_iter_seconds))
             samples = 1 + REGEN_K
@@ -1447,7 +1425,7 @@ def phase_checkpoint(scene_path, card: str):
     out = ROOT / "pathtracer_tpu_torch" / "_build" / "smoke_checkpoint.npz"
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    reset_launch_counts()
+    k0 = dict(_build.launches)
     for options in ({}, {"ray_regen": REGEN_K}):
         label = "".join(f", {k}={v}" for k, v in options.items())
         a = build_renderer(scene_path, **options)[0]
@@ -1474,7 +1452,7 @@ def phase_checkpoint(scene_path, card: str):
             compare_images(f"checkpoint: resumed{label} against uninterrupted 5 spp", img_b,
                            c.hdr_sum())
         del a, b
-    launches = launch_counts()
+    launches = launches_since(k0)
     log(f"checkpoint phase: {time.perf_counter() - t0:.1f} s on {card}; launches {launches}")
     if not (launches["K1"] and launches["K2"]):
         raise AssertionError(f"the checkpoint phase launched {launches}; needs K1 and K2")
@@ -1505,7 +1483,7 @@ def phase_preview(scene_path, card: str):
     here = Path.cwd()
     os.chdir(workdir)  # /save writes <image name>.preview.png where it runs
     t0 = time.perf_counter()
-    reset_launch_counts()
+    k0 = dict(_build.launches)
     state, server, loop = start_preview_thread(build_renderer(scene_path)[0], port=0, chunk=1)
     base = f"http://127.0.0.1:{server.server_address[1]}"
 
@@ -1567,7 +1545,7 @@ def phase_preview(scene_path, card: str):
         server.shutdown()
         loop.join(timeout=120)
         os.chdir(here)
-    launches = launch_counts()
+    launches = launches_since(k0)
     log(f"preview: {RES}x{RES} depth {DEPTH} MIS, 1 spp a frame, {fps:.3f} frames/s on {card}; "
         f"{'; '.join(events)}; mode switch to BSDF on {state.renderer.device}, old renderer "
         f"freed: {freed}, {torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated after; "
@@ -1586,13 +1564,13 @@ def phase_bench(scene_path, card: str):
     from pathtracer_tpu_torch import cli
 
     buf = io.StringIO()
-    reset_launch_counts()
+    k0 = dict(_build.launches)
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["bench", str(scene_path), "--mode", "mis", "--res", f"{RES}x{RES}",
                        "--spp", str(SPP)])
     line = buf.getvalue().strip().splitlines()[-1]
     result = json.loads(line)
-    launches = launch_counts()
+    launches = launches_since(k0)
     log(f"bench on {card}: {json.dumps(result)}; launches {launches}")
     if rc != 0 or result["rays_traced"] <= 0 or result["spp"] != SPP:
         raise AssertionError(f"bench failed: rc {rc}, {line}")
@@ -1652,7 +1630,7 @@ def check_mtbvh(r, kname: str) -> None:
         got = tv.mtbvh_closest(flat, static, ro, rd, t_geo, live=live)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        ref = tv._kernel_closest(flat, static, ro, rd, t_geo, live)
+        ref = tv._kernel_closest(flat, static, tv.walk_route(static).kind, ro, rd, t_geo, live)
         compare_walk(f"MTBVH walk ({static.num_bvh_trees} tree(s) of {static.num_bvh_nodes} "
                      f"nodes, {secs:.3f} s) vs {kname}, {r_name(r)} {label} rays", got, ref)
 
@@ -1683,16 +1661,17 @@ def phase_walks(resident, stream, card: str):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         compare_walk(f"sweep ({static.num_tris} triangles, {secs:.3f} s) vs K1, {r_name(resident)} "
-                     f"{label} rays", got, tv._kernel_closest(flat, static, *sub[:3], sub[3]))
+                     f"{label} rays", got,
+                     tv._kernel_closest(flat, static, "resident", *sub[:3], sub[3]))
     imgs, secs = {}, {}
     for name, options in (("default", {}), ("pallas_traversal=False", {"pallas_traversal": False}),
                           ("use_bvh=False", {"use_bvh": False})):
-        reset_launch_counts()
+        k0 = dict(_build.launches)
         r = Renderer(SCENE, RenderOptions(sample_mode=SampleMode.MIS, **options),
                      resolution=(128, 128), trace_depth=DEPTH, device=DEVICE)
         secs[name] = timed_step(r, 1)
         imgs[name] = r.hdr_sum()
-        launches = launch_counts()
+        launches = launches_since(k0)
         log(f"walks: glasstorus MIS 128x128 depth {DEPTH}, {name}: {secs[name]:.4f} s/iteration "
             f"on {card}; launches {launches}")
         if name != "default" and any(launches[k] for k in WALK_TAGS):
@@ -1739,7 +1718,7 @@ def sync_all(mesh: list) -> None:
 
 def shard_launches(r) -> list:
     """The K1-K5 launches each shard's replays added (StaticIteration.launches)."""
-    return [it.launches for it in r.shard_step.shards.iterations]
+    return [tuple(it.launches[t] for t in WALK_TAGS) for it in r.shard_step.shards.iterations]
 
 
 def eager_sharded_seconds(r, mesh: list, iterations: int):
@@ -1776,10 +1755,10 @@ def profile_shards(r, name: str, card: str) -> bool:
     from tools.profile_torch_port import profile_step
 
     tags = ("K1", "K2", "K3", "K4", "K5")
-    reset_launch_counts()
+    k0 = dict(_build.launches)
     before = shard_launches(r)
     prof = profile_step(r, 1)
-    counted = [launch_counts()[t] for t in tags]
+    counted = [launches_since(k0)[t] for t in tags]
     by_card = {}
     for dev, now, was in zip(r.mesh, shard_launches(r), before):
         tally = by_card.setdefault(dev.index, [0] * len(tags))
@@ -1863,13 +1842,13 @@ def phase_sharding(card: str):
         its = r.shard_step.shards.iterations
         if len(its) != n or not all(it.graphs and it.num_graphs for it in its):
             raise AssertionError(f"sharding: {name}: the shards did not capture graphs")
-        reset_launch_counts()
+        k0 = dict(_build.launches)
         before = shard_launches(r)
         for _ in range(SHARD_ITERS):
             r.step(1)
             if r.iteration == SHARD_ITERS:
                 got_eager_span = r.hdr_sum()  # iterations 1 .. SHARD_ITERS
-        counted = {k: v for k, v in launch_counts().items() if k[0] == "K"}
+        counted = {k: v for k, v in launches_since(k0).items() if k[0] == "K"}
         per_shard = [tuple(a - b for a, b in zip(x, y)) for x, y in zip(shard_launches(r), before)]
         got, rays = r.hdr_sum(), r.stats.rays_traced
         shard_s = list(r.stats.per_iter_seconds)
@@ -2090,8 +2069,8 @@ def no_kernel_table():
 
 def phase_no_table(resident, card: str):
     """The route of a mesh that fits neither kernel table, on glasstorus with
-    both budgets at 0: no split, packet_mode None, pallas_traversal turned
-    off and ray_regen ignored; closest_hit's triangle ids on RES x RES
+    both budgets at 0: no split, its walk_route the MTBVH walk off the
+    kernels and ray_regen ignored; closest_hit's triangle ids on RES x RES
     camera rays against K1's on the normal build (`resident`); a 128x128
     MIS render that launches none of K1-K5, held to the normal build's
     render, with its seconds per iteration."""
@@ -2107,29 +2086,29 @@ def phase_no_table(resident, card: str):
         r = Renderer(SCENE, RenderOptions(sample_mode=SampleMode.MIS, ray_regen=REGEN_K),
                      resolution=(128, 128), trace_depth=DEPTH, device=DEVICE)
     static = r.static
+    route = tv.walk_route(static, r.opts)
     log(f"no kernel table: {r_name(r)} ({static.num_tris} triangles, {static.num_bvh_trees} "
-        f"MTBVH tree(s)): stream blocks {static.stream_subs}, packet_mode "
-        f"{tv.packet_mode(static)}, pallas_traversal {r.opts.pallas_traversal}, regen_k "
-        f"{r.regen_k} with ray_regen={REGEN_K}")
-    if (static.stream_subs or tv.packet_mode(static) is not None
-            or r.opts.pallas_traversal is not False or r.regen_k):
+        f"MTBVH tree(s)): stream blocks {static.stream_subs}, route {route}, graph route "
+        f"{r.graph_route}, regen_k {r.regen_k} with ray_regen={REGEN_K}")
+    if (static.stream_subs or route != tv.Walk("mtbvh", True) or r.graph_route
+            or r.regen_k):
         raise AssertionError("a mesh that fits no kernel table did not take the MTBVH route")
     o, d = camera_rays(resident._cam_arrays(), RES, RES, resident.key, 1,
                        pixel_xy=resident.pixel_xy)
-    reset_launch_counts()
+    k0 = dict(_build.launches)
     t0 = time.perf_counter()
     got = tv.closest_hit(r.flat, static, o, d)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = launches_since(k0)
     ref = tv.closest_hit(resident.flat, resident.static, o, d)
     compare_walk(f"no kernel table: closest_hit ({secs:.3f} s, launches {launches}) vs K1, "
                  f"{r_name(r)} camera rays", (got.t, got.tri), (ref.t, ref.tri))
     if any(launches[k] for k in WALK_TAGS):
         raise AssertionError(f"closest_hit launched a walk kernel on the MTBVH route: {launches}")
-    reset_launch_counts()
+    k0 = dict(_build.launches)
     route_s = timed_step(r, 1)
-    launches = launch_counts()
+    launches = launches_since(k0)
     img = r.hdr_sum()
     normal = Renderer(SCENE, RenderOptions(sample_mode=SampleMode.MIS),
                       resolution=(128, 128), trace_depth=DEPTH, device=DEVICE)
@@ -2180,11 +2159,11 @@ def phase_entry(card: str):
     from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 
     t_phase = time.perf_counter()
-    reset_launch_counts()
+    k0 = dict(_build.launches)
     fn, args = entry.entry(device=DEVICE)
     img, rays, depth = fn(*args)
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = launches_since(k0)
     r = Renderer(entry.SCENE, RenderOptions(sample_mode=SampleMode.MIS), resolution=(64, 64),
                  trace_depth=4, device=DEVICE)
     r.step(1)
@@ -2195,10 +2174,10 @@ def phase_entry(card: str):
             or any(launches[k] for k in ("K1", "K2", "K3", "K4", "K5"))):
         raise AssertionError("entry()'s step is not the Renderer's first iteration")
     mesh = shard_mesh()
-    reset_launch_counts()
+    k0 = dict(_build.launches)
     entry.dryrun_multichip(len(mesh), devices=mesh)
     sync_all(mesh)
-    launches = launch_counts()
+    launches = launches_since(k0)
     log(f"entry: dryrun_multichip({len(mesh)}) over {mesh}: launches {launches}")
     if not (launches["K1"] and launches["K2"]) or any(launches[k] for k in ("K3", "K4", "K5")):
         raise AssertionError(f"the dry run launched {launches}; needs K1 and K2, none of K3-K5")
@@ -2263,10 +2242,10 @@ def graph_vs_eager(name: str, r, used: tuple, steps: tuple, card: str,
             torch.cuda.empty_cache()  # what stays reserved is the graphs' pool and buffers
             mem = torch.cuda.memory_reserved() - mem0
             replays0 = r.graphs.replays if path == "graphs" else 0
-            reset_launch_counts()
+            k0 = dict(_build.launches)
             for n in steps:
                 r.step(n)
-            launches = {k: v / samples for k, v in launch_counts().items() if k[0] == "K"}
+            launches = {k: v / samples for k, v in launches_since(k0).items() if k[0] == "K"}
             out[path] = dict(img=r.hdr_sum(), rays=r.stats.rays_traced, pools=list(r.lap_pools),
                              depth=r.traced_depth, secs=list(r.stats.per_iter_seconds),
                              launches=launches, mem=mem)
@@ -2279,9 +2258,10 @@ def graph_vs_eager(name: str, r, used: tuple, steps: tuple, card: str,
             if then is not None:
                 out[path]["then"] = then(r)
             if path in profile:
-                reset_launch_counts()
+                k0 = dict(_build.launches)
                 profs[path] = profile_step(r, 1)
-                profs[path]["counted"] = {k: v for k, v in launch_counts().items() if k[0] == "K"}
+                profs[path]["counted"] = {k: v for k, v in launches_since(k0).items()
+                                          if k[0] == "K"}
     e, g = out["eager"], out["graphs"]
     same = np.array_equal(g["img"], e["img"])
     per = "batch" if r.regen_k else "iteration"

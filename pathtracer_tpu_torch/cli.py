@@ -145,7 +145,6 @@ def cmd_preview(args) -> int:
 
 
 def cmd_info(args) -> int:
-    from pathtracer_tpu_torch.ops.traverse import packet_mode
     from pathtracer_tpu_torch.scene.flatscene import build_flat_scene
     from pathtracer_tpu_torch.scene.parser import load_scene
 
@@ -162,8 +161,9 @@ def cmd_info(args) -> int:
         "bvh_trees": static.num_bvh_trees,
         "wide_nodes": static.wide_nodes,
         "wide_depth": static.wide_depth,
-        # which kernels walk the mesh: "resident" (K1/K2) or "stream" (K3/K4)
-        "traversal": packet_mode(static) if static.num_tris else None,
+        # which kernels the mesh's tables serve: "resident" (K1/K2), "stream"
+        # (K3/K4), or None where no kernel table fits (the MTBVH walk)
+        "traversal": static.traversal if static.num_tris else None,
         "stream_top_nodes": static.stream_top,
         "stream_blocks": static.stream_subs,
         "stream_block_nodes": static.stream_sub_nodes,

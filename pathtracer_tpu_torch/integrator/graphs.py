@@ -45,17 +45,17 @@ run with the buffers' card as the current device, on a capture stream of
 that card: PyTorch's ops and the kernels' launchers take the current
 stream of the card their tensors lie on, so a capture from another card
 would record nothing.  A step whose graph holds no node is refused.  A
-capture bakes in the options, the key words, the route flags and the film:
-`graph_key` names them, and the Renderer drops its graphs when it changes.
+capture bakes in the options, the key words, the triangle walk and the
+film: `graph_key` names them, and the Renderer drops its graphs when it
+changes.
 
-The traversal, sweep and shading kernels count their launches in Python
-(ops/traverse_cuda.py, ops/traverse_stream_cuda.py, ops/sweep_cuda.py,
-ops/shade_cuda.py), which a replay does not run: each graph's counts are
-taken at capture and added at every replay.  Each step's replays are
-counted by its key (`key_replays`, one dict increment a replay, tracing or
-not); `counts()` derives the graph nodes they ran, the laps, the sorted laps
-and the ladder's steps; `tables()` the walk's route and its streaming
-tables' shape.
+The kernels' launches are counted in Python, in the launch table of
+ops/_build.py, which a replay does not run: each graph's counts are taken at
+capture (and taken back out of the table) and added at every replay.  Each
+step's replays are counted by its key (`key_replays`, one dict increment a
+replay, tracing or not); `counts()` derives the graph nodes they ran, the
+laps, the sorted laps and the ladder's steps; `tables()` the walk's route
+and its streaming tables' shape.
 
 Tracing (utils/profiling.py).  With tracing on, `run_lockstep` records the
 iteration's host spans, and each StaticIteration runs its traced steps:
@@ -97,22 +97,12 @@ from pathtracer_tpu_torch.integrator.wavefront import (
     new_pool,
     start_pool,
 )
-from pathtracer_tpu_torch.ops import shade_cuda as sh
-from pathtracer_tpu_torch.ops import sweep_cuda as sw
-from pathtracer_tpu_torch.ops import traverse_cuda as tc
-from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
-from pathtracer_tpu_torch.ops.traverse import packet_mode
+from pathtracer_tpu_torch.ops import _build
+from pathtracer_tpu_torch.ops.traverse import walk_route
 from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
 from pathtracer_tpu_torch.utils import profiling
 from pathtracer_tpu_torch.utils.config import RenderOptions
 
-# the launch counters of K1-K5, then of the analytic sweep's S1 and S2, then of
-# the material lobes' M1 and M2, bumped by their wrappers
-COUNTERS = ((tc, "closest_launches"), (tc, "occlusion_launches"), (ts, "closest_launches"),
-            (ts, "occlusion_launches"), (ts, "blockmajor_launches"),
-            (sw, "closest_launches"), (sw, "occlusion_launches"),
-            (sh, "scatter_launches"), (sh, "eval_launches"))
-WALKS = 5  # K1-K5's counters come first
 CAM_FLOATS = 14  # position, view, up, right (3 each), pixel_length (2)
 
 
@@ -138,39 +128,28 @@ def graph_nodes(g: torch.cuda.CUDAGraph) -> int:
 
 def graph_route(static: SceneStatic, opts: RenderOptions, device) -> bool:
     """Does an iteration on `device` replay CUDA graphs?  On a CUDA device,
-    where the JAX package runs its jitted iteration: not for a triangle
-    scene off the kernels (`pallas_traversal=False` or `use_bvh=False`),
-    whose MTBVH walk and sweep read the host inside a lap and which the JAX
-    package renders staged.  Elsewhere the steps run eagerly."""
-    staged = static.num_tris > 0 and not (opts.pallas_traversal and opts.use_bvh)
-    return torch.device(device).type == "cuda" and not staged
+    where the JAX package runs its jitted iteration: not where the triangles
+    take a plain walk (`walk_route`: the MTBVH walk or the sweep), which
+    reads the host inside a lap and which the JAX package renders staged.
+    Elsewhere the steps run eagerly."""
+    return torch.device(device).type == "cuda" and not walk_route(static, opts).plain
 
 
 def graph_key(static: SceneStatic, opts: RenderOptions, key, pixel_xy, regen: bool,
               local_rows: int | None = None, pixel0: int = 0) -> tuple:
     """What a capture bakes in: the scene, the options, the RNG key words,
-    the route flags read at call time (`packet_mode`, STREAM_BLOCKMAJOR),
-    the film (its size and lane -> pixel map), regeneration and the pool's
-    rows (`local_rows` from pixel `pixel0`; None: the whole film)."""
-    return (static, opts, tuple(int(k) for k in key), packet_mode(static),
-            bool(ts.STREAM_BLOCKMAJOR), static.width, static.height, pixel_xy is not None,
-            bool(regen), local_rows, int(pixel0))
-
-
-def counter_values() -> tuple:
-    """Every counter of COUNTERS, in its order."""
-    return tuple(getattr(mod, name) for mod, name in COUNTERS)
+    the triangle walk (`walk_route`, which reads STREAM_BLOCKMAJOR at call
+    time), the film (its size and lane -> pixel map), regeneration and the
+    pool's rows (`local_rows` from pixel `pixel0`; None: the whole film)."""
+    return (static, opts, tuple(int(k) for k in key), walk_route(static, opts), static.width,
+            static.height, pixel_xy is not None, bool(regen), local_rows, int(pixel0))
 
 
 def launch_counts() -> tuple:
-    """K1-K5's counters: the traversal kernels, which a device trace tags by
-    name (benchmark/lib/trace.py TRAVERSAL) and holds to these counts."""
-    return counter_values()[:WALKS]
-
-
-def _set_counts(counts) -> None:
-    for (mod, name), c in zip(COUNTERS, counts):
-        setattr(mod, name, c)
+    """K1-K5's launches (ops/_build.py's table): the traversal kernels, which
+    a device trace tags by name (benchmark/lib/trace.py TRAVERSAL) and holds
+    to these counts."""
+    return tuple(_build.launches[tag] for tag in ("K1", "K2", "K3", "K4", "K5"))
 
 
 def _copy_pool(dst: _Pool, src: _Pool) -> None:
@@ -210,13 +189,13 @@ class StaticIteration:
         self.alive_n = torch.zeros((), dtype=torch.int64, device=dev)
         self.depth = torch.zeros((), dtype=torch.int32, device=dev)
         self.contrib = torch.zeros((self.n, 3), device=dev)
-        self._graphs = {}        # (key, traced) -> (CUDAGraph, launch counts per replay)
+        self._graphs = {}        # (key, traced) -> (CUDAGraph, {tag: launches a replay})
         self._mempool = None     # the graphs' one memory pool
         self.nodes = {}          # key -> the nodes of its graph
         self.traced_nodes = {}   # key -> the nodes of its traced graph, stamps included
         self.capture_seconds = 0.0
         self.key_replays = {}    # key -> its runs, replayed or (without graphs) eager
-        self.launches = (0,) * len(COUNTERS)  # K1-K5, S1, S2, M1, M2 launches its replays added
+        self.launches = dict.fromkeys(_build.LAUNCHES, 0)  # by tag, what its replays added
         self.setup = profiling.Tracer(6 * len(self.step_keys()) + 8)  # the captures' spans
         self.stamps = None       # (rows, STAMP_COLS) int64, made at the first traced run
         self._lap_row = 1 + 2 * len(self.sizes)  # the first lap's row of the stamp table
@@ -358,7 +337,7 @@ class StaticIteration:
                 body()  # loads the library and every kernel the step launches
                 torch.cuda.synchronize(self.device)
                 self.setup.add("eager", t, time.perf_counter_ns(), card=self.card, key=key)
-                before = counter_values()
+                before = dict(_build.launches)
                 g = torch.cuda.CUDAGraph(keep_graph=True)
                 # a collection inside the capture could destroy another graph
                 # held by garbage, which a capturing thread may not do
@@ -380,9 +359,9 @@ class StaticIteration:
                 finally:
                     if gc_was:
                         gc.enable()
-                after = counter_values()
-                _set_counts(before)  # a capture launches nothing
-                self._graphs[key, traced] = (g, tuple(a - b for a, b in zip(after, before)))
+                counts = {t: n - before[t] for t, n in _build.launches.items() if n != before[t]}
+                _build.launches.update(before)  # a capture launches nothing
+                self._graphs[key, traced] = (g, counts)
                 (self.traced_nodes if traced else self.nodes)[key] = nodes
                 self.setup.close(cap)
             torch.cuda.synchronize(self.device)
@@ -406,8 +385,9 @@ class StaticIteration:
                 g.replay()
         except Exception as e:
             raise GraphError(f"replay of step {key} on {self.device} failed: {e}") from e
-        _set_counts(c + d for c, d in zip(counter_values(), counts))
-        self.launches = tuple(c + d for c, d in zip(self.launches, counts))
+        for tag, n in counts.items():
+            _build.launches[tag] += n
+            self.launches[tag] += n
 
     def live(self, key: tuple) -> int:
         """The live count lap step `key` stored: the one host read a lap,
@@ -441,8 +421,8 @@ class StaticIteration:
                 "up": sum(n for key, n in k.items() if key[0] == "up")}
 
     def tables(self) -> dict:
-        """The walk's tables beside `counts()`: the route (`traversal`:
-        "resident", "stream" or None) and, on the streaming route, its
+        """The walk's tables beside `counts()`: the tables built (`traversal`:
+        "resident", "stream" or None) and, on the streaming tables, their
         blocks, a block's nodes and triangles, and the stream tables' bytes
         on the card (0 on the other routes)."""
         st = self.static

@@ -22,24 +22,24 @@ eagerly).
 With `ray_regen` K > 1, `step` renders batches of up to K samples per
 pixel in one persistent pool (the first, warm-up iteration alone);
 DIRECT_LI and `show_normal` paths end after one bounce, so there the option
-is ignored, as in the JAX package, and so it is for a triangle scene with
-`pallas_traversal=False`.
+is ignored, as in the JAX package, and so it is for a triangle scene off
+the kernels (`pallas_traversal=False`, or a mesh no kernel table fits).
 
 `pallas_traversal=False` walks the triangles with the threaded MTBVH walk
 instead of the kernels, and `use_bvh=False` sweeps every triangle
 (ops/traverse.py; cross-checks, not fast paths).  A mesh that fits neither
-kernel table turns `pallas_traversal` off when the tables are built, as the
-JAX Renderer does.  `devices=N` renders pixel rows sharded over N devices
-(parallel/sharding.py: the first N CUDA devices, or N shards on the CPU
-with device="cpu", their laps in lockstep); as in the JAX package a sharded
-renderer turns the 32x32 swizzle off and ignores `ray_regen`.  These only
-change how the TPU runs, not the image, so they are accepted and ignored:
-`packet_p`, `packet_q`, `packet_dense`, `packet_auto` and `interpret`
-(`packet_rows` sets the ladder's tile, as in the JAX package).
-`iters_per_dispatch` is accepted and ignored too: the JAX package batches k
-iterations into one dispatch to hide a TPU dispatch latency, and the port's
-read of the live count a lap rules out a graph of several iterations until
-CUDA's conditional graph nodes carry the loop.
+kernel table takes the MTBVH walk too, as the JAX Renderer's takes its XLA
+walk (ops/traverse.py walk_route chooses).  `devices=N` renders pixel rows
+sharded over N devices (parallel/sharding.py: the first N CUDA devices, or N
+shards on the CPU with device="cpu", their laps in lockstep); as in the JAX
+package a sharded renderer turns the 32x32 swizzle off and ignores
+`ray_regen`.  These only change how the TPU runs, not the image, so they are
+accepted and ignored: `packet_p`, `packet_q`, `packet_dense`, `packet_auto`
+and `interpret` (`packet_rows` sets the ladder's tile, as in the JAX
+package).  `iters_per_dispatch` is accepted and ignored too: the JAX package
+batches k iterations into one dispatch to hide a TPU dispatch latency, and
+the port's read of the live count a lap rules out a graph of several
+iterations until CUDA's conditional graph nodes carry the loop.
 
 `Renderer.setup` holds the set-up's spans (utils/profiling.py), recorded
 whether tracing is on or not: `renderer.init` (its children `cuda.context`,
@@ -51,7 +51,6 @@ built, and each card's `graph.capture` of each step).
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import time
 from dataclasses import dataclass, field
@@ -69,7 +68,7 @@ from pathtracer_tpu_torch.integrator.graphs import StaticIteration, graph_key
 from pathtracer_tpu_torch.integrator.wavefront import CameraArrays, render_iteration
 from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops import math as m
-from pathtracer_tpu_torch.ops.traverse import packet_mode
+from pathtracer_tpu_torch.ops.traverse import walk_route
 from pathtracer_tpu_torch.scene.flatscene import build_flat_scene, resolve_device
 from pathtracer_tpu_torch.utils import profiling, rng
 
@@ -147,10 +146,6 @@ class Renderer:
             scene.trace_depth = trace_depth
         self.flat, self.static = build_flat_scene(scene, opts=self.opts, device=self.device,
                                                   spans=self.setup)
-        if self.static.num_tris > 0 and packet_mode(self.static) is None:
-            # no kernel table fits the mesh: the MTBVH walk, as the JAX
-            # Renderer turns pallas_traversal off for its XLA walk
-            self.opts = dataclasses.replace(self.opts, pallas_traversal=False)
         self.width, self.height = scene.camera.resolution
         self.camera: RenderCamera = derive_camera(scene.camera)
         self.cam_position = None  # interactive pan/zoom override (None = scene)
@@ -181,20 +176,19 @@ class Renderer:
         """Samples per pixel per regeneration batch (0: one per iteration).
         A DIRECT_LI or show_normal path ends after one bounce, so there is
         nothing to refill; a sharded renderer, and a triangle scene off the
-        kernels (`pallas_traversal=False`, which the JAX package renders
-        staged), ignore regeneration, as the JAX package's do."""
+        kernels (`Walk.off_kernels`, which the JAX package renders staged),
+        ignore regeneration, as the JAX package's do."""
         k = int(self.opts.ray_regen)
         multi_bounce = self.opts.sample_mode != SampleMode.DIRECT_LI and not self.opts.show_normal
-        kernels = bool(self.opts.pallas_traversal) or self.static.num_tris == 0
+        kernels = not walk_route(self.static, self.opts).off_kernels
         return k if k > 1 and multi_bounce and kernels and self.devices == 1 else 0
 
     @property
     def graph_route(self) -> bool:
         """Does an iteration replay CUDA graphs?  On CUDA, where the JAX
-        Renderer runs its jitted iteration, sharded or not: not for a
-        triangle scene off the kernels (`pallas_traversal=False` or
-        `use_bvh=False`), which the JAX package renders staged
-        (`graphs.graph_route`)."""
+        Renderer runs its jitted iteration, sharded or not: not where the
+        triangles take a plain walk (the MTBVH walk or the sweep), which the
+        JAX package renders staged (`graphs.graph_route`)."""
         return graphs.graph_route(self.static, self.opts, self.device)
 
     def _compiled(self) -> StaticIteration:

@@ -71,7 +71,13 @@ from pathtracer_tpu_torch.ops.materials import material_by_geom
 from pathtracer_tpu_torch.ops.shade_cuda import eval_lobes, scatter_lobes
 from pathtracer_tpu_torch.ops.texture import bilinear_sample_u32_meta
 from pathtracer_tpu_torch.ops.intersect import ray_aabb
-from pathtracer_tpu_torch.ops.traverse import DEAD_KEY, closest_hit, octant_cell_key
+from pathtracer_tpu_torch.ops.traverse import (
+    DEAD_KEY,
+    Walk,
+    closest_hit,
+    octant_cell_key,
+    walk_route,
+)
 from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
 from pathtracer_tpu_torch.utils import profiling, rng
 
@@ -230,14 +236,15 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
            iteration: int, depth: int, s: _Pool,
            trace: dict | None = None, env_nee: bool = False,
            show_normal: bool = False, shadow_sort: bool = False, pixel0: int = 0,
-           use_kernels: bool = True, use_bvh: bool = True, mark=None) -> tuple[_Pool, torch.Tensor]:
+           route: Walk | None = None, mark=None) -> tuple[_Pool, torch.Tensor]:
     """One intersect + shade pass over the pool; returns (pool, rays emitted).
     Lanes draw their random numbers at (`iteration`, `depth`), or under
     regeneration at their own sample and depth from `meta`.
     `env_nee` samples the environment as one more light (`env_importance`
     with an env map); `show_normal` ends every ray at its first hit;
     `shadow_sort` sorts the NEE shadow rays for the any-hit kernel;
-    `use_kernels` / `use_bvh` pick the triangle walks (ops/traverse.py).
+    `route` picks the triangle walk (ops/traverse.py walk_route; default:
+    the scene's kernels).
     Lane l's RNG counter is pixel0 + l (a shard's first pixel).
     `trace`, if given, receives the pass's stage arrays by name (the hit, the
     material parameters and shading normal, the scatter sample, the light
@@ -251,7 +258,6 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     present = static.material_types
     alive = s.alive
     pixel_idx = s.lane + pixel0 if pixel0 else s.lane
-    walk = dict(use_kernels=use_kernels, use_bvh=use_bvh, mark=mark)
     if s.meta is None:
         rng_it, rng_dp = iteration, depth
     else:
@@ -259,7 +265,7 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     contrib = s.contrib
     if mark is not None:
         mark(profiling.INTERSECT)
-    hit = closest_hit(flat, static, s.o, s.d, alive=alive, **walk)
+    hit = closest_hit(flat, static, s.o, s.d, alive=alive, route=route, mark=mark)
     if mark is not None:
         mark(profiling.SHADE)
     rays = alive.sum()
@@ -294,7 +300,8 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
             li_rand = rng.pixel_uniforms(key, rng_it, rng_dp, rng.STAGE_LIGHT, pixel_idx,
                                          4 if env_nee else 3)
             lrec = light_sample(flat, static, hit.point, li_rand, enabled=nee_on,
-                                include_env=env_nee, shadow_sort=shadow_sort, **walk)
+                                include_env=env_nee, shadow_sort=shadow_sort, route=route,
+                                mark=mark)
             wi = m.normalize(lrec.pos - hit.point)
             bsdf, _ = eval_lobes(params, nrm, s.d, wi, present=present)
             nee = (
@@ -329,7 +336,8 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
             li_rand = rng.pixel_uniforms(key, rng_it, rng_dp, rng.STAGE_LIGHT, pixel_idx,
                                          4 if env_nee else 3)
             lrec = light_sample(flat, static, hit.point, li_rand, enabled=cont & ~is_delta,
-                                include_env=env_nee, shadow_sort=shadow_sort, **walk)
+                                include_env=env_nee, shadow_sort=shadow_sort, route=route,
+                                mark=mark)
             wi = m.normalize(lrec.pos - hit.point)
             li_bsdf, b_pdf = eval_lobes(params, nrm, s.d, wi, present=present)
             w = m.power_heuristic(lrec.pdf, b_pdf)
@@ -476,7 +484,7 @@ class LapSpec(NamedTuple):
     env_nee: bool
     show_normal: bool
     sched: Schedule
-    walk: dict            # use_kernels, use_bvh: the triangle walk (ops/traverse.py)
+    route: Walk           # the triangle walk (ops/traverse.py walk_route)
     pixel_xy: tuple | None
     pixel0: int
     rg: Regen | None      # the refill, under regeneration
@@ -496,7 +504,7 @@ def lap_spec(flat: FlatScene, static: SceneStatic, opts: RenderOptions, cam: Cam
         flat, static, opts.sample_mode, key,
         env_nee=bool(opts.env_importance) and static.env_map_id >= 0,
         show_normal=bool(opts.show_normal), sched=schedule(static, opts, n),
-        walk=dict(use_kernels=bool(opts.pallas_traversal), use_bvh=bool(opts.use_bvh)),
+        route=walk_route(static, opts),
         pixel_xy=pixel_xy, pixel0=pixel0, rg=rg,
     )
 
@@ -526,7 +534,7 @@ def lap_step(spec: LapSpec, s: _Pool, iteration, depth, sort: bool,
         s = sort_pool(spec.flat, spec.static, s)
     s, rays = bounce(spec.flat, spec.static, spec.mode, spec.key, iteration, depth, s,
                      env_nee=spec.env_nee, show_normal=spec.show_normal,
-                     shadow_sort=spec.sched.shadow_sort, pixel0=spec.pixel0, **spec.walk,
+                     shadow_sort=spec.sched.shadow_sort, pixel0=spec.pixel0, route=spec.route,
                      mark=mark)
     if spec.rg is not None:
         s = refill(spec.flat, spec.static, spec.mode, spec.key, iteration, s, spec.rg,
@@ -686,9 +694,9 @@ def make_render_iteration(static: SceneStatic, opts: RenderOptions, width: int, 
     Where the JAX package jits the step, on a CUDA `flat` the step runs
     through `integrator/graphs.py StaticIteration`: one per device and first
     pixel, kept in the factory and made anew when the tables, the key words
-    or the route flags change (its graphs captured at its first run, then
+    or the triangle walk change (its graphs captured at its first run, then
     replayed); it returns new tensors, so a result a caller holds is never
-    overwritten.  On the CPU, and for a triangle scene off the kernels
+    overwritten.  On the CPU, and where the triangles take a plain walk
     (`graphs.graph_route`), the step runs the eager loop,
     `render_iteration`.  The JAX package's staged entries (start_state,
     bounce_step, finish_state) are not ported: the port's iteration is a

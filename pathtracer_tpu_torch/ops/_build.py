@@ -21,6 +21,13 @@ holds the host clock (perf_counter_ns) at the start and the end of
 (`kernels.load`, `kernel_builds`).  `load_stamps` loads the stamp kernel's
 library alone (csrc/stamp.cu), so that tracing a scene that launches no
 other kernel builds no other library.
+
+Every kernel is launched through `launch`, which also counts it: the
+launch table `LAUNCHES` gives each counted entry point its tag (K1-K5 the
+triangle walks, S1/S2 the analytic sweep, M1/M2 the material lobes, P1/P2
+the probes), and `launches` holds the launches by tag in this process
+(integrator/graphs.py adds a graph's at each of its replays).  The argument
+checks that the kernels' wrappers share sit beside it.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -62,6 +71,19 @@ ARGTYPES = {
     "pt_stamp": [_P, _P, _I, _I, _I, _I, _P],
     "pt_timer_probe": [_P, _I, _P],
 }
+
+# launch tag -> the C entry point whose launches it counts; the M1 draw
+# (pt_scatter_draw), the stamp kernel and the timer probe are not counted
+LAUNCHES = {
+    "K1": "pt_closest_hit_wbvh", "K2": "pt_occlusion_wbvh", "K3": "pt_closest_hit_stream",
+    "K4": "pt_occlusion_stream", "K5": "pt_closest_hit_blockmajor",
+    "S1": "pt_sweep_closest", "S2": "pt_sweep_occluded",
+    "M1": "pt_scatter_lobes", "M2": "pt_eval_lobes",
+    "P1": "pt_probe_rowprim", "P2": "pt_probe_pop",
+}
+_TAG = {entry: tag for tag, entry in LAUNCHES.items()}
+_STAMP_ENTRIES = ("pt_stamp", "pt_timer_probe")  # load_stamps' library
+launches = dict.fromkeys(LAUNCHES, 0)  # launches by tag in this process
 
 KERNELS = (
     "closest_hit_wbvh_kernel", "occlusion_wbvh_kernel",
@@ -254,3 +276,55 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = (_lib or _stamp_lib or load_library()).pt_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def launch(entry: str, device, *args, what: str | None = None) -> None:
+    """Launch C entry point `entry` with `args` (a tensor passes its data
+    pointer) and the current stream of card `device`, with that card
+    current (the runtime launches on the current card); raise on a CUDA
+    error, named `what` (by default the entry point less its `pt_`), and
+    add one to the count of the entry point's tag in `launches`."""
+    lib = load_stamps() if entry in _STAMP_ENTRIES else load_library()
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(rc, f"{what or entry[3:]} launch")
+    if entry in _TAG:
+        launches[_TAG[entry]] += 1
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' argument checks
+
+
+def device_type(t, what: str) -> str:
+    """The type of tensor `t`'s device, "cpu" (a kernel's plain version
+    runs) or "cuda" (the kernel launches); another device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda tensors, not {t.device}")
+    return t.device.type
+
+
+def check_rays(o, d) -> None:
+    if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
+        raise ValueError(f"rays must be (N, 3): o {tuple(o.shape)}, d {tuple(d.shape)}")
+
+
+def check_cuda_args(tensors: dict, dtypes: dict) -> None:
+    """Every tensor of `tensors` on the first one's device, of its dtype in
+    `dtypes` and contiguous."""
+    dev = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != dtypes[name]:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtypes[name]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(**tensors) -> None:
+    """The kernels read these tables in 16-byte loads."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the kernel's vector loads")

@@ -18,7 +18,7 @@ each probe:
   use) or raises.  It never falls back.
 - the plain PyTorch version (`*_plain`), with the kernel's arithmetic in
   the kernel's order, so the two agree bit for bit;
-- a launch counter (`rowprim_launches`, `pop_launches`).
+- its launch, counted under its tag in `ops/_build.py`'s table.
 
 `tools/rowprim_probe_torch.py` and `tools/kernel_microbench_torch.py` print
 ns per lap, as the originals do, and the bound on one SM beside it.
@@ -29,8 +29,7 @@ from __future__ import annotations
 import torch
 
 from pathtracer_tpu_torch.ops import _build
-from pathtracer_tpu_torch.ops.traverse_cuda import (
-    _check_aligned, _check_cuda_args, _moller_trumbore, _slab)
+from pathtracer_tpu_torch.ops.traverse_cuda import moller_trumbore, slab
 
 # P1's sizes (tools/rowprim_probe.py): a (ROWPRIM_M, 128) table, (8, 128) rays
 ROWPRIM_M, ROWPRIM_LAPS = 1024, 2000
@@ -46,15 +45,6 @@ P2_VARIANTS = (
     "aabb_any", "push_branchless", "push_packed", "leaf_mt",
 )
 WARP = 32
-
-rowprim_launches = 0
-pop_launches = 0
-
-
-def reset_launch_counts() -> None:
-    global rowprim_launches, pop_launches
-    rowprim_launches = 0
-    pop_launches = 0
 
 
 def rowprim_inputs(device="cpu"):
@@ -148,7 +138,7 @@ def pop_plain(variant: str, pool, wf, wi, tr, *, F: int = POP_F, leaf_k: int = P
     tiny = f32(1e-30)
 
     def box(node, c, cap):
-        hit, te = _slab(boxes[node, c].expand(n, 6), *ray[:3], *ray[3:])
+        hit, te = slab(boxes[node, c].expand(n, 6), *ray[:3], *ray[3:])
         return hit & (te <= cap)
 
     if variant == "while_empty":
@@ -193,7 +183,7 @@ def pop_plain(variant: str, pool, wf, wi, tr, *, F: int = POP_F, leaf_k: int = P
             for k in range(leaf_k):
                 v = tr[min(node * 8 + k, nt - 1)]
                 row = torch.cat([v[0:3], v[3:6] - v[0:3], v[6:9] - v[0:3]])
-                th, tt, _, _ = _moller_trumbore(row[None], ox, oy, oz, ox, oy, oz)
+                th, tt, _, _ = moller_trumbore(row[None], ox, oy, oz, ox, oy, oz)
                 out_r = torch.where(th & (tt < acc), tt, out_r)
     return (out_r + acc).reshape(POP_ROWS, -1)
 
@@ -204,22 +194,16 @@ def pop_plain(variant: str, pool, wf, wi, tr, *, F: int = POP_F, leaf_k: int = P
 
 def rowprim(tab, rays, laps: int = ROWPRIM_LAPS):
     """P1 over `laps` laps; (1, 1) f32.  CPU tensors take the plain version."""
-    global rowprim_launches
     if tab.dim() != 2 or tab.shape[1] != 128 or tuple(rays.shape) != (8, 128):
         raise ValueError(f"P1 takes a (M, 128) table and (8, 128) rays, not "
                          f"{tuple(tab.shape)} and {tuple(rays.shape)}")
-    if tab.device.type == "cpu":
+    if _build.device_type(tab, "rowprim") == "cpu":
         return rowprim_plain(tab, rays, laps)
-    if tab.device.type != "cuda":
-        raise ValueError(f"rowprim runs on cpu or cuda tensors, not {tab.device}")
-    _check_cuda_args(dict(tab=tab, rays=rays), dict(tab=torch.float32, rays=torch.float32))
-    _check_aligned(tab=tab, rays=rays)  # bulk copies of 512-byte rows, 16-byte loads
-    lib = _build.load_library()
+    _build.check_cuda_args(dict(tab=tab, rays=rays), dict(tab=torch.float32, rays=torch.float32))
+    _build.check_aligned(tab=tab, rays=rays)  # bulk copies of 512-byte rows, 16-byte loads
     out = torch.empty((1, 1), dtype=torch.float32, device=tab.device)
-    rc = lib.pt_probe_rowprim(tab.data_ptr(), rays.data_ptr(), out.data_ptr(), tab.shape[0],
-                              laps, torch.cuda.current_stream(tab.device).cuda_stream)
-    _build.check(rc, "rowprim launch")
-    rowprim_launches += 1
+    _build.launch("pt_probe_rowprim", tab.device, tab, rays, out, tab.shape[0], laps,
+                  what="rowprim")
     return out
 
 
@@ -227,7 +211,6 @@ def pop(variant: str, pool, wf, wi, tr, *, F: int = POP_F, leaf_k: int = POP_LEA
         acc0: float = POP_ACC0):
     """P2's `variant` over F pops; (16, 128) f32.  CPU tensors take the
     plain version."""
-    global pop_launches
     if variant not in P2_VARIANTS:
         raise ValueError(f"unknown P2 variant {variant!r}; one of {P2_VARIANTS}")
     if (tuple(pool.shape) != (3, POP_ROWS, POP_LANES) or wf.numel() % 48
@@ -235,20 +218,14 @@ def pop(variant: str, pool, wf, wi, tr, *, F: int = POP_F, leaf_k: int = POP_LEA
         raise ValueError("P2 takes pool (3, 16, 128), wf (M*48,), wi (M*24,) and tr (NT, 12)")
     if F < 0 or leaf_k < 0:
         raise ValueError(f"P2 takes F >= 0 and leaf_k >= 0, not {F} and {leaf_k}")
-    if pool.device.type == "cpu":
+    if _build.device_type(pool, "pop") == "cpu":
         return pop_plain(variant, pool, wf, wi, tr, F=F, leaf_k=leaf_k, acc0=acc0)
-    if pool.device.type != "cuda":
-        raise ValueError(f"pop runs on cpu or cuda tensors, not {pool.device}")
-    _check_cuda_args(dict(pool=pool, wf=wf, wi=wi, tr=tr),
-                     dict(pool=torch.float32, wf=torch.float32, wi=torch.int32,
-                          tr=torch.float32))
-    _check_aligned(wf=wf, wi=wi, tr=tr)  # the node and triangle rows in 16-byte loads
-    lib = _build.load_library()
+    _build.check_cuda_args(dict(pool=pool, wf=wf, wi=wi, tr=tr),
+                           dict(pool=torch.float32, wf=torch.float32, wi=torch.int32,
+                                tr=torch.float32))
+    _build.check_aligned(wf=wf, wi=wi, tr=tr)  # the node and triangle rows in 16-byte loads
     out = torch.empty((POP_ROWS, POP_LANES), dtype=torch.float32, device=pool.device)
-    rc = lib.pt_probe_pop(P2_VARIANTS.index(variant), pool.data_ptr(), wf.data_ptr(),
-                          wi.data_ptr(), tr.data_ptr(), out.data_ptr(), out.numel(),
-                          wf.numel() // 48, tr.shape[0], F, leaf_k, acc0,
-                          torch.cuda.current_stream(pool.device).cuda_stream)
-    _build.check(rc, f"pop ({variant}) launch")
-    pop_launches += 1
+    _build.launch("pt_probe_pop", pool.device, P2_VARIANTS.index(variant), pool, wf, wi, tr, out,
+                  out.numel(), wf.numel() // 48, tr.shape[0], F, leaf_k, acc0,
+                  what=f"pop ({variant})")
     return out

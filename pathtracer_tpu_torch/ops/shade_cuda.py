@@ -14,8 +14,9 @@ The JAX package shades in plain jnp (`pathtracer_tpu/ops/materials.py`,
   kernels keep every operation of them in the same order, so the two agree
   bit for bit on every lane whose material type the call's `present` holds
   (the plain version skips absent lobes; the kernels run each lane's own).
-- a launch counter (`scatter_launches`, `eval_launches`), bumped once per
-  kernel launch and nowhere else.
+
+The wrappers launch through `ops/_build.py launch`, which counts M1's and
+M2's launches in its table (the draw kernel's, none).
 
 The RNG's counter fields, `iteration` and `depth`, may be Python ints (the
 kernel takes them as immediates), 0-d int32 tensors (a CUDA graph's
@@ -35,20 +36,10 @@ from pathtracer_tpu_torch.ops.materials import (
     pdf_eval,
     scatter_sample,
 )
-from pathtracer_tpu_torch.ops.sweep_cuda import _device
 from pathtracer_tpu_torch.scene.parser import DIELECTRIC
 from pathtracer_tpu_torch.utils import rng
 
 _M32 = 0xFFFFFFFF
-
-scatter_launches = 0
-eval_launches = 0
-
-
-def reset_launch_counts() -> None:
-    global scatter_launches, eval_launches
-    scatter_launches = 0
-    eval_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +133,7 @@ def _lanes(col, *vecs) -> str:
         if v.shape != (col.shape[0], 3):
             raise ValueError(f"directions must be (N, 3) for {col.shape[0]} lanes: "
                              f"{tuple(v.shape)}")
-    return _device(col, "the material lobes")
+    return _build.device_type(col, "the material lobes")
 
 
 def scatter_draw(key, iteration, depth, lane, pixel0: int = 0):
@@ -152,13 +143,8 @@ def scatter_draw(key, iteration, depth, lane, pixel0: int = 0):
     if _lanes(lane) == "cpu":
         return scatter_draw_plain(key, iteration, depth, lane, pixel0)
     args = _draw_args(key, iteration, depth, lane, pixel0)
-    n = lane.shape[0]
-    out = torch.empty((n, 3), dtype=torch.float32, device=lane.device)
-    lib = _build.load_library()
-    with torch.cuda.device(lane.device):  # the runtime launches on the current card
-        rc = lib.pt_scatter_draw(*args, out.data_ptr(), n,
-                                 torch.cuda.current_stream(lane.device).cuda_stream)
-    _build.check(rc, "scatter_draw launch")
+    out = torch.empty((lane.shape[0], 3), dtype=torch.float32, device=lane.device)
+    _build.launch("pt_scatter_draw", lane.device, *args, out, lane.shape[0])
     return out
 
 
@@ -169,7 +155,6 @@ def scatter_lobes(p: MatParams, n, wo, key, iteration, depth, lane, pixel0: int 
     `scatter_lobes_plain` gives it; `delta` is a PyTorch compare.  CPU tensors
     take the plain version; CUDA tensors launch the kernel, which runs each
     lane's own lobe and needs no `present`."""
-    global scatter_launches
     if _lanes(lane, n, wo) == "cpu":
         return scatter_lobes_plain(p, n, wo, key, iteration, depth, lane, pixel0, present)
     dev, f32, count = lane.device, torch.float32, lane.shape[0]
@@ -178,12 +163,7 @@ def scatter_lobes(p: MatParams, n, wo, key, iteration, depth, lane, pixel0: int 
     bsdf = torch.empty((count, 3), dtype=f32, device=dev)
     pdf = torch.empty((count,), dtype=f32, device=dev)
     d = torch.empty((count, 3), dtype=f32, device=dev)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):  # the runtime launches on the current card
-        rc = lib.pt_scatter_lobes(*args, bsdf.data_ptr(), pdf.data_ptr(), d.data_ptr(), count,
-                                  torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "scatter_lobes launch")
-    scatter_launches += 1
+    _build.launch("pt_scatter_lobes", dev, *args, bsdf, pdf, d, count)
     return ScatterRecord(bsdf=bsdf, pdf=pdf, delta=p.type == DIELECTRIC, dir=d)
 
 
@@ -191,7 +171,6 @@ def eval_lobes(p: MatParams, n, wo, wi, present=None):
     """M2: (bsdf (N, 3), pdf (N,)) of each lane's lobe for the pair (wo =
     ray direction into the surface, wi), as `eval_lobes_plain` gives them.
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    global eval_launches
     if _lanes(p.type, n, wo, wi) == "cpu":
         return eval_lobes_plain(p, n, wo, wi, present)
     dev, f32, count = p.type.device, torch.float32, p.type.shape[0]
@@ -199,10 +178,5 @@ def eval_lobes(p: MatParams, n, wo, wi, present=None):
             *_col(wo, "wo", count, 3, f32, dev), *_col(wi, "wi", count, 3, f32, dev))
     bsdf = torch.empty((count, 3), dtype=f32, device=dev)
     pdf = torch.empty((count,), dtype=f32, device=dev)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):  # the runtime launches on the current card
-        rc = lib.pt_eval_lobes(*args, bsdf.data_ptr(), pdf.data_ptr(), count,
-                               torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "eval_lobes launch")
-    eval_launches += 1
+    _build.launch("pt_eval_lobes", dev, *args, bsdf, pdf, count)
     return bsdf, pdf

@@ -13,13 +13,12 @@ As `ops/traverse_cuda.py` does for K1/K2, this module holds, for each:
   columns, one geom after another in scene order, as the JAX package sweeps
   them.  The kernel keeps every operation of it in the same order, so the
   two agree bit for bit.
-- a launch counter (`closest_launches`, `occlusion_launches`), bumped once
-  per kernel launch and nowhere else.
 
-The kernels and their wrappers sit apart from `ops/traverse.py`, as the
-walk kernels' do: one module per kernel source, which `integrator/graphs.py`
-reads the counters from; `ops/traverse.py` composes the queries and calls
-the wrappers only for a scene with a sphere or a cube (`analytic_geoms`).
+The wrappers launch through `ops/_build.py launch`, which counts S1's and
+S2's launches in its table.  The kernels and their wrappers sit apart from
+`ops/traverse.py`, as the walk kernels' do: one module per kernel source;
+`ops/traverse.py` composes the queries and calls the wrappers only for a
+scene with a sphere or a cube (`analytic_geoms`).
 """
 
 from __future__ import annotations
@@ -33,20 +32,10 @@ from pathtracer_tpu_torch.ops.intersect import (
     xform_point_cols,
     xform_vector_cols,
 )
-from pathtracer_tpu_torch.ops.traverse_cuda import _check_aligned, _check_cuda_args, _rays
 from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
 from pathtracer_tpu_torch.scene.parser import CUBE, SPHERE
 
 FLT_MAX = 3.402823466e38  # the t of a miss
-
-closest_launches = 0
-occlusion_launches = 0
-
-
-def reset_launch_counts() -> None:
-    global closest_launches, occlusion_launches
-    closest_launches = 0
-    occlusion_launches = 0
 
 
 def analytic_geoms(static: SceneStatic) -> list:
@@ -199,44 +188,30 @@ def _tables(flat: FlatScene) -> dict:
         want = (g,) if name == "geom_type" else (g, 4, 4)
         if tuple(t.shape) != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
-    _check_aligned(**{k: v for k, v in tables.items() if k != "geom_type"})
+    _build.check_aligned(**{k: v for k, v in tables.items() if k != "geom_type"})
     return tables
-
-
-def _device(o, what: str) -> str:
-    if o.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what} runs on cpu or cuda tensors, not {o.device}")
-    return o.device.type
 
 
 def geoms_closest(flat: FlatScene, static: SceneStatic, o, d):
     """S1: the closest analytic geom of N rays, (t, geom, point, normal) as
     `geoms_closest_plain` returns them.  CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
-    global closest_launches
-    _rays(o, d)
-    if _device(o, "geoms_closest") == "cpu":
+    _build.check_rays(o, d)
+    if _build.device_type(o, "geoms_closest") == "cpu":
         return geoms_closest_plain(flat, static, o, d)
     f32, i32 = torch.float32, torch.int32
     tables = _tables(flat)
-    _check_cuda_args(dict(**tables, o=o, d=d),
-                     dict(geom_type=i32, geom_inv=f32, geom_transform=f32, geom_invt=f32,
-                          o=f32, d=f32))
-    lib = _build.load_library()
+    _build.check_cuda_args(dict(**tables, o=o, d=d),
+                           dict(geom_type=i32, geom_inv=f32, geom_transform=f32,
+                                geom_invt=f32, o=f32, d=f32))
     n = o.shape[0]
     t = torch.empty((n,), dtype=f32, device=o.device)
     geom = torch.empty((n,), dtype=i32, device=o.device)
     point = torch.empty((n, 3), dtype=f32, device=o.device)
     normal = torch.empty((n, 3), dtype=f32, device=o.device)
-    with torch.cuda.device(o.device):  # the runtime launches on the current card
-        rc = lib.pt_sweep_closest(
-            flat.geom_type.data_ptr(), flat.geom_inv.data_ptr(), flat.geom_transform.data_ptr(),
-            flat.geom_invt.data_ptr(), flat.geom_type.shape[0], o.data_ptr(), d.data_ptr(),
-            t.data_ptr(), geom.data_ptr(), point.data_ptr(), normal.data_ptr(), n,
-            torch.cuda.current_stream(o.device).cuda_stream,
-        )
-    _build.check(rc, "sweep_closest launch")
-    closest_launches += 1
+    _build.launch("pt_sweep_closest", o.device, flat.geom_type, flat.geom_inv,
+                  flat.geom_transform, flat.geom_invt, flat.geom_type.shape[0], o, d, t, geom,
+                  point, normal, n)
     return t, geom, point, normal
 
 
@@ -244,26 +219,18 @@ def geoms_occluded(flat: FlatScene, static: SceneStatic, ori, dir, min_t):
     """S2: (N,) bool, the shadow rays an analytic geom blocks, as
     `geoms_occluded_plain` gives them.  CPU tensors take the plain version;
     CUDA tensors launch the kernel."""
-    global occlusion_launches
-    _rays(ori, dir)
+    _build.check_rays(ori, dir)
     if min_t.shape != ori.shape[:1]:
         raise ValueError(f"min_t must be (N,): {tuple(min_t.shape)} for {ori.shape[0]} rays")
-    if _device(ori, "geoms_occluded") == "cpu":
+    if _build.device_type(ori, "geoms_occluded") == "cpu":
         return geoms_occluded_plain(flat, static, ori, dir, min_t)
     f32 = torch.float32
     tables = _tables(flat)
-    _check_cuda_args(dict(**tables, ori=ori, dir=dir, min_t=min_t),
-                     dict(geom_type=torch.int32, geom_inv=f32, geom_transform=f32,
-                          geom_invt=f32, ori=f32, dir=f32, min_t=f32))
-    lib = _build.load_library()
-    n = ori.shape[0]
-    occ = torch.empty((n,), dtype=torch.bool, device=ori.device)
-    with torch.cuda.device(ori.device):  # the runtime launches on the current card
-        rc = lib.pt_sweep_occluded(
-            flat.geom_type.data_ptr(), flat.geom_inv.data_ptr(), flat.geom_transform.data_ptr(),
-            flat.geom_type.shape[0], ori.data_ptr(), dir.data_ptr(), min_t.data_ptr(),
-            occ.data_ptr(), n, torch.cuda.current_stream(ori.device).cuda_stream,
-        )
-    _build.check(rc, "sweep_occluded launch")
-    occlusion_launches += 1
+    _build.check_cuda_args(dict(**tables, ori=ori, dir=dir, min_t=min_t),
+                           dict(geom_type=torch.int32, geom_inv=f32, geom_transform=f32,
+                                geom_invt=f32, ori=f32, dir=f32, min_t=f32))
+    occ = torch.empty((ori.shape[0],), dtype=torch.bool, device=ori.device)
+    _build.launch("pt_sweep_occluded", ori.device, flat.geom_type, flat.geom_inv,
+                  flat.geom_transform, flat.geom_type.shape[0], ori, dir, min_t, occ,
+                  ori.shape[0])
     return occ

@@ -4,20 +4,23 @@ Port of `pathtracer_tpu/ops/traverse.py`.  Analytic geoms (spheres and cubes)
 go through the sweep kernels of `ops/sweep_cuda.py` (S1 closest hit, S2
 shadow test), whose plain versions sweep (N,) component columns exactly as
 the JAX package does; a scene with neither calls no sweep kernel.  The
-triangle part goes, by `packet_mode`, through the resident wide-BVH kernels
-of `ops/traverse_cuda.py` (K1 closest hit, K2 shadow any-hit) or the
-two-level streaming kernels of `ops/traverse_stream_cuda.py` (K3, K4; K5 for
-closest hits when its `STREAM_BLOCKMAJOR` is true), which take the same
-tables, rays and sentinels as the Pallas kernels they replace.
+triangle part takes the walk that `walk_route` chooses, the one place that
+reads the scene's kernel tables, the options and `STREAM_BLOCKMAJOR`: the
+resident wide-BVH kernels of `ops/traverse_cuda.py` (K1 closest hit, K2
+shadow any-hit), the two-level streaming kernels of
+`ops/traverse_stream_cuda.py` (K3, K4; K5 for closest hits when its
+`STREAM_BLOCKMAJOR` is true), which take the same tables, rays and
+sentinels as the Pallas kernels they replace, or one of two plain PyTorch
+walks.
 
-Two plain PyTorch walks stand beside the kernels, as the XLA loops of the
-JAX package do (`pathtracer_tpu/ops/traverse.py _bvh_closest`,
-`_brute_closest` and the two branches of `occlusion_test`): the threaded
-MTBVH walk (`use_kernels=False`, the route of `pallas_traversal=False`) and
-the brute-force sweep over every triangle (`use_bvh=False`, the reference's
-USE_BVH=0).  They are cross-checks, not fast paths, but for one case: a
-mesh that fits neither kernel table (`packet_mode` None) takes the MTBVH
-walk, as the JAX package's takes its XLA walk.
+The plain walks stand beside the kernels, as the XLA loops of the JAX
+package do (`pathtracer_tpu/ops/traverse.py _bvh_closest`, `_brute_closest`
+and the two branches of `occlusion_test`): the threaded MTBVH walk (the
+route of `pallas_traversal=False`) and the brute-force sweep over every
+triangle (`use_bvh=False`, the reference's USE_BVH=0).  They are
+cross-checks, not fast paths, but for one case: a mesh that fits neither
+kernel table (`SceneStatic.traversal` None) takes the MTBVH walk, as the
+JAX package's takes its XLA walk.
 
 `mark`, where `closest_hit` and `occlusion_test` are given one (the traced
 lap steps, integrator/graphs.py), is called with utils/profiling.py's stamp
@@ -51,6 +54,7 @@ from pathtracer_tpu_torch.ops.traverse_stream_cuda import (
 )
 from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
 from pathtracer_tpu_torch.utils import profiling
+from pathtracer_tpu_torch.utils.config import RenderOptions
 
 # Dead or unreachable lanes carry this t: node visits need
 # `t_enter <= t`, and -FLT_MAX is below every finite t_enter.
@@ -68,15 +72,40 @@ class Hit(NamedTuple):
     bitangent: torch.Tensor  # (N, 3)
 
 
-def packet_mode(static: SceneStatic) -> str | None:
-    """Which kernels walk the scene's triangles: "resident" (K1/K2), "stream"
-    (K3/K4) when the tables were built with the streaming split, or None for
-    a mesh that fits neither, whose triangles take the MTBVH walk.
-    `build_flat_scene` applied the JAX package's rule
-    (`pathtracer_tpu/ops/traverse.py:308`) when it built the tables and
-    recorded the answer, so the route follows the tables, not the budgets
-    at call time."""
-    return static.traversal
+class Walk(NamedTuple):
+    """The walk that serves a scene's triangles (`walk_route`)."""
+    kind: str | None  # None (no triangle), "resident" (K1/K2), "stream" (K3/K4),
+    # "blockmajor" (K5/K4), "mtbvh" (the MTBVH walk) or "sweep" (every triangle)
+    off_kernels: bool  # pallas_traversal off, or no kernel table fits the mesh:
+    # the JAX package's staged path, which ignores ray regeneration
+
+    @property
+    def plain(self) -> bool:
+        """A plain PyTorch walk, whose `torch.nonzero` a CUDA graph cannot
+        hold."""
+        return self.kind in ("mtbvh", "sweep")
+
+
+def walk_route(static: SceneStatic, opts: RenderOptions | None = None) -> Walk:
+    """The walk of the scene's triangles under `opts` (None: the defaults,
+    the kernels of the scene's own tables).  `build_flat_scene` applied the
+    JAX package's rule (`pathtracer_tpu/ops/traverse.py:308`) when it built
+    the tables and recorded which kernels they serve (`static.traversal`),
+    so the route follows the tables, not the budgets at call time.
+    `use_bvh=False` sweeps the triangles; `pallas_traversal=False`, or
+    tables no kernel serves, walk the MTBVH; on the streaming tables
+    `STREAM_BLOCKMAJOR` takes K5 for the closest hits."""
+    opts = opts or RenderOptions()
+    if static.num_tris == 0:
+        return Walk(None, False)
+    off = not opts.pallas_traversal or static.traversal is None
+    if not opts.use_bvh:
+        return Walk("sweep", off)
+    if off:
+        return Walk("mtbvh", True)
+    if static.traversal == "stream":
+        return Walk("blockmajor" if ts.STREAM_BLOCKMAJOR else "stream", False)
+    return Walk("resident", False)
 
 
 def _stream_args(static: SceneStatic) -> dict:
@@ -296,14 +325,16 @@ def mtbvh_occluded(flat: FlatScene, static: SceneStatic, ori, dir, min_t, enable
     return occ
 
 
-def _kernel_closest(flat: FlatScene, static: SceneStatic, o, d, t_min, alive, mark=None):
-    """The triangles' closest hit through K1, K3 or K5: dead lanes and those
-    the root box culls carry DEAD_T into the kernel."""
+def _kernel_closest(flat: FlatScene, static: SceneStatic, kind: str, o, d, t_min, alive,
+                    mark=None):
+    """The triangles' closest hit through K1, K3 or K5 (`Walk.kind`
+    "resident", "stream" or "blockmajor"): dead lanes and those the root
+    box culls carry DEAD_T into the kernel."""
     t_init = t_min if alive is None else torch.where(alive, t_min, DEAD_T)
     t_init = _root_box_cull(flat, o, d, t_init)
     if mark is not None:
         mark(profiling.WALK_CLOSEST)
-    if packet_mode(static) == "stream" and ts.STREAM_BLOCKMAJOR:
+    if kind == "blockmajor":
         hit = closest_hit_blockmajor(
             flat.str_roots, flat.str_subf, flat.str_subi, flat.str_subp,
             flat.str_subt, flat.str_base, o, d, t_init, sub_nodes=static.stream_sub_nodes,
@@ -311,7 +342,7 @@ def _kernel_closest(flat: FlatScene, static: SceneStatic, o, d, t_min, alive, ma
             subt12=flat.str_subt12, blocks=flat.str_blocks, roots8=flat.str_roots8,
             groups=flat.str_groups,
         )
-    elif packet_mode(static) == "stream":
+    elif kind == "stream":
         hit = closest_hit_stream(
             flat.str_topf, flat.str_topl, flat.str_topp, flat.str_subf, flat.str_subi,
             flat.str_subp, flat.str_subt, flat.str_base, o, d, t_init,
@@ -328,12 +359,11 @@ def _kernel_closest(flat: FlatScene, static: SceneStatic, o, d, t_min, alive, ma
 
 
 def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None,
-                use_kernels: bool = True, use_bvh: bool = True, mark=None) -> Hit:
+                route: Walk | None = None, mark=None) -> Hit:
     """Full-scene closest hit: analytic geoms through S1, then triangles
-    through the kernels, or with `use_kernels=False` (or no kernel table,
-    `packet_mode` None) the MTBVH walk, or with `use_bvh=False` the
-    brute-force sweep; lanes not `alive` test no triangle.  `mark` stamps
-    the kernel's launch (the module's docstring)."""
+    through the walk `route` (default: `walk_route(static)`); lanes not
+    `alive` test no triangle.  `mark` stamps the kernel's launch (the
+    module's docstring)."""
     N = o.shape[0]
     dev = o.device
     # without a sphere or cube, no launch: the plain version's empty sweep, all misses
@@ -346,11 +376,12 @@ def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None,
     if static.num_tris == 0:
         return Hit(t_min, geom, tri, point, normal, uv, tangent, bitangent)
 
-    if not (use_bvh and use_kernels and packet_mode(static)):
-        walk = sweep_closest if not use_bvh else mtbvh_closest
+    route = route or walk_route(static)
+    if route.plain:
+        walk = sweep_closest if route.kind == "sweep" else mtbvh_closest
         t_tri, tri, u, v = walk(flat, static, o, d, t_min, live=alive)
     else:
-        t_tri, tri, u, v = _kernel_closest(flat, static, o, d, t_min, alive, mark)
+        t_tri, tri, u, v = _kernel_closest(flat, static, route.kind, o, d, t_min, alive, mark)
     t_min = torch.where(tri >= 0, t_tri, t_min)
 
     # barycentric hit attributes
@@ -372,13 +403,11 @@ def closest_hit(flat: FlatScene, static: SceneStatic, o, d, alive=None,
 
 
 def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=None,
-                   shadow_sort: bool = False, use_kernels: bool = True, use_bvh: bool = True,
-                   mark=None):
+                   shadow_sort: bool = False, route: Walk | None = None, mark=None):
     """Is the segment ori -> des blocked?  Analytic geoms (S2) with the window
-    (t < minT-1e-5 && |t-minT| > 1e-2), then triangles through K2 (K4 for a
-    streamed mesh), or with `use_kernels=False` (or no kernel table,
-    `packet_mode` None) the MTBVH walk, or with
-    `use_bvh=False` the brute-force sweep, with (t < minT-1e-5 &&
+    (t < minT-1e-5 && |t-minT| > 1e-2), then triangles through the walk
+    `route` (default: `walk_route(static)`; the kernels K2, or K4 for a
+    streamed mesh, the MTBVH walk or the sweep), with (t < minT-1e-5 &&
     |t-minT| > 1e-4).
 
     `shadow_sort` hands the kernel its rays sorted by `octant_cell_key`,
@@ -397,8 +426,9 @@ def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=
 
     if static.num_tris == 0:
         return occluded
-    if not (use_bvh and use_kernels and packet_mode(static)):
-        walk = sweep_occluded if not use_bvh else mtbvh_occluded
+    route = route or walk_route(static)
+    if route.plain:
+        walk = sweep_occluded if route.kind == "sweep" else mtbvh_occluded
         on = ~occluded if enabled is None else enabled & ~occluded
         return occluded | walk(flat, static, ori, dir, min_t, on)
     min_t_eff = min_t if enabled is None else torch.where(enabled, min_t, DEAD_T)
@@ -411,7 +441,7 @@ def occlusion_test(flat: FlatScene, static: SceneStatic, ori, dir, des, enabled=
             a.index_select(0, perm) for a in (ori, dir, min_t_eff, occluded))
     if mark is not None:
         mark(profiling.WALK_SHADOW)
-    if packet_mode(static) == "stream":
+    if route.kind in ("stream", "blockmajor"):
         occluded = occlusion_stream(
             flat.str_topf, flat.str_topl, flat.str_subf, flat.str_subi, flat.str_subt,
             flat.str_base, ori, dir, min_t_eff, occluded, **_stream_args(static),

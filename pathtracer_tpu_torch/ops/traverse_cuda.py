@@ -17,8 +17,11 @@ for each:
   cuts before it pushes its inner children; both cap the box test at min_t,
   which a ray never changes, so both reach the same boxes and agree on
   every lane.
-- a launch counter (`closest_launches`, `occlusion_launches`), bumped once
-  per kernel launch and nowhere else.
+
+The wrappers launch through `ops/_build.py launch`, which counts K1's and
+K2's launches in its table.  `slab` and `moller_trumbore` are the plain
+versions' box and triangle tests, which the streaming walks and the probes
+share.
 
 Semantics (as the Pallas kernels): K1 starts from t = t_init, tri = -1,
 u = v = 0 and takes a triangle only if strictly closer; lanes with
@@ -35,15 +38,6 @@ from pathtracer_tpu_torch.ops import _build
 
 STACK = 64  # per-ray traversal stack (csrc/walk_core.cuh WALK_STACK)
 
-closest_launches = 0
-occlusion_launches = 0
-
-
-def reset_launch_counts() -> None:
-    global closest_launches, occlusion_launches
-    closest_launches = 0
-    occlusion_launches = 0
-
 
 def _check_depth(wide_depth: int) -> None:
     # an 8-ary walk keeps at most 7 pending siblings per level plus the node
@@ -54,34 +48,11 @@ def _check_depth(wide_depth: int) -> None:
         )
 
 
-def _check_cuda_args(tensors: dict, dtypes: dict) -> None:
-    dev = next(iter(tensors.values())).device
-    for name, t in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != dtypes[name]:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtypes[name]}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _check_aligned(**tensors) -> None:
-    """The kernels read these tables in 16-byte loads."""
-    for name, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for the kernel's vector loads")
-
-
-def _rays(o, d):
-    if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
-        raise ValueError(f"rays must be (N, 3): o {tuple(o.shape)}, d {tuple(d.shape)}")
-
-
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 
 
-def _slab(box, ox, oy, oz, idx, idy, idz):
+def slab(box, ox, oy, oz, idx, idy, idz):
     """(hit, t_enter) of (A, 6) boxes; NaN-propagating like the kernel's
     nan_min/nan_max (an empty NaN slot, or 0 * inf, rejects)."""
     lo_x, hi_x = (box[:, 0] - ox) * idx, (box[:, 3] - ox) * idx
@@ -98,7 +69,7 @@ def _slab(box, ox, oy, oz, idx, idy, idz):
     return (te <= tx) & (tx > 0.0), te
 
 
-def _moller_trumbore(r, ox, oy, oz, dx, dy, dz):
+def moller_trumbore(r, ox, oy, oz, dx, dy, dz):
     """Möller-Trumbore on (..., 12) edge-form rows; the kernel's operation
     order.  Ray components broadcast against r[..., k]."""
     e1x, e1y, e1z = r[..., 3], r[..., 4], r[..., 5]
@@ -155,7 +126,7 @@ class _Walk:
     def child(self, node, slot):
         """Slab test of child `slot` of each popped node, with its link and
         leaf range: (hit, t_enter, link, start, end)."""
-        hit, te = _slab(self.boxes[node, slot], *self.ray_inv)
+        hit, te = slab(self.boxes[node, slot], *self.ray_inv)
         return hit, te, self.links[node, 0, slot], self.links[node, 1, slot], self.links[node, 2, slot]
 
     def push(self, act, sp, link, take):
@@ -204,7 +175,7 @@ def closest_hit_wbvh_plain(wf, wi, wp, tri12, o, d, t_init, counts: dict | None 
             if li.numel() == 0:
                 continue
             tid, rows, valid = w.leaf_rows(li, start, end)
-            th, tt, tu, tv = _moller_trumbore(rows, *w.ray_cols(li))
+            th, tt, tu, tv = moller_trumbore(rows, *w.ray_cols(li))
             th = th & valid
             lt, ltri, lu, lv = bt[li], btri[li], bu[li], bv[li]
             for k in range(w.leaf_k):  # in cut order, strictly closer wins
@@ -236,7 +207,7 @@ def occlusion_wbvh_plain(wf, wi, tri12, o, d, min_t, occluded0, counts: dict | N
             if li.numel() == 0:
                 continue
             tid, rows, valid = w.leaf_rows(li, start, end)
-            th, tt, _, _ = _moller_trumbore(rows, *w.ray_cols(li))
+            th, tt, _, _ = moller_trumbore(rows, *w.ray_cols(li))
             hits = (
                 th & valid & (tf[li, None] > tt)
                 & (torch.abs(tt - mt[li, None]) > 1e-4)
@@ -257,34 +228,23 @@ def closest_hit_wbvh(wf, wi, wp, tri12, o, d, t_init, *, wide_depth: int):
     Returns (t, tri, u, v); tri is -1 where nothing beat t_init.  CPU
     tensors take the plain version; CUDA tensors launch the kernel.
     """
-    global closest_launches
     _check_depth(wide_depth)
-    _rays(o, d)
-    if o.device.type == "cpu":
+    _build.check_rays(o, d)
+    if _build.device_type(o, "closest_hit_wbvh") == "cpu":
         return closest_hit_wbvh_plain(wf, wi, wp, tri12, o, d, t_init)
-    if o.device.type != "cuda":
-        raise ValueError(f"closest_hit_wbvh runs on cpu or cuda tensors, not {o.device}")
     f32, i32 = torch.float32, torch.int32
-    _check_cuda_args(
+    _build.check_cuda_args(
         dict(wf=wf, wi=wi, wp=wp, tri12=tri12, o=o, d=d, t_init=t_init),
         dict(wf=f32, wi=i32, wp=i32, tri12=f32, o=f32, d=f32, t_init=f32),
     )
-    _check_aligned(wf=wf, wi=wi, tri12=tri12)
-    lib = _build.load_library()
+    _build.check_aligned(wf=wf, wi=wi, tri12=tri12)
     n = o.shape[0]
     t = torch.empty((n,), dtype=f32, device=o.device)
     tri = torch.empty((n,), dtype=i32, device=o.device)
     u = torch.empty((n,), dtype=f32, device=o.device)
     v = torch.empty((n,), dtype=f32, device=o.device)
-    with torch.cuda.device(o.device):  # the runtime launches on the current card
-        rc = lib.pt_closest_hit_wbvh(
-            wf.data_ptr(), wi.data_ptr(), wp.data_ptr(), tri12.data_ptr(),
-            o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
-            t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n,
-            torch.cuda.current_stream(o.device).cuda_stream,
-        )
-    _build.check(rc, "closest_hit_wbvh launch")
-    closest_launches += 1
+    _build.launch("pt_closest_hit_wbvh", o.device, wf, wi, wp, tri12, o, d, t_init, t, tri, u, v,
+                  n)
     return t, tri, u, v
 
 
@@ -292,29 +252,18 @@ def occlusion_wbvh(wf, wi, tri12, o, d, min_t, occluded0, *, wide_depth: int):
     """K2: shadow any-hit against the resident wide BVH; (N,) bool.  CPU
     tensors take the plain version; CUDA tensors launch the kernel, which
     reads wf, wi and tri12 in 16-byte loads."""
-    global occlusion_launches
     _check_depth(wide_depth)
-    _rays(o, d)
-    if o.device.type == "cpu":
+    _build.check_rays(o, d)
+    if _build.device_type(o, "occlusion_wbvh") == "cpu":
         return occlusion_wbvh_plain(wf, wi, tri12, o, d, min_t, occluded0)
-    if o.device.type != "cuda":
-        raise ValueError(f"occlusion_wbvh runs on cpu or cuda tensors, not {o.device}")
     f32 = torch.float32
-    _check_cuda_args(
+    _build.check_cuda_args(
         dict(wf=wf, wi=wi, tri12=tri12, o=o, d=d, min_t=min_t, occluded0=occluded0),
         dict(wf=f32, wi=torch.int32, tri12=f32, o=f32, d=f32, min_t=f32,
              occluded0=torch.bool),
     )
-    _check_aligned(wf=wf, wi=wi, tri12=tri12)
-    lib = _build.load_library()
-    n = o.shape[0]
-    occ = torch.empty((n,), dtype=torch.bool, device=o.device)
-    with torch.cuda.device(o.device):  # the runtime launches on the current card
-        rc = lib.pt_occlusion_wbvh(
-            wf.data_ptr(), wi.data_ptr(), tri12.data_ptr(), o.data_ptr(), d.data_ptr(),
-            min_t.data_ptr(), occluded0.data_ptr(), occ.data_ptr(), n,
-            torch.cuda.current_stream(o.device).cuda_stream,
-        )
-    _build.check(rc, "occlusion_wbvh launch")
-    occlusion_launches += 1
+    _build.check_aligned(wf=wf, wi=wi, tri12=tri12)
+    occ = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
+    _build.launch("pt_occlusion_wbvh", o.device, wf, wi, tri12, o, d, min_t, occluded0, occ,
+                  o.shape[0])
     return occ

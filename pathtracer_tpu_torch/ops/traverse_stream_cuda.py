@@ -14,8 +14,9 @@ Port of the streaming Pallas kernels of `pathtracer_tpu/ops/traverse_pallas.py`:
   two-level tables, with a top stack and a block stack per ray; K3's and
   K5's in the kernel's per-ray visit order, so kernel and plain version
   agree exactly.
-- a launch counter (`closest_launches`, `occlusion_launches`,
-  `blockmajor_launches`), bumped once per kernel launch and nowhere else.
+
+The wrappers launch through `ops/_build.py launch`, which counts K3's, K4's
+and K5's launches in its table.
 
 The walk is K1/K2's (`ops/traverse_cuda.py`), nested: the top tree is the
 wide tree's upper part, a child link -(2+s) enters block s, which is walked
@@ -47,9 +48,9 @@ blocks skips their root tests (`str_roots8`, `str_groups`:
 scene/flatscene.py stream_cull_tables, which also says why that skips no
 block the root test passes).  Its plain version tests every root, or with
 `groups=` the group boxes first; either way the result is the same.
-`closest_hit` in `ops/traverse.py` takes it instead of K3 when
-`STREAM_BLOCKMAJOR` is true (read at call time, as the JAX package reads
-its flag of that name).
+The closest hits of a streamed mesh take it instead of K3 when
+`STREAM_BLOCKMAJOR` is true (read by `ops/traverse.py walk_route`, as the
+JAX package reads its flag of that name).
 """
 
 from __future__ import annotations
@@ -58,30 +59,13 @@ import torch
 
 from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.scene.flatscene import STREAM_CULL_GROUP
-from pathtracer_tpu_torch.ops.traverse_cuda import (
-    _check_aligned,
-    _check_cuda_args,
-    _moller_trumbore,
-    _rays,
-    _slab,
-)
+from pathtracer_tpu_torch.ops.traverse_cuda import moller_trumbore, slab
 
 # the one stack of K3's, K4's and K5's walks (csrc/walk_core.cuh WALK_STACK)
 STACK = 64
 # closest hits of a streamed mesh go through K5 instead of K3 (the
 # counterpart of pathtracer_tpu/ops/traverse_pallas.py STREAM_BLOCKMAJOR)
 STREAM_BLOCKMAJOR = False
-
-closest_launches = 0
-occlusion_launches = 0
-blockmajor_launches = 0
-
-
-def reset_launch_counts() -> None:
-    global closest_launches, occlusion_launches, blockmajor_launches
-    closest_launches = 0
-    occlusion_launches = 0
-    blockmajor_launches = 0
 
 
 def _check_block_depth(sub_depth: int) -> None:
@@ -230,7 +214,7 @@ class _StreamWalk:
         loc = start[:, None] + torch.arange(self.leaf_k, device=start.device)
         valid = loc < end[:, None]
         rows = self.sub_tri[s[:, None] * self.Tmax + loc.clamp(max=self.Tmax - 1)]
-        hit, t, u, v = _moller_trumbore(rows, *self.ray_cols(lanes))
+        hit, t, u, v = moller_trumbore(rows, *self.ray_cols(lanes))
         if self.counts is not None:
             self.counts["tri"] += int(valid.sum())
         return hit & valid, t, u, v, self.base[s][:, None] + loc
@@ -241,7 +225,7 @@ class _StreamWalk:
         marks children that go on the lane's stack; a taken child that is
         not pushed is a leaf cut, tested now."""
         if top:
-            hit, te = _slab(self.top_boxes[node, slot], *self.ray_inv(lanes))
+            hit, te = slab(self.top_boxes[node, slot], *self.ray_inv(lanes))
             link = self.top_links[node, slot]
             s = (-(link + 2)).clamp(min=0).long()
             wrap = (link < -1) & self.wrapped[s]
@@ -250,7 +234,7 @@ class _StreamWalk:
             start = torch.zeros_like(s)
             end = self.sub_links[s * self.S, 2, 0].long()
         else:
-            hit, te = _slab(self.sub_boxes[node, slot], *self.ray_inv(lanes))
+            hit, te = slab(self.sub_boxes[node, slot], *self.ray_inv(lanes))
             link = self.sub_links[node, 0, slot]
             push = link >= 0
             leaf = ~push
@@ -344,7 +328,7 @@ def closest_hit_blockmajor_plain(roots, subf, subi, subp, subt, base, o, d, t_in
     live = torch.nonzero(t_init >= 0.0).squeeze(1)
 
     def passing(lanes, box, what):
-        hit, te = _slab(box.expand(lanes.numel(), 6), *w.ray_inv(lanes))
+        hit, te = slab(box.expand(lanes.numel(), 6), *w.ray_inv(lanes))
         if counts is not None:
             counts["box"] += lanes.numel()
             if what in counts:
@@ -418,41 +402,30 @@ def closest_hit_stream(topf, topl, topp, subf, subi, subp, subt, base, o, d, t_i
     tensors take the plain version; CUDA tensors launch the kernel, which
     needs `subt12` and `blocks` (`_check_walk_tables`).
     """
-    global closest_launches
     _check_walk_depth(top_depth, sub_depth)
     _check_tables(base, sub_nodes, sub_tris, topf=topf, topl=topl, topp=topp, subf=subf,
                   subi=subi, subp=subp, subt=subt)
-    _rays(o, d)
-    if o.device.type == "cpu":
+    _build.check_rays(o, d)
+    if _build.device_type(o, "closest_hit_stream") == "cpu":
         return closest_hit_stream_plain(topf, topl, topp, subf, subi, subp, subt, base, o, d,
                                         t_init, sub_nodes=sub_nodes, sub_tris=sub_tris)
-    if o.device.type != "cuda":
-        raise ValueError(f"closest_hit_stream runs on cpu or cuda tensors, not {o.device}")
     _check_walk_tables("closest_hit_stream", base, sub_nodes, sub_tris, subt12, blocks)
     f32, i32 = torch.float32, torch.int32
-    _check_cuda_args(
+    _build.check_cuda_args(
         dict(topf=topf, topl=topl, topp=topp, subf=subf, subi=subi, subp=subp, subt12=subt12,
              blocks=blocks, o=o, d=d, t_init=t_init),
         dict(topf=f32, topl=i32, topp=i32, subf=f32, subi=i32, subp=i32, subt12=f32,
              blocks=i32, o=f32, d=f32, t_init=f32),
     )
-    _check_aligned(topf=topf, topl=topl, subf=subf, subi=subi, subt12=subt12, blocks=blocks)
-    lib = _build.load_library()
+    _build.check_aligned(topf=topf, topl=topl, subf=subf, subi=subi, subt12=subt12,
+                         blocks=blocks)
     n = o.shape[0]
     t = torch.empty((n,), dtype=f32, device=o.device)
     tri = torch.empty((n,), dtype=i32, device=o.device)
     u = torch.empty((n,), dtype=f32, device=o.device)
     v = torch.empty((n,), dtype=f32, device=o.device)
-    with torch.cuda.device(o.device):  # the runtime launches on the current card
-        rc = lib.pt_closest_hit_stream(
-            topf.data_ptr(), topl.data_ptr(), topp.data_ptr(), subf.data_ptr(),
-            subi.data_ptr(), subp.data_ptr(), subt12.data_ptr(), blocks.data_ptr(),
-            o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
-            t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n, sub_nodes, sub_tris,
-            torch.cuda.current_stream(o.device).cuda_stream,
-        )
-    _build.check(rc, "closest_hit_stream launch")
-    closest_launches += 1
+    _build.launch("pt_closest_hit_stream", o.device, topf, topl, topp, subf, subi, subp, subt12,
+                  blocks, o, d, t_init, t, tri, u, v, n, sub_nodes, sub_tris)
     return t, tri, u, v
 
 
@@ -468,42 +441,32 @@ def closest_hit_blockmajor(roots, subf, subi, subp, subt, base, o, d, t_init, *,
     derived tables `subt12` and `blocks` and its own cull tables `roots8`
     and `groups` (FlatScene.str_subt12, str_blocks, str_roots8, str_groups).
     """
-    global blockmajor_launches
     _check_block_depth(sub_depth)
     _check_tables(base, sub_nodes, sub_tris, roots=roots, subf=subf, subi=subi, subp=subp,
                   subt=subt)
-    _rays(o, d)
-    if o.device.type == "cpu":
+    _build.check_rays(o, d)
+    if _build.device_type(o, "closest_hit_blockmajor") == "cpu":
         return closest_hit_blockmajor_plain(roots, subf, subi, subp, subt, base, o, d,
                                             t_init, sub_nodes=sub_nodes, sub_tris=sub_tris)
-    if o.device.type != "cuda":
-        raise ValueError(f"closest_hit_blockmajor runs on cpu or cuda tensors, not {o.device}")
     _check_walk_tables("closest_hit_blockmajor", base, sub_nodes, sub_tris, subt12, blocks)
     _check_cull_tables(base, sub_nodes, sub_tris, roots8, groups)
     f32, i32 = torch.float32, torch.int32
-    _check_cuda_args(
+    _build.check_cuda_args(
         dict(groups=groups, roots8=roots8, subf=subf, subi=subi, subp=subp, subt12=subt12,
              blocks=blocks, o=o, d=d, t_init=t_init),
         dict(groups=f32, roots8=f32, subf=f32, subi=i32, subp=i32, subt12=f32, blocks=i32,
              o=f32, d=f32, t_init=f32),
     )
-    _check_aligned(groups=groups, roots8=roots8, subf=subf, subi=subi, subt12=subt12,
-                   blocks=blocks)
-    lib = _build.load_library()
-    n, n_sub = o.shape[0], base.numel()
+    _build.check_aligned(groups=groups, roots8=roots8, subf=subf, subi=subi, subt12=subt12,
+                         blocks=blocks)
+    n = o.shape[0]
     t = torch.empty((n,), dtype=f32, device=o.device)
     tri = torch.empty((n,), dtype=i32, device=o.device)
     u = torch.empty((n,), dtype=f32, device=o.device)
     v = torch.empty((n,), dtype=f32, device=o.device)
-    with torch.cuda.device(o.device):  # the runtime launches on the current card
-        rc = lib.pt_closest_hit_blockmajor(
-            groups.data_ptr(), roots8.data_ptr(), subf.data_ptr(), subi.data_ptr(),
-            subp.data_ptr(), subt12.data_ptr(), blocks.data_ptr(), o.data_ptr(), d.data_ptr(),
-            t_init.data_ptr(), t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), n, n_sub,
-            STREAM_CULL_GROUP, sub_nodes, sub_tris, torch.cuda.current_stream(o.device).cuda_stream,
-        )
-    _build.check(rc, "closest_hit_blockmajor launch")
-    blockmajor_launches += 1
+    _build.launch("pt_closest_hit_blockmajor", o.device, groups, roots8, subf, subi, subp, subt12,
+                  blocks, o, d, t_init, t, tri, u, v, n, base.numel(), STREAM_CULL_GROUP,
+                  sub_nodes, sub_tris)
     return t, tri, u, v
 
 
@@ -515,35 +478,24 @@ def occlusion_stream(topf, topl, subf, subi, subt, base, o, d, min_t, occluded0,
     CPU tensors take the plain version; CUDA tensors launch the kernel, which
     needs `subt12` and `blocks` (`_check_walk_tables`).
     """
-    global occlusion_launches
     _check_walk_depth(top_depth, sub_depth)
     _check_tables(base, sub_nodes, sub_tris, topf=topf, topl=topl, subf=subf, subi=subi,
                   subt=subt)
-    _rays(o, d)
-    if o.device.type == "cpu":
+    _build.check_rays(o, d)
+    if _build.device_type(o, "occlusion_stream") == "cpu":
         return occlusion_stream_plain(topf, topl, subf, subi, subt, base, o, d, min_t,
                                       occluded0, sub_nodes=sub_nodes, sub_tris=sub_tris)
-    if o.device.type != "cuda":
-        raise ValueError(f"occlusion_stream runs on cpu or cuda tensors, not {o.device}")
     _check_walk_tables("occlusion_stream", base, sub_nodes, sub_tris, subt12, blocks)
     f32, i32 = torch.float32, torch.int32
-    _check_cuda_args(
+    _build.check_cuda_args(
         dict(topf=topf, topl=topl, subf=subf, subi=subi, subt12=subt12, blocks=blocks, o=o, d=d,
              min_t=min_t, occluded0=occluded0),
         dict(topf=f32, topl=i32, subf=f32, subi=i32, subt12=f32, blocks=i32, o=f32, d=f32,
              min_t=f32, occluded0=torch.bool),
     )
-    _check_aligned(topf=topf, topl=topl, subf=subf, subi=subi, subt12=subt12, blocks=blocks)
-    lib = _build.load_library()
-    n = o.shape[0]
-    occ = torch.empty((n,), dtype=torch.bool, device=o.device)
-    with torch.cuda.device(o.device):  # the runtime launches on the current card
-        rc = lib.pt_occlusion_stream(
-            topf.data_ptr(), topl.data_ptr(), subf.data_ptr(), subi.data_ptr(), subt12.data_ptr(),
-            blocks.data_ptr(), o.data_ptr(), d.data_ptr(), min_t.data_ptr(), occluded0.data_ptr(),
-            occ.data_ptr(), n, sub_nodes, sub_tris,
-            torch.cuda.current_stream(o.device).cuda_stream,
-        )
-    _build.check(rc, "occlusion_stream launch")
-    occlusion_launches += 1
+    _build.check_aligned(topf=topf, topl=topl, subf=subf, subi=subi, subt12=subt12,
+                         blocks=blocks)
+    occ = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
+    _build.launch("pt_occlusion_stream", o.device, topf, topl, subf, subi, subt12, blocks, o, d,
+                  min_t, occluded0, occ, o.shape[0], sub_nodes, sub_tris)
     return occ

@@ -25,10 +25,9 @@ next lap before it reads any shard's live count, so distinct cards run
 their laps at the same time.  The ray count is summed on the first device
 (the JAX package's psum), the depth is the most laps a shard ran (its
 pmax), and each shard adds its contributions on its own device.  Where the
-JAX package runs staged (a triangle scene with `pallas_traversal=False` or
-`use_bvh=False`: the MTBVH walk and the sweep read the host inside a lap),
-and on the CPU, the shards' steps run eagerly (`graphs.graph_route`), in the
-same lockstep.
+JAX package runs staged (a triangle scene whose triangles take the MTBVH
+walk or the sweep, which read the host inside a lap), and on the CPU, the
+shards' steps run eagerly (`graphs.graph_route`), in the same lockstep.
 """
 
 from __future__ import annotations

@@ -708,7 +708,7 @@ def build_flat_scene(
             top_depth, sub_depth = stream_depths(str_topl, str_subi, stream_sub_nodes)
         else:
             # neither table fits: the triangles take the MTBVH walk, as the
-            # JAX package's take its XLA walk (`packet_mode` None there too)
+            # JAX package's take its XLA walk
             traversal = None
     stream = dict(str_topf=str_topf, str_topl=str_topl, str_topp=str_topp, str_subf=str_subf,
                   str_subi=str_subi, str_subp=str_subp, str_subt=str_subt, str_base=str_base)

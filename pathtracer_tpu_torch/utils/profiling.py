@@ -263,16 +263,9 @@ def stamp(table, col: int, row: int, lap=None) -> None:
         r = row + (int(lap) if lap is not None else 0)
         table[min(max(r, 0), nrows - 1), col] = time.perf_counter_ns()
         return
-    import torch
-
     from pathtracer_tpu_torch.ops import _build
 
-    lib = _build.load_stamps()
-    with torch.cuda.device(table.device):
-        rc = lib.pt_stamp(table.data_ptr(), None if lap is None else lap.data_ptr(), int(row),
-                          int(col), STAMP_COLS, nrows,
-                          torch.cuda.current_stream(table.device).cuda_stream)
-    _build.check(rc, "stamp launch")
+    _build.launch("pt_stamp", table.device, table, lap, int(row), int(col), STAMP_COLS, nrows)
 
 
 def anchor_stamps(table, n: int = ANCHORS) -> list:
@@ -292,16 +285,12 @@ def anchor_stamps(table, n: int = ANCHORS) -> list:
 
     from pathtracer_tpu_torch.ops import _build
 
-    lib = _build.load_stamps()
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device)
-        for col in range(n):
-            t0 = time.perf_counter_ns()
-            rc = lib.pt_stamp(table.data_ptr(), None, 0, col, STAMP_COLS, table.shape[0],
-                              stream.cuda_stream)
-            stream.synchronize()
-            out.append((t0, time.perf_counter_ns()))
-            _build.check(rc, "stamp launch")
+    stream = torch.cuda.current_stream(table.device)
+    for col in range(n):
+        t0 = time.perf_counter_ns()
+        _build.launch("pt_stamp", table.device, table, None, 0, col, STAMP_COLS, table.shape[0])
+        stream.synchronize()
+        out.append((t0, time.perf_counter_ns()))
     return out
 
 
@@ -313,12 +302,9 @@ def globaltimer_resolution(device, n: int = 4096) -> dict:
 
     from pathtracer_tpu_torch.ops import _build
 
-    lib = _build.load_stamps()
     out = torch.zeros((n,), dtype=torch.int64, device=device)
-    with torch.cuda.device(out.device):
-        rc = lib.pt_timer_probe(out.data_ptr(), n, torch.cuda.current_stream(out.device).cuda_stream)
-        _build.check(rc, "timer probe launch")
-        torch.cuda.synchronize(out.device)
+    _build.launch("pt_timer_probe", out.device, out, n, what="timer probe")
+    torch.cuda.synchronize(out.device)
     steps = np.diff(out.cpu().numpy())
     moved = steps[steps > 0]
     return {"resolution_ns": int(moved.min()) if moved.size else None,

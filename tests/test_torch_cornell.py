@@ -31,9 +31,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from pathtracer_tpu_torch.integrator import graphs
+from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops import traverse as ttv
-from pathtracer_tpu_torch.ops import traverse_cuda as tc
-from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
 from pathtracer_tpu_torch.scene.parser import (
     CUBE,
     DIELECTRIC,
@@ -102,11 +102,9 @@ def test_cornell_matches_jax(mode, references, monkeypatch):
 
     for name in KERNELS:
         monkeypatch.setattr(ttv, name, refuse)
-    tc.reset_launch_counts()
-    ts.reset_launch_counts()
+    monkeypatch.setattr(_build, "launches", dict.fromkeys(_build.LAUNCHES, 0))
     port = render_and_compare(SCENE, mode, ref=references[mode.name])
     assert port.static.num_tris == 0
     assert set(port.static.material_types) == {
         LAMBERTIAN, DIELECTRIC, MICROFACET, METALLIC_WORKFLOW, LIGHT}
-    assert (tc.closest_launches, tc.occlusion_launches) == (0, 0)
-    assert (ts.closest_launches, ts.occlusion_launches, ts.blockmajor_launches) == (0, 0, 0)
+    assert graphs.launch_counts() == (0,) * 5

@@ -4,16 +4,20 @@ The JAX package routes a mesh that fits neither its resident budget nor
 its streaming split to the XLA walk: `packet_mode` is None
 (`pathtracer_tpu/ops/traverse.py:308`) and its Renderer turns
 `pallas_traversal` off (`pathtracer_tpu/integrator/render.py:122`).  The
-port records that route when it builds the tables and walks the MTBVH
-tables.  Such meshes have millions of triangles, so both packages' budgets
+port records that the tables serve no kernel when it builds them
+(`SceneStatic.traversal` None), and `walk_route` sends the triangles to the
+MTBVH walk.  Such meshes have millions of triangles, so both packages' budgets
 are patched to 0 here (`RESIDENT_SMEM_BUDGET` and `STREAM_SMEM_BUDGET`, read
 at call time) on the 576-triangle glass torus box of test_torch_render.py:
 
-- the tables equal the JAX package's, with no split, and both packages'
-  `packet_mode` is None; `cli info` prints no traversal;
+- the tables equal the JAX package's, with no split; the JAX package's
+  `packet_mode` is None and the port's route the MTBVH walk, off the
+  kernels; `cli info` prints no traversal;
 - `closest_hit` and `occlusion_test` take the MTBVH walk even when asked
   for the kernels, with the walk's results; no kernel wrapper is called;
-- the Renderer turns `pallas_traversal` off, and its 64x64 MIS render
+- a CUDA device runs such a scene's iteration eagerly (`graph_route`), as
+  the JAX package runs it staged, under the default options;
+- the Renderer keeps the options it was given, and its 64x64 MIS render
   (depth 4, 2 spp) is held to the JAX package's under the same patch with
   the slice tolerance; the image with `compaction=False` is bitwise the
   default schedule's, and the shadow sort's;
@@ -34,6 +38,7 @@ import pathtracer_tpu_torch.scene.flatscene as tfs
 from pathtracer_tpu.ops.traverse import packet_mode as jax_packet_mode
 from pathtracer_tpu.scene.parser import load_scene as jax_load
 from pathtracer_tpu_torch import cli
+from pathtracer_tpu_torch.integrator import graphs
 from pathtracer_tpu_torch.integrator.render import Renderer
 from pathtracer_tpu_torch.ops import traverse as ttv
 from pathtracer_tpu_torch.scene.parser import load_scene
@@ -99,7 +104,7 @@ def torus_rays(n: int, seed: int = 7):
 def test_tables_and_route(scene, no_table, capsys):
     _, tstatic = _assert_tables_equal(scene)
     assert tstatic.num_tris == 576 and tstatic.stream_subs == 0
-    assert ttv.packet_mode(tstatic) is None
+    assert tstatic.traversal is None and ttv.walk_route(tstatic) == ttv.Walk("mtbvh", True)
     assert tstatic.stream_top_depth == tstatic.stream_sub_depth == 0
     assert jax_packet_mode(jfs.build_flat_scene(jax_load(scene))[1]) is None
     assert cli.main(["info", str(scene), "--device", "cpu"]) == 0
@@ -113,14 +118,24 @@ def test_queries_take_the_walk(scene, no_table, no_kernels):
     flat, static = tfs.build_flat_scene(load_scene(scene), device="cpu")
     o, d = torus_rays(4096)
     hit = ttv.closest_hit(flat, static, o, d)
-    walk = ttv.closest_hit(flat, static, o, d, use_kernels=False)
+    route = ttv.walk_route(static, RenderOptions(pallas_traversal=False))
+    walk = ttv.closest_hit(flat, static, o, d, route=route)
     assert int((hit.tri >= 0).sum()) > 100
     for a, b in zip(hit, walk):
         assert torch.equal(a, b)
     des = o + d * 3.0
     occ = ttv.occlusion_test(flat, static, o, d, des, shadow_sort=True)
     assert 0 < int(occ.sum()) < occ.shape[0]
-    assert torch.equal(occ, ttv.occlusion_test(flat, static, o, d, des, use_kernels=False))
+    assert torch.equal(occ, ttv.occlusion_test(flat, static, o, d, des, route=route))
+
+
+def test_graph_route_off_the_kernels(scene, no_table):
+    """On a card the iteration of a mesh no kernel table fits runs eagerly
+    under the default options: its MTBVH walk's `torch.nonzero` cannot be
+    held in a CUDA graph."""
+    _, static = tfs.build_flat_scene(load_scene(scene), device="cpu")
+    assert not graphs.graph_route(static, RenderOptions(), "cuda")
+    assert not graphs.graph_route(static, RenderOptions(sample_mode=SampleMode.BSDF), "cuda")
 
 
 def test_render_matches_jax(scene, no_table, no_kernels, monkeypatch):
@@ -137,8 +152,8 @@ def test_render_matches_jax(scene, no_table, no_kernels, monkeypatch):
     counted("mtbvh_closest", "closest")
     counted("mtbvh_occluded", "occluded")
     port = render_and_compare(scene, SampleMode.MIS)
-    assert port.opts.pallas_traversal is False
-    assert ttv.packet_mode(port.static) is None
+    assert port.opts.pallas_traversal  # the options the Renderer was given
+    assert ttv.walk_route(port.static, port.opts) == ttv.Walk("mtbvh", True)
     assert calls["closest"] > 0 and calls["occluded"] > 0
 
 
@@ -149,7 +164,7 @@ def test_schedule_keeps_the_image(scene, options, no_table, no_kernels):
     option the shadow rays; the walk ignores lane order, so the image is
     the unsorted one bit for bit."""
     a, b = renderer(scene, **options), renderer(scene, compaction=False)
-    assert a.opts.compaction and a.opts.pallas_traversal is False
+    assert a.opts.compaction and ttv.walk_route(a.static, a.opts).kind == "mtbvh"
     a.step(2)
     b.step(2)
     assert a.stats.rays_traced == b.stats.rays_traced
@@ -164,7 +179,7 @@ def test_regen_ignored_off_the_kernels(scene, route, request):
     else:
         options = {"pallas_traversal": False}
     a, b = renderer(scene, ray_regen=8, **options), renderer(scene, **options)
-    assert a.regen_k == 0 and a.opts.pallas_traversal is False
+    assert a.regen_k == 0 and ttv.walk_route(a.static, a.opts) == ttv.Walk("mtbvh", True)
     a.step(2)
     b.step(2)
     assert a.iteration == b.iteration == 2

@@ -22,8 +22,11 @@ fixed buffers the card's graphs hold.
   against the JAX Renderer's jitted iteration on the 576-triangle torus box,
   as tests/test_torch_render.py holds the eager route, and bit for bit
   against its own eager route.
-- The cache key changes with the options, the seed, the route flag, the
-  film and regeneration; the route rule; no graphs off CUDA.
+- The cache key changes with the options, the seed, the route flag (on the
+  streaming tables, where it switches K3 for K5), the film and
+  regeneration; the route rule; no graphs off CUDA.
+- The launch table (ops/_build.py): one entry point a tag, `launch_counts`
+  K1-K5's counts from it in order; this module imports no kernel module.
 - Capture and replay on the buffers' card: with torch.cuda's calls faked,
   every capture and replay of a renderer on a second card runs with that
   card current and a capture stream of it; a graph with no node raises.
@@ -43,6 +46,7 @@ fixed buffers the card's graphs hold.
   another; results that a later call does not overwrite.
 """
 
+import ast
 import contextlib
 import dataclasses
 import functools
@@ -59,6 +63,7 @@ from pathtracer_tpu_torch.integrator.graphs import StaticIteration, graph_key
 from pathtracer_tpu_torch.integrator.render import Renderer
 from pathtracer_tpu_torch.integrator import wavefront
 from pathtracer_tpu_torch.integrator.wavefront import Schedule, render_iteration
+from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops import traverse as ttv
 from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
 from pathtracer_tpu_torch.scene import flatscene as tfs
@@ -112,7 +117,7 @@ def make_renderer(case: str, torus576) -> Renderer:
             force_stream(mp, tfs)
             r = Renderer(torus576, RenderOptions(**options), resolution=(RES, RES),
                          trace_depth=DEPTH, device="cpu")
-        assert ttv.packet_mode(r.static) == "stream" and r.static.stream_subs > 1
+        assert ttv.walk_route(r.static, r.opts).kind == "stream" and r.static.stream_subs > 1
         return r
     if scene in ("texcube", "envtorus"):
         ensure_texture_assets()
@@ -235,9 +240,13 @@ CHANGES = {
 
 @pytest.mark.parametrize("change", CHANGES)
 def test_graph_key_changes(change, torus576, monkeypatch):
-    """What a capture bakes in is in the key: a change drops the graphs."""
-    r = Renderer(torus576, RenderOptions(sample_mode=SampleMode.MIS), resolution=(RES, RES),
-                 trace_depth=DEPTH, device="cpu")
+    """What a capture bakes in is in the key: a change drops the graphs.
+    The route flag changes the walk on the streaming tables alone."""
+    if change == "route flag":
+        r = make_renderer("stream", torus576)
+    else:
+        r = Renderer(torus576, RenderOptions(sample_mode=SampleMode.MIS), resolution=(RES, RES),
+                     trace_depth=DEPTH, device="cpu")
     before = _key(r)
     assert _key(r) == before
     CHANGES[change](r, monkeypatch)
@@ -270,6 +279,58 @@ def test_graph_route(route):
     assert not r.graph_route
     r.device = torch.device("cuda")  # the rule alone: nothing runs
     assert r.graph_route is want
+
+
+def test_launch_table():
+    """One entry point a tag, each a C entry point of the kernels; K1-K5
+    first, then S1, S2, M1, M2, P1, P2.  `launch_counts` reads K1-K5 from
+    the table in order, and the compiled iteration imports none of the
+    kernels' modules: their launches reach it through the table alone."""
+    assert tuple(_build.LAUNCHES) == ("K1", "K2", "K3", "K4", "K5", "S1", "S2", "M1", "M2",
+                                      "P1", "P2")
+    entries = list(_build.LAUNCHES.values())
+    assert len(set(entries)) == len(entries) and set(entries) <= set(_build.ARGTYPES)
+    was = dict(_build.launches)
+    try:
+        _build.launches.update(K1=1, K2=2, K3=3, K4=4, K5=5, S1=6, M1=7, P2=8)
+        assert graphs.launch_counts() == (1, 2, 3, 4, 5)
+    finally:
+        _build.launches.update(was)
+    imported = set()
+    for node in ast.walk(ast.parse(Path(graphs.__file__).read_text())):
+        if isinstance(node, ast.ImportFrom):
+            imported |= {node.module or ""} | {a.name for a in node.names}
+        elif isinstance(node, ast.Import):
+            imported |= {a.name for a in node.names}
+    kernel_modules = {"traverse_cuda", "traverse_stream_cuda", "sweep_cuda", "shade_cuda", "probes"}
+    assert not {name.rsplit(".", 1)[-1] for name in imported} & kernel_modules
+
+
+def test_launch_counts_the_tag(monkeypatch):
+    """`_build.launch` with the library faked: a counted entry point adds
+    one under its tag, the M1 draw under none, and a CUDA error raises with
+    the launch's name."""
+    calls = []
+
+    def entry(rc):
+        return lambda *args: calls.append(args) or rc
+
+    lib = types.SimpleNamespace(pt_sweep_closest=entry(0), pt_scatter_draw=entry(0),
+                                pt_eval_lobes=entry(2),
+                                pt_error_string=lambda rc: b"out of memory")
+    monkeypatch.setattr(_build, "_lib", lib)
+    monkeypatch.setattr(_build, "launches", dict.fromkeys(_build.LAUNCHES, 0))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=77))
+    t = torch.zeros(4)
+    _build.launch("pt_sweep_closest", "cuda:0", t, 5, None)
+    assert calls == [(t.data_ptr(), 5, None, 77)]
+    _build.launch("pt_scatter_draw", "cuda:0", t)
+    assert _build.launches == dict(dict.fromkeys(_build.LAUNCHES, 0), S1=1)
+    with pytest.raises(RuntimeError, match=r"eval_lobes launch: CUDA error 2 \(out of memory\)"):
+        _build.launch("pt_eval_lobes", "cuda:0", t)
+    assert _build.launches["M2"] == 0
 
 
 def test_graphs_need_cuda():

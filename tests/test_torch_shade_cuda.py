@@ -10,8 +10,8 @@ M1 `scatter_lobes`, M2 `eval_lobes`) and their plain versions.
 - The main path hands the wrappers what the CUDA branch takes: every call in
   a CPU render (eager loop, compiled iteration without graphs, ray
   regeneration) passes the CUDA branch's argument checks.
-- `integrator/graphs.py` holds M1's and M2's counters after S1/S2;
-  `launch_counts` stays K1-K5's.
+- the launch table of `ops/_build.py` counts M1 and M2 under their tags;
+  `integrator/graphs.py launch_counts` stays K1-K5's.
 - On a card (marked `card`; skipped here): each kernel bit for bit its plain
   version over every lobe, NaN where NaN, on random lanes of every type and
   on edge values (grazing rays, roughness at its clamps, metallic 0 and 1,
@@ -30,8 +30,8 @@ from pathtracer_tpu_torch.integrator import graphs
 from pathtracer_tpu_torch.integrator import wavefront as wf
 from pathtracer_tpu_torch.integrator.graphs import StaticIteration
 from pathtracer_tpu_torch.integrator.render import Renderer
+from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops import shade_cuda as sh
-from pathtracer_tpu_torch.ops import sweep_cuda as sw
 from pathtracer_tpu_torch.ops.materials import (
     MatParams,
     bsdf_eval,
@@ -58,10 +58,13 @@ KEY = rng.base_key(2**32 + 77)
 
 
 @pytest.fixture(autouse=True)
-def counters():
-    sh.reset_launch_counts()
-    yield
-    sh.reset_launch_counts()
+def counters(monkeypatch):
+    """A launch table of zeros for each test."""
+    monkeypatch.setattr(_build, "launches", dict.fromkeys(_build.LAUNCHES, 0))
+
+
+def _lobes() -> tuple:
+    return _build.launches["M1"], _build.launches["M2"]
 
 
 def _unit(g, n):
@@ -119,7 +122,7 @@ def test_wrappers_are_the_plain_versions_on_cpu(form, pixel0, cornell):
     assert torch.equal(bsdf, bsdf_eval(p, nrm, wo, wi, present=present))
     assert torch.equal(pdf, pdf_eval(p, nrm, wo, wi, present=present))
     assert torch.equal(sh.scatter_draw(KEY, it, depth, lane, pixel0), rands)
-    assert (sh.scatter_launches, sh.eval_launches) == (0, 0)
+    assert _lobes() == (0, 0)
 
 
 def test_wrapper_arguments_are_checked(cornell):
@@ -203,13 +206,14 @@ def test_main_path_hands_the_kernels_their_arguments(monkeypatch):
 
 
 def test_graph_counters_hold_the_lobes():
-    """The compiled iteration credits M1 and M2 after S1 and S2;
+    """The launch table counts M1 and M2 (the draw kernel, no tag);
     `launch_counts` stays K1-K5's, which a device trace names."""
-    assert graphs.COUNTERS[graphs.WALKS:] == ((sw, "closest_launches"), (sw, "occlusion_launches"),
-                                              (sh, "scatter_launches"), (sh, "eval_launches"))
-    sh.scatter_launches, sh.eval_launches = 5, 6
-    assert graphs.counter_values()[graphs.WALKS + 2:] == (5, 6)
-    assert len(graphs.launch_counts()) == graphs.WALKS == 5
+    assert (_build.LAUNCHES["M1"], _build.LAUNCHES["M2"]) == ("pt_scatter_lobes",
+                                                              "pt_eval_lobes")
+    assert "pt_scatter_draw" not in _build.LAUNCHES.values()
+    _build.launches.update(M1=5, M2=6)
+    assert _lobes() == (5, 6)
+    assert graphs.launch_counts() == (0,) * 5
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +276,7 @@ def test_kernels_match_plain_on_the_card(lanes):
     got_e = sh.eval_lobes(p, nrm, wo, wi)
     for name, a, b in zip(("bsdf", "pdf"), got_e, sh.eval_lobes_plain(p, nrm, wo, wi)):
         assert _same_bits(a, b), name
-    assert (sh.scatter_launches, sh.eval_launches) == (1, 1)
+    assert _lobes() == (1, 1)
 
 
 @pytest.mark.card

@@ -101,7 +101,7 @@ def test_stream_tables_equal_default_budgets(tmp_path):
     scene.write_text(text.replace("assets/torus10k.obj", str(tmp_path / "torus40k.obj")))
     jflat, jstatic, tflat, tstatic = build_both(scene)
     assert tstatic.num_tris == 40_000
-    assert ttv.packet_mode(tstatic) == "stream"
+    assert ttv.walk_route(tstatic).kind == "stream"
     assert (tstatic.stream_sub_nodes, tstatic.stream_sub_tris) == (512, 4096)
     assert_stream_tables_equal(jflat, jstatic, tflat, tstatic)
 
@@ -117,10 +117,10 @@ def test_packet_mode_follows_built_tables(stream_soup, tmp_path, monkeypatch):
                                        device="cpu")
     streamed = stream_soup[3]
     monkeypatch.setenv("PT_FORCE_STREAM", "1")
-    assert resident.stream_subs == 0 and ttv.packet_mode(resident) == "resident"
+    assert resident.stream_subs == 0 and ttv.walk_route(resident).kind == "resident"
     monkeypatch.delenv("PT_FORCE_STREAM")
     monkeypatch.setattr(tfs, "RESIDENT_SMEM_BUDGET", 10**12)
-    assert ttv.packet_mode(streamed) == "stream"
+    assert ttv.walk_route(streamed).kind == "stream"
 
 
 def _t(x):
@@ -264,7 +264,7 @@ class TestK4Plain:
         from pathtracer_tpu.ops import traverse as jtv
 
         jflat, jstatic, tflat, tstatic = stream_soup
-        assert ttv.packet_mode(tstatic) == "stream"
+        assert ttv.walk_route(tstatic).kind == "stream"
         o, d = random_rays(1024, seed=44)
         des = o + d * np.random.default_rng(44).uniform(0.5, 9.0, size=(1024, 1)).astype(np.float32)
         enabled = np.arange(1024) % 4 != 0 if masked else None
@@ -339,7 +339,8 @@ def test_stream_slice_matches_jax(torus_scene, mode, blockmajor, monkeypatch):
     monkeypatch.setattr(ttv, "closest_hit_wbvh", refuse)
     monkeypatch.setattr(ttv, "occlusion_wbvh", refuse)
     port = render_and_compare(torus_scene, mode)
-    assert port.static.stream_subs > 1 and ttv.packet_mode(port.static) == "stream"
+    assert port.static.stream_subs > 1
+    assert ttv.walk_route(port.static, port.opts).kind == ("blockmajor" if blockmajor else "stream")
     assert calls["closest"] > 0
     assert (calls["occlusion"] > 0) == (mode != SampleMode.BSDF)
 

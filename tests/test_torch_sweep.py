@@ -16,7 +16,8 @@ S1 `geoms_closest`, S2 `geoms_occluded`) and their plain versions.
   tests/test_torch_graphs.py) credits every replay of a lap with the sweep
   launches its capture counted: one S1 a lap, one S2 a lap under MIS, none
   under BSDF sampling; and likewise the material lobes' M1 and M2
-  (ops/shade_cuda.py), which follow S1 and S2 in its counters.
+  (ops/shade_cuda.py), each under its tag in the launch table of
+  ops/_build.py.
 - On a card (marked `card`; skipped here): each kernel bit for bit its plain
   version on random and on axis-aligned rays.
 """
@@ -35,6 +36,7 @@ from pathtracer_tpu_torch.integrator import graphs
 from pathtracer_tpu_torch.integrator.graphs import StaticIteration
 from pathtracer_tpu_torch.integrator.render import Renderer
 from pathtracer_tpu_torch.integrator import wavefront
+from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops import shade_cuda as sh
 from pathtracer_tpu_torch.ops import sweep_cuda as sw
 from pathtracer_tpu_torch.ops import traverse as ttv
@@ -117,12 +119,13 @@ def scenes(tmp_path_factory):
 
 
 @pytest.fixture(autouse=True)
-def counters():
-    sw.reset_launch_counts()
-    sh.reset_launch_counts()
-    yield
-    sw.reset_launch_counts()
-    sh.reset_launch_counts()
+def counters(monkeypatch):
+    """A launch table of zeros for each test."""
+    monkeypatch.setattr(_build, "launches", dict.fromkeys(_build.LAUNCHES, 0))
+
+
+def _sweeps() -> tuple:
+    return _build.launches["S1"], _build.launches["S2"]
 
 
 def _box_rays(n, seed):
@@ -156,7 +159,7 @@ def test_wrappers_are_the_plain_versions_on_cpu(scene, scenes):
     occ = sw.geoms_occluded(flat, static, o, d, min_t)
     assert torch.equal(occ, sw.geoms_occluded_plain(flat, static, o, d, min_t))
     assert 100 < int(occ.sum()) < 2900
-    assert (sw.closest_launches, sw.occlusion_launches) == (0, 0)
+    assert _sweeps() == (0, 0)
 
 
 def test_no_analytic_geom_calls_no_wrapper(tmp_path, monkeypatch):
@@ -179,7 +182,7 @@ def test_no_analytic_geom_calls_no_wrapper(tmp_path, monkeypatch):
     assert torch.equal(hit.t[hit.tri < 0], torch.full_like(hit.t[hit.tri < 0], sw.FLT_MAX))
     occ = ttv.occlusion_test(flat, static, o, d, o + 8.0 * d)
     assert occ.dtype == torch.bool and occ.shape == (500,)
-    assert (sw.closest_launches, sw.occlusion_launches) == (0, 0)
+    assert _sweeps() == (0, 0)
 
 
 def _twin_rays():
@@ -233,13 +236,13 @@ def test_wrapper_arguments_are_checked(scenes):
 
 
 def test_graph_counters_hold_the_sweep():
-    """The compiled iteration credits S1 and S2 like K1-K5; `launch_counts`
+    """The launch table counts S1 and S2 beside K1-K5; `launch_counts`
     stays K1-K5's, which a device trace names."""
-    assert graphs.COUNTERS[graphs.WALKS:graphs.WALKS + 2] == ((sw, "closest_launches"),
-                                                              (sw, "occlusion_launches"))
-    sw.closest_launches, sw.occlusion_launches = 3, 4
-    assert graphs.counter_values()[graphs.WALKS:graphs.WALKS + 2] == (3, 4)
-    assert len(graphs.launch_counts()) == graphs.WALKS == 5
+    assert (_build.LAUNCHES["S1"], _build.LAUNCHES["S2"]) == ("pt_sweep_closest",
+                                                              "pt_sweep_occluded")
+    _build.launches.update(S1=3, S2=4)
+    assert _sweeps() == (3, 4)
+    assert graphs.launch_counts() == (0,) * 5
 
 
 def test_main_path_hands_the_kernels_their_arguments(monkeypatch):
@@ -273,21 +276,16 @@ def test_main_path_hands_the_kernels_their_arguments(monkeypatch):
 def _counting(monkeypatch):
     """Wrappers that count a launch and run the plain version: S1 and S2,
     and the material lobes' M1 and M2."""
-    def closest(*args):
-        sw.closest_launches += 1
-        return sw.geoms_closest_plain(*args)
+    def counted(tag, plain):
+        def wrapper(*args, **kwargs):
+            _build.launches[tag] += 1
+            return plain(*args, **kwargs)
+        return wrapper
 
-    def occluded(*args):
-        sw.occlusion_launches += 1
-        return sw.geoms_occluded_plain(*args)
-
-    def scatter(*args, **kwargs):
-        sh.scatter_launches += 1
-        return sh.scatter_lobes_plain(*args, **kwargs)
-
-    def evaluate(*args, **kwargs):
-        sh.eval_launches += 1
-        return sh.eval_lobes_plain(*args, **kwargs)
+    closest = counted("S1", sw.geoms_closest_plain)
+    occluded = counted("S2", sw.geoms_occluded_plain)
+    scatter = counted("M1", sh.scatter_lobes_plain)
+    evaluate = counted("M2", sh.eval_lobes_plain)
 
     monkeypatch.setattr(ttv, "geoms_closest", closest)
     monkeypatch.setattr(ttv, "geoms_occluded", occluded)
@@ -308,17 +306,16 @@ def test_replays_credit_the_sweep_launches(mode, monkeypatch):
     FakeCuda(monkeypatch)
     monkeypatch.setattr(graphs, "graph_nodes", lambda g: 3)
     it.run(r._cam_arrays(), 1)  # captures every step (each run once eagerly first)
-    sw.reset_launch_counts()
-    sh.reset_launch_counts()
-    launches, laps = it.launches, it.counts()["laps"]
+    _build.launches.update(dict.fromkeys(_build.launches, 0))
+    launches, laps = dict(it.launches), it.counts()["laps"]
     it.run(r._cam_arrays(), 2)  # replays alone
     laps = it.counts()["laps"] - laps
     assert laps > 0
     want = (laps, laps if mode == SampleMode.MIS else 0)
-    added = tuple(a - b for a, b in zip(it.launches, launches))
-    assert added == (0,) * graphs.WALKS + want + want
-    assert (sw.closest_launches, sw.occlusion_launches) == want
-    assert (sh.scatter_launches, sh.eval_launches) == want
+    added = {tag: n - launches[tag] for tag, n in it.launches.items()}
+    assert added == dict(dict.fromkeys(_build.LAUNCHES, 0), S1=want[0], S2=want[1], M1=want[0],
+                         M2=want[1])
+    assert _build.launches == added
 
 
 @pytest.mark.card
@@ -343,4 +340,4 @@ def test_kernels_match_plain_on_the_card(rays):
         assert torch.equal(a, b), name
     assert torch.equal(sw.geoms_occluded(flat, static, o, d, min_t),
                        sw.geoms_occluded_plain(flat, static, o, d, min_t))
-    assert (sw.closest_launches, sw.occlusion_launches) == (1, 1)
+    assert _sweeps() == (1, 1)

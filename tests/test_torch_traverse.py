@@ -18,6 +18,7 @@ from pathtracer_tpu.ops import traverse as jtv
 from pathtracer_tpu.ops.traverse_pallas import closest_hit_wbvh_pallas, occlusion_wbvh_pallas
 from pathtracer_tpu.scene.flatscene import build_flat_scene
 from pathtracer_tpu.scene.parser import load_scene
+from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops import traverse as ttv
 from pathtracer_tpu_torch.ops import traverse_cuda as tc
 from pathtracer_tpu_torch.scene.flatscene import SceneStatic, flat_from_arrays
@@ -123,7 +124,7 @@ class TestClosestPlain:
         for a, b in zip(base, got):
             assert torch.equal(a, b)
         nan_box = torch.full((1, 6), float("nan"))
-        hit, _ = tc._slab(nan_box, *(torch.zeros(1),) * 3, *(torch.ones(1),) * 3)
+        hit, _ = tc.slab(nan_box, *(torch.zeros(1),) * 3, *(torch.ones(1),) * 3)
         assert not hit.any()
 
     @pytest.mark.parametrize("n", [1, 127, 1000])
@@ -209,13 +210,13 @@ class TestWrappers:
             tc.occlusion_wbvh(tflat.bvh_wf, tflat.bvh_wi, tflat.tri_pk, o, o, torch.zeros(2),
                               torch.zeros(2, dtype=torch.bool), wide_depth=tc.STACK // 7 + 1)
 
-    def test_cpu_tensors_never_count_a_launch(self, soup):
+    def test_cpu_tensors_never_count_a_launch(self, soup, monkeypatch):
         _, static, tflat = soup
-        tc.reset_launch_counts()
+        monkeypatch.setattr(_build, "launches", dict.fromkeys(_build.LAUNCHES, 0))
         o, d = random_rays(64, seed=5)
         _k1(tflat, static, o, d, np.full(64, FLT_MAX, np.float32))
         _k2(tflat, static, o, d, np.full(64, 2.0, np.float32), np.zeros(64, bool))
-        assert (tc.closest_launches, tc.occlusion_launches) == (0, 0)
+        assert (_build.launches["K1"], _build.launches["K2"]) == (0, 0)
 
 
 @pytest.fixture(scope="module")

@@ -21,13 +21,16 @@ from pathtracer_tpu.scene.flatscene import build_flat_scene
 from pathtracer_tpu.scene.parser import load_scene
 from pathtracer_tpu.utils import config as jax_config
 from pathtracer_tpu_torch.ops import traverse as ttv
-from pathtracer_tpu_torch.utils.config import SampleMode
+from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 from tests.test_torch_render import render_and_compare, small_torus_scene
 from tests.test_torch_traverse import _box_rays, _port, _t, port_static
 from tests.test_traverse import random_rays, tri_soup_scene
 
 FLT_MAX = jtv.FLT_MAX
 N = 2048
+# each walk's option, through which `walk_route` chooses it
+WALK_OPTIONS = {"sweep": RenderOptions(use_bvh=False),
+                "mtbvh": RenderOptions(pallas_traversal=False)}
 
 
 @pytest.fixture(autouse=True)
@@ -106,8 +109,9 @@ def test_closest_matches_the_plain_k1(soup, walk):
     static = port_static(static)
     o, d = (_t(x) for x in random_rays(N, seed=33))
     alive = torch.arange(N) % 6 != 0
-    kw = dict(use_bvh=False) if walk == "sweep" else dict(use_kernels=False)
-    got = ttv.closest_hit(tflat, static, o, d, alive=alive, **kw)
+    route = ttv.walk_route(static, WALK_OPTIONS[walk])
+    assert route.kind == walk
+    got = ttv.closest_hit(tflat, static, o, d, alive=alive, route=route)
     want = ttv.closest_hit(tflat, static, o, d, alive=alive)
     assert torch.equal(got.tri, want.tri)
     assert (got.tri[~alive] == -1).all()
@@ -125,16 +129,17 @@ def test_occlusion_matches_jax_and_the_plain_k2(torus_box, walk):
     jkw = dict(use_bvh=False) if walk == "sweep" else dict(use_pallas=False)
     want = jtv.occlusion_test(flat, static, jnp.asarray(o), jnp.asarray(d), jnp.asarray(des),
                               enabled=jnp.asarray(enabled), **jkw)
-    kw = dict(use_bvh=False) if walk == "sweep" else dict(use_kernels=False)
     static = port_static(static)
-    got = ttv.occlusion_test(tflat, static, _t(o), _t(d), _t(des), enabled=_t(enabled), **kw)
+    route = ttv.walk_route(static, WALK_OPTIONS[walk])
+    got = ttv.occlusion_test(tflat, static, _t(o), _t(d), _t(des), enabled=_t(enabled),
+                             route=route)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert 100 < int(got.sum()) < N
     k2 = ttv.occlusion_test(tflat, static, _t(o), _t(d), _t(des), enabled=_t(enabled))
     assert torch.equal(got, k2)
     # the shadow sort is the kernels' alone: the walk ignores it
     srt = ttv.occlusion_test(tflat, static, _t(o), _t(d), _t(des), enabled=_t(enabled),
-                             shadow_sort=True, **kw)
+                             shadow_sort=True, route=route)
     assert torch.equal(srt, got)
 
 
@@ -145,9 +150,10 @@ def test_closest_hit_on_the_torus_box_matches_jax(torus_box, walk):
     _, flat, static, tflat = torus_box
     o, d = _box_rays(N, seed=53)
     jkw = dict(use_bvh=False) if walk == "sweep" else dict(use_pallas=False)
-    kw = dict(use_bvh=False) if walk == "sweep" else dict(use_kernels=False)
     want = jtv.closest_hit(flat, static, jnp.asarray(o), jnp.asarray(d), **jkw)
-    got = ttv.closest_hit(tflat, static, _t(o), _t(d), **kw)
+    static = port_static(static)
+    route = ttv.walk_route(static, WALK_OPTIONS[walk])
+    got = ttv.closest_hit(tflat, static, _t(o), _t(d), route=route)
     np.testing.assert_array_equal(got.tri.numpy(), np.asarray(want.tri))
     np.testing.assert_array_equal(got.geom.numpy(), np.asarray(want.geom))
     assert int((got.tri >= 0).sum()) > 100

@@ -46,6 +46,7 @@ import torch
 
 import pathtracer_tpu.scene.flatscene as jfs
 import pathtracer_tpu_torch.scene.flatscene as tfs
+from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops import traverse_cuda as tc
 from pathtracer_tpu_torch.ops import traverse_stream_cuda as ts
 from pathtracer_tpu.ops.traverse_pallas import (
@@ -169,9 +170,9 @@ def test_vector_rows_are_16_byte_aligned(scene, request):
         t = getattr(flat, name)
         assert t.is_contiguous() and t.data_ptr() % 16 == 0, name
         assert (row_items * t.element_size()) % 16 == 0, name
-    tc._check_aligned(wf=flat.bvh_wf, tri12=flat.tri_pk)
+    _build.check_aligned(wf=flat.bvh_wf, tri12=flat.tri_pk)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tc._check_aligned(wf=flat.bvh_wf[1:])
+        _build.check_aligned(wf=flat.bvh_wf[1:])
     # str_subt's rows (36 bytes) are what the padded copy is for
     assert (9 * flat.str_subt.element_size()) % 16 != 0
 
@@ -936,7 +937,7 @@ def test_k5_wrapper_refuses(multi_block):
         ts._check_cull_tables(base, *sizes, flat.str_roots8, flat.str_groups[:-8])
     ts._check_cull_tables(base, *sizes, flat.str_roots8, flat.str_groups)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tc._check_aligned(roots8=flat.str_roots8[1:])
+        _build.check_aligned(roots8=flat.str_roots8[1:])
     meta = [x.to("meta") for x in rays]
     with pytest.raises(ValueError, match="cpu or cuda"):
         ts.closest_hit_blockmajor(*tables, *meta, **_sizes(static), sub_depth=1,

@@ -43,11 +43,11 @@ def render(scene: str, device: str, graphs: bool) -> dict:
     import torch
 
     from pathtracer_tpu_torch.integrator.render import Renderer
-    from pathtracer_tpu_torch.ops import traverse_cuda as tc
+    from pathtracer_tpu_torch.ops import _build
     from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
     from tools.profile_torch_port import eager_route
 
-    tc.reset_launch_counts()
+    k0 = dict(_build.launches)
     r = Renderer(ROOT / "scenes" / f"{scene}.txt", RenderOptions(sample_mode=SampleMode.MIS),
                  resolution=(RES, RES), trace_depth=DEPTH, device=device)
     try:
@@ -62,7 +62,7 @@ def render(scene: str, device: str, graphs: bool) -> dict:
     return {"img": img, "sum": float(np.float64(img).sum()), "rays": r.stats.rays_traced,
             "laps": list(r.lap_pools), "graphs": r.graphs.num_graphs if r.graphs else 0,
             "nodes": sum(r.graphs.nodes.values()) if r.graphs else 0,
-            "k1k2": (tc.closest_launches, tc.occlusion_launches),
+            "k1k2": tuple(_build.launches[t] - k0[t] for t in ("K1", "K2")),
             "current": torch.cuda.current_device()}
 
 
