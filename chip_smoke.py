@@ -191,7 +191,19 @@ line):
    launches once a call; median times of kernel and plain version beside the
    bound (shade_bound: SHADE_BYTES once, or SHADE_OPS over half the float32
    peak).  The main paths of phase 6 on cornell_spheres and glasstorus must
-   launch M1 and M2 through their graphs' replays.
+   launch M1 and M2 through their graphs' replays;
+24. the light side of NEE (run after phase 23, on cornell_spheres and then
+   on glasstorus, at 800x800): L1 (sample_lights) against pixel_uniforms
+   (STAGE_LIGHT) + light_samples, with the MIS lap's NEE mask and without,
+   and L2 (eval_light_pdf) against light_pdf, bit for bit on every output
+   and lane, NaN where NaN, on the camera lap and the continuation lap
+   (bounce's trace) and on the camera lap with per-lane counters, a first
+   pixel past the film and NaN points; each wrapper launches once a call;
+   median times of kernel and plain version beside the bound (light_bound:
+   LIGHT_BYTES once, or LIGHT_OPS over half the float32 peak).  The main
+   paths of phase 6 on cornell_spheres and glasstorus must launch L1 and L2
+   through their graphs' replays.  tests/test_torch_lights_cuda.py's card
+   cases add cube and triangle lights and the environment's split.
 
 Every Renderer on the card (phases 6-8, 11-14, 16, 18-19, 21) replays its
 iteration as CUDA graphs, and so do the step factory and the sharded steps
@@ -320,6 +332,7 @@ SRC_STREAM = "pathtracer_tpu_torch/csrc/stream_traverse.cu"
 SRC_PROBES = "pathtracer_tpu_torch/csrc/probes.cu"
 SRC_SWEEP = "pathtracer_tpu_torch/csrc/analytic_sweep.cu"
 SRC_SHADE = "pathtracer_tpu_torch/csrc/shade.cu"
+SRC_LIGHTS = "pathtracer_tpu_torch/csrc/lights.cu"
 WALK_TAGS = ("K1", "K2", "K3", "K4", "K5")  # the triangle walks; S1/S2 sweep on every route
 # Operations a lane of the analytic sweep (csrc/analytic_sweep.cu), each
 # multiplication, addition, comparison, min/max and select one, a division or
@@ -367,6 +380,29 @@ SHADE_OPS = {"M1": {0: SHADE_DRAW_OPS + 47, 1: SHADE_DRAW_OPS + 304, 2: SHADE_DR
 # roughness, metallic, normal, ray and light directions (60) and writes bsdf
 # and pdf (16)
 SHADE_BYTES = {"M1": 68 + 28, "M2": 60 + 16}
+# Operations a lane of the light side of NEE (csrc/lights.cu), counted as
+# SWEEP_OPS counts them (sinf, cosf, a division or a square root one), by the
+# branch a lane runs.
+#   L1's draw: SHADE_DRAW_OPS and the fourth uniform 3: 245; the pick (a
+#     multiply, a min, the conversion, the env test, the index clamp 2, the
+#     emission's select) 7; the tail (the direction 14, the shadow origin 6,
+#     the mask 2) 22
+#   L1 sphere: xform_point 18, normalize 14, onb_pixar 14, the cone's cosine
+#     11, cos_t 3, sin_t 4, phi 1, dc 2, ds 8, sin_a 2, cos_a 4, cos/sin and
+#     their products 4, the object normal 18, the pdf 4, the scale 3,
+#     xform_point 18: 128
+#   L1 triangle: the barycentrics 6, the point 15, the normal 26, the area
+#     23, the pdf 31: 101; a cube light or the environment: none
+#   L2: the branch tests 3; a sphere: xform_point 18, the cone's cosine 11,
+#     the pdf 4: 33; a triangle: the area 23, the pdf 31: 54
+LIGHT_OPS = {"L1": {"sphere": 245 + 7 + 128 + 22, "triangle": 245 + 7 + 101 + 22,
+                    "other": 245 + 7 + 22},
+             "L2": {"sphere": 3 + 33, "triangle": 3 + 54, "other": 3}}
+# Bytes a lane, each input read once and each output written once: L1 reads
+# the view point, lane id and NEE mask (17) and writes the light point,
+# emission, pdf, shadow origin and direction and mask (53); L2 reads the ray
+# origin, hit point, normal, triangle and geom (44) and writes the pdf (4)
+LIGHT_BYTES = {"L1": 17 + 53, "L2": 44 + 4}
 ENTRY_PHASE_S = 30.0  # phase 20 fails past this many seconds
 GRAPH_PHASE_S = 60.0  # phase 21 fails past this many seconds
 SHARD_PHASE_S = 90.0  # phase 16 fails past this many seconds
@@ -1228,6 +1264,139 @@ def phase_shade_kernels(r, scene: str) -> dict:
                "pixel_uniforms and pathtracer_tpu/ops/materials.py scatter_sample)", *rows["M1"]),
         "M2": ("eval_lobes", SRC_SHADE, "none (plain jnp: pathtracer_tpu/ops/materials.py "
                "bsdf_eval and pdf_eval)", *rows["M2"]),
+    }
+
+
+def light_lane_cases(r):
+    """The light side's inputs on renderer `r`'s main path at RES x RES, as
+    `bounce` hands them to L1 and L2 (its trace): the camera rays' lap
+    (iteration 1, depth 0) and the continuation pool's (depth 1, every lane,
+    ended and missed paths included), each with the MIS lap's NEE mask; then
+    the camera lap with per-lane counters, a first pixel past the film and
+    NaN view points and origins spliced in."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator.wavefront import bounce, camera_rays, new_pool
+    from pathtracer_tpu_torch.scene.parser import DIELECTRIC, LIGHT
+    from pathtracer_tpu_torch.utils.config import SampleMode
+
+    flat, static = r.flat, r.static
+    o, d = camera_rays(r._cam_arrays(), RES, RES, r.key, 1, pixel_xy=r.pixel_xy)
+    pool = new_pool(o, d)
+    cases = {}
+    for depth, label in enumerate(("camera", "continuation")):
+        trace = {}
+        nxt, _ = bounce(flat, static, SampleMode.MIS, r.key, 1, depth, pool, trace=trace)
+        hit, p, srec = trace["hit"], trace["params"], trace["srec"]
+        nee = (pool.alive & (hit.geom >= 0) & (srec.pdf != 0.0) & (p.type != LIGHT)
+               & (p.type != DIELECTRIC))
+        cases[label] = (hit.point, pool.lane, 1, depth, 0, nee,
+                        (pool.o, hit.point, trace["nrm"], hit.tri, hit.geom))
+        pool = nxt
+    view, lane, _, _, _, nee, (o, point, nrm, tri, geom) = cases["camera"]
+    n = lane.shape[0]
+    g = torch.Generator(device=DEVICE).manual_seed(24)
+    it = torch.randint(0, 2**20, (n,), device=DEVICE, generator=g, dtype=torch.int32)
+    depth = torch.randint(0, 256, (n,), device=DEVICE, generator=g, dtype=torch.int32)
+    view, o = view.clone(), o.clone()
+    view[:64], o[64:128] = float("nan"), float("nan")
+    cases["camera, per-lane counters, NaN points"] = (view, lane, it, depth, n, nee,
+                                                      (o, point, nrm, tri, geom))
+    torch.cuda.synchronize()
+    return cases
+
+
+def light_bound(kname: str, kinds: dict) -> tuple[float, str, float]:
+    """(ms, what bounds it, operations a lane) of L1 or L2 over lanes of the
+    branches `kinds` (branch -> lanes): the larger of LIGHT_BYTES a lane over
+    the memory rate and LIGHT_OPS over SWEEP_OP_RATE."""
+    n = sum(kinds.values())
+    ops = sum(LIGHT_OPS[kname][k] * c for k, c in kinds.items())
+    bytes_ms, ops_ms = n * LIGHT_BYTES[kname] / PEAK_BYTES * 1e3, ops / SWEEP_OP_RATE * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, ops / n
+
+
+def light_kinds(flat, static, view, lane, key, it, depth, pixel0, hits) -> tuple[dict, dict]:
+    """The lanes of each branch that L1 (the picked light's type) and L2
+    (the hit's) run."""
+    import torch
+
+    from pathtracer_tpu_torch.ops import lights_cuda as lc
+    from pathtracer_tpu_torch.scene.parser import SPHERE
+
+    rands = lc.light_draw_plain(key, it, depth, lane, pixel0)
+    lid = torch.clamp(rands[:, 0] * static.num_lights, max=static.num_lights - 1.0).long()
+    tri = flat.light_tri[lid] >= 0
+    sphere = ~tri & (flat.geom_type[flat.light_geom[lid].long()] == SPHERE)
+    l1 = {"triangle": int(tri.sum()), "sphere": int(sphere.sum())}
+    _, _, _, tri_id, geom = hits
+    hit_sphere = (geom >= 0) & (flat.geom_type[geom.clamp(min=0).long()] == SPHERE)
+    l2 = {"sphere": int(hit_sphere.sum()), "triangle": int((~hit_sphere & (tri_id >= 0)).sum())}
+    n = lane.shape[0]
+    return ({**l1, "other": n - sum(l1.values())}, {**l2, "other": n - sum(l2.values())})
+
+
+def phase_light_kernels(r, scene: str) -> dict:
+    """L1 and L2 (csrc/lights.cu) against their plain versions on renderer
+    `r`'s NEE inputs (light_lane_cases), bit for bit on every output and
+    lane, NaN where NaN: L1 against pixel_uniforms (STAGE_LIGHT) +
+    light_samples with and without the NEE mask, L2 against light_pdf; each
+    wrapper launches once a call.  Median times of kernel and plain version
+    beside the bound (light_bound).  Returns the kernels line's rows (the
+    camera lap)."""
+    import torch
+
+    from pathtracer_tpu_torch.ops import lights_cuda as lc
+
+    flat, static, key = r.flat, r.static, r.key
+    rows = {}
+    for k, (label, (view, lane, it, depth, pixel0, nee, hits)) in enumerate(
+            light_lane_cases(r).items()):
+        calls = {
+            "L1": (lambda: lc.sample_lights(flat, static, view, key, it, depth, lane, pixel0, nee),
+                   lambda: lc.sample_lights_plain(flat, static, view, key, it, depth, lane, pixel0,
+                                                  nee)),
+            "L2": (lambda: lc.eval_light_pdf(flat, static, *hits),
+                   lambda: lc.eval_light_pdf_plain(flat, static, *hits)),
+        }
+        checks = dict(calls, **{"L1, no mask": (
+            lambda: lc.sample_lights(flat, static, view, key, it, depth, lane, pixel0),
+            lambda: lc.sample_lights_plain(flat, static, view, key, it, depth, lane, pixel0))})
+        for name, (kernel, plain) in checks.items():
+            tag = name[:2]
+            n0 = _build.launches[tag]
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if _build.launches[tag] != n0 + 1:
+                raise AssertionError(f"{name} {label}: the wrapper did not launch once")
+            names = want._fields if tag == "L1" else ("pdf",)
+            got, want = (tuple(got), tuple(want)) if tag == "L1" else ((got,), (want,))
+            same = {nm: same_bits(a, b) for nm, a, b in zip(names, got, want)}
+            err = max(_max_err(torch.nan_to_num(a.float()), torch.nan_to_num(b.float()))
+                      for a, b in zip(got, want))
+            log(f"{name} {scene} {label}: {lane.shape[0]} lanes; bitwise equal to the plain "
+                f"version: {same}, max_abs_err {err}")
+            if not all(same.values()):
+                raise AssertionError(f"{name} differs from its plain version ({scene}, {label})")
+        if k:  # the camera lap is timed; the other sets are checked
+            continue
+        kinds = dict(zip(("L1", "L2"),
+                         light_kinds(flat, static, view, lane, key, it, depth, pixel0, hits)))
+        for kname, (kernel, plain) in calls.items():
+            ms = median_ms(kernel)
+            plain_ms = median_ms(plain)
+            b_ms, by, ops = light_bound(kname, kinds[kname])
+            log(f"{kname} time at {lane.shape[0]} {label} lanes of {scene} (branches "
+                f"{kinds[kname]}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 5); "
+                f"{ops:.1f} operations a lane, bound {b_ms:.4f} ms ({by}), kernel / bound "
+                f"{ms / b_ms:.2f}")
+            rows[kname] = (0.0, ms, plain_ms, (b_ms, by))
+    return {
+        "L1": ("sample_lights", SRC_LIGHTS, "none (plain jnp: pathtracer_tpu/utils/rng.py "
+               "pixel_uniforms and pathtracer_tpu/ops/lights.py light_sample)", *rows["L1"]),
+        "L2": ("eval_light_pdf", SRC_LIGHTS, "none (plain jnp: pathtracer_tpu/ops/lights.py "
+               "light_pdf)", *rows["L2"]),
     }
 
 
@@ -2464,8 +2633,9 @@ def main() -> int:
     cornell = build_renderer(SCENE_CORNELL)
     kernels = phase_sweep_kernels(cornell[0], "cornell_spheres")
     kernels.update(phase_shade_kernels(cornell[0], "cornell_spheres"))
-    phase_main_path(cornell, used=("S1", "S2", "M1", "M2"), unused=("K1", "K2", "K3", "K4", "K5"),
-                    card=smi)
+    kernels.update(phase_light_kernels(cornell[0], "cornell_spheres"))
+    phase_main_path(cornell, used=("S1", "S2", "M1", "M2", "L1", "L2"),
+                    unused=("K1", "K2", "K3", "K4", "K5"), card=smi)
     if cornell[0].static.num_tris or len(cornell[0].static.material_types) != 5:
         raise AssertionError("cornell_spheres must be triangle-free with all five materials")
     phase_schedules(cornell, card=smi, used=(), unused=("K1", "K2", "K3", "K4", "K5"))
@@ -2473,6 +2643,7 @@ def main() -> int:
     resident = build_renderer(SCENE)
     phase_sweep_kernels(resident[0], "glasstorus")
     phase_shade_kernels(resident[0], "glasstorus")
+    phase_light_kernels(resident[0], "glasstorus")
     kernels.update(phase_resident_kernels(resident[0]))
     stream = build_renderer(SCENE_160K)
     kernels.update(phase_stream_kernels(stream[0]))
@@ -2482,7 +2653,8 @@ def main() -> int:
     k = stream_calls(stream[0].flat, stream[0].static)
     phase_scheduled_kernels(stream[0], ("K3", "K4"), k["K3"], k["K3_plain"], k["K4"], k["K4_plain"])
     del k
-    launches, _ = phase_main_path(resident, used=("K1", "K2", "S1", "S2", "M1", "M2"),
+    launches, _ = phase_main_path(resident,
+                                  used=("K1", "K2", "S1", "S2", "M1", "M2", "L1", "L2"),
                                   unused=("K3", "K4", "K5"), card=smi)
     stream_launches, _ = phase_main_path(stream, used=("K3", "K4"), unused=("K1", "K2", "K5"),
                                          card=smi)

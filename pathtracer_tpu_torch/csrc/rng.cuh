@@ -62,4 +62,13 @@ __device__ __forceinline__ float3 uniforms3(uint32_t k0, uint32_t k1, uint32_t p
   return make_float3(u01(a.x), u01(a.y), u01(b.x));
 }
 
+// pixel_uniforms(key, iteration, depth, stage, pixel, 4) of one lane: block
+// 1's second word gives column 3.
+__device__ __forceinline__ float4 uniforms4(uint32_t k0, uint32_t k1, uint32_t pixel,
+                                            uint32_t word) {
+  const uint2 a = threefry2x32(k0, k1, pixel, word | 0u);
+  const uint2 b = threefry2x32(k0, k1, pixel, word | 1u);
+  return make_float4(u01(a.x), u01(a.y), u01(b.x), u01(b.y));
+}
+
 }  // namespace

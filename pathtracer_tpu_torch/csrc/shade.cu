@@ -38,8 +38,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "rng.cuh"
-#include "traverse_common.cuh"
+#include "lane_math.cuh"
 
 namespace {
 
@@ -49,47 +48,6 @@ constexpr int kLambertian = 0;
 constexpr int kMetallicWorkflow = 1;
 constexpr int kDielectric = 2;
 constexpr int kMicrofacet = 3;
-
-// A Python float as PyTorch hands it to a float32 kernel: rounded to nearest.
-#define F32(x) static_cast<float>(x)
-// utils/config.py PI, TWO_PI, INV_PI: double arithmetic, then float32
-#define PI_D 3.1415926535897932384626422832795028841971
-constexpr float kPi = F32(PI_D);
-constexpr float kTwoPi = F32(2.0 * PI_D);
-constexpr float kInvPi = F32(1.0 / PI_D);
-
-// torch.clamp(x, min=lo): max(x, lo), a NaN kept.
-__device__ __forceinline__ float clamp_min(float x, float lo) { return nan_max(x, lo); }
-
-__device__ __forceinline__ float3 f3(float x, float y, float z) { return make_float3(x, y, z); }
-__device__ __forceinline__ float3 neg(float3 a) { return f3(-a.x, -a.y, -a.z); }
-__device__ __forceinline__ float3 add(float3 a, float3 b) {
-  return f3(a.x + b.x, a.y + b.y, a.z + b.z);
-}
-__device__ __forceinline__ float3 scale(float3 a, float s) { return f3(a.x * s, a.y * s, a.z * s); }
-
-// ops/math.py dot, cross, normalize (eps 0)
-__device__ __forceinline__ float dot(float3 a, float3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-__device__ __forceinline__ float3 cross(float3 a, float3 b) {
-  return f3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
-}
-__device__ __forceinline__ float3 normalize(float3 v) {
-  const float n2 = dot(v, v);
-  const float inv = n2 > 0.0f ? 1.0f / sqrtf(clamp_min(n2, F32(1e-38))) : 0.0f;
-  return scale(v, inv);
-}
-
-// ops/math.py onb_pixar: (tangent, bitangent) of n.
-__device__ __forceinline__ void onb_pixar(float3 n, float3& t, float3& b) {
-  const float sz = n.z >= 0.0f ? 1.0f : -1.0f;
-  const float a = 1.0f / (sz + n.z);
-  const float sx = sz * n.x;
-  const float bb = n.x * n.y * a;
-  t = f3(sx * n.x * a - 1.0f, sz * bb, sx);
-  b = f3(bb, n.y * n.y * a - sz, n.y);
-}
 
 // ops/math.py sample_hemisphere_cosine
 __device__ __forceinline__ float3 sample_hemisphere_cosine(float3 n, float r1, float r2) {
@@ -251,41 +209,6 @@ __device__ __forceinline__ float metallic_pdf(const Ggx& g, float rough, float m
   return diff_pdf * (1.0f - w) + spec_pdf * w;
 }
 
-// An (N,) or (N, 3) input column: lane i's first element at p[i * s].
-template <typename T>
-struct Col {
-  const T* p;
-  int s;
-  __device__ __forceinline__ T at(int i) const { return p[(size_t)i * s]; }
-  __device__ __forceinline__ float3 at3(int i) const {
-    const T* q = p + (size_t)i * s;
-    return f3(q[0], q[1], q[2]);
-  }
-};
-
-// A counter field of the RNG: per lane (s 1), one word in device memory (s
-// 0), or, with no pointer, an immediate.
-struct Counter {
-  const int* p;
-  int s;
-  uint32_t imm;
-  __device__ __forceinline__ uint32_t at(int i) const {
-    return p ? (uint32_t)p[(size_t)i * s] : imm;
-  }
-};
-
-// The draw M1 makes for lane i: pixel_uniforms(key, it, dp, STAGE_SCATTER,
-// lane + pixel0, 3).
-struct Draw {
-  Col<int> lane;
-  uint32_t pixel0, k0, k1;
-  Counter it, dp;
-  __device__ __forceinline__ float3 at(int i) const {
-    return uniforms3(k0, k1, (uint32_t)lane.at(i) + pixel0,
-                     counter_word(it.at(i), dp.at(i), kStageScatter));
-  }
-};
-
 // M1: ops/materials.py scatter_sample on the draw of utils/rng.py
 // pixel_uniforms, each lane's own lobe: bsdf (N, 3), pdf (N,), dir (N, 3).
 __global__ void __launch_bounds__(SHADE_THREADS)
@@ -299,7 +222,7 @@ scatter_lobes_kernel(Col<int> type, Col<float> albedo, Col<float> rough, Col<flo
   float3 bsdf, d;
   float pdf;
   if (t == kLambertian || t == kDielectric || t == kMicrofacet || t == kMetallicWorkflow) {
-    const float3 r = draw.at(i);
+    const float3 r = draw.at3(i, kStageScatter);
     const float3 nv = nrm.at3(i), wo = wo_col.at3(i), alb = albedo.at3(i);
     if (t == kLambertian) {
       bsdf = scale(alb, kInvPi);
@@ -388,19 +311,12 @@ __global__ void __launch_bounds__(SHADE_THREADS)
 scatter_draw_kernel(Draw draw, float* __restrict__ out, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float3 r = draw.at(i);
+  const float3 r = draw.at3(i, kStageScatter);
   out[3 * i] = r.x, out[3 * i + 1] = r.y, out[3 * i + 2] = r.z;
 }
 
 inline dim3 shade_grid(int n) {
   return dim3((unsigned)((n + SHADE_THREADS - 1) / SHADE_THREADS));
-}
-
-inline Draw make_draw(const int* lane, int lane_s, uint32_t pixel0, uint32_t k0, uint32_t k1,
-                      const int* it, int it_s, uint32_t it_imm, const int* dp, int dp_s,
-                      uint32_t dp_imm) {
-  return Draw{Col<int>{lane, lane_s}, pixel0, k0, k1, Counter{it, it_s, it_imm},
-              Counter{dp, dp_s, dp_imm}};
 }
 
 }  // namespace

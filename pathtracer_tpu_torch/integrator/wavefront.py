@@ -66,7 +66,8 @@ from pathtracer_tpu_torch.scene.parser import DIELECTRIC, LIGHT, SPHERE
 from pathtracer_tpu_torch.utils.config import RenderOptions, SampleMode
 from pathtracer_tpu_torch.ops import math as m
 from pathtracer_tpu_torch.ops.envmap import env_pdf
-from pathtracer_tpu_torch.ops.lights import light_pdf, light_sample
+from pathtracer_tpu_torch.ops.lights import occlude
+from pathtracer_tpu_torch.ops.lights_cuda import eval_light_pdf, sample_lights
 from pathtracer_tpu_torch.ops.materials import material_by_geom
 from pathtracer_tpu_torch.ops.shade_cuda import eval_lobes, scatter_lobes
 from pathtracer_tpu_torch.ops.texture import bilinear_sample_u32_meta
@@ -257,7 +258,6 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     note = trace.update if trace is not None else (lambda **_: None)
     present = static.material_types
     alive = s.alive
-    pixel_idx = s.lane + pixel0 if pixel0 else s.lane
     if s.meta is None:
         rng_it, rng_dp = iteration, depth
     else:
@@ -297,12 +297,11 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
         if nee_live(static, env_nee):
             if mark is not None:
                 mark(profiling.NEE)
-            li_rand = rng.pixel_uniforms(key, rng_it, rng_dp, rng.STAGE_LIGHT, pixel_idx,
-                                         4 if env_nee else 3)
-            lrec = light_sample(flat, static, hit.point, li_rand, enabled=nee_on,
-                                include_env=env_nee, shadow_sort=shadow_sort, route=route,
-                                mark=mark)
-            wi = m.normalize(lrec.pos - hit.point)
+            lrec = occlude(flat, static,
+                           sample_lights(flat, static, hit.point, key, rng_it, rng_dp, s.lane,
+                                         pixel0, enabled=nee_on, include_env=env_nee),
+                           shadow_sort=shadow_sort, route=route, mark=mark)
+            wi = lrec.dir
             bsdf, _ = eval_lobes(params, nrm, s.d, wi, present=present)
             nee = (
                 s.color * bsdf * lrec.emit
@@ -318,7 +317,8 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     # light hit term
     light_color = s.color * srec.bsdf / torch.clamp(srec.pdf, min=1e-38)[..., None]
     if mode == SampleMode.MIS:
-        lp = light_pdf(flat, static, s.o, hit.point, nrm, hit.tri, hit.geom, include_env=env_nee)
+        lp = eval_light_pdf(flat, static, s.o, hit.point, nrm, hit.tri, hit.geom,
+                            include_env=env_nee)
         weight = torch.where(s.prev_pdf > 0.0, m.power_heuristic(s.prev_pdf, lp), 1.0)
         light_color = light_color * weight[..., None]
     add_light = alive & pdf_ok & is_light
@@ -333,12 +333,11 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
         if nee_live(static, env_nee):
             if mark is not None:
                 mark(profiling.NEE)
-            li_rand = rng.pixel_uniforms(key, rng_it, rng_dp, rng.STAGE_LIGHT, pixel_idx,
-                                         4 if env_nee else 3)
-            lrec = light_sample(flat, static, hit.point, li_rand, enabled=cont & ~is_delta,
-                                include_env=env_nee, shadow_sort=shadow_sort, route=route,
-                                mark=mark)
-            wi = m.normalize(lrec.pos - hit.point)
+            lrec = occlude(flat, static,
+                           sample_lights(flat, static, hit.point, key, rng_it, rng_dp, s.lane,
+                                         pixel0, enabled=cont & ~is_delta, include_env=env_nee),
+                           shadow_sort=shadow_sort, route=route, mark=mark)
+            wi = lrec.dir
             li_bsdf, b_pdf = eval_lobes(params, nrm, s.d, wi, present=present)
             w = m.power_heuristic(lrec.pdf, b_pdf)
             nee = (

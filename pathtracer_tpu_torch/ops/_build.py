@@ -24,10 +24,11 @@ other kernel builds no other library.
 
 Every kernel is launched through `launch`, which also counts it: the
 launch table `LAUNCHES` gives each counted entry point its tag (K1-K5 the
-triangle walks, S1/S2 the analytic sweep, M1/M2 the material lobes, P1/P2
-the probes), and `launches` holds the launches by tag in this process
-(integrator/graphs.py adds a graph's at each of its replays).  The argument
-checks that the kernels' wrappers share sit beside it.
+triangle walks, S1/S2 the analytic sweep, M1/M2 the material lobes, L1/L2
+the light side of NEE, P1/P2 the probes), and `launches` holds the
+launches by tag in this process (integrator/graphs.py adds a graph's at
+each of its replays).  The argument checks that the kernels' wrappers
+share sit beside it.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ from types import SimpleNamespace
 
 import torch
 
+from pathtracer_tpu_torch.utils import rng
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -52,6 +55,11 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+_M32 = 0xFFFFFFFF
+# csrc/lights.cu Lights: light_geom, light_tri, rows, num, fl, inv_l, geom_type, geom_mat,
+# light_geoms, num_geoms, mat, mat_s, xf, inv, tri, tri_s
+_LIGHT_TABLES = [_P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P, _P, _P, _I, _P, _I,
+                 _P, _P, _P, _I]
 # C entry point -> argtypes: c_void_p for every pointer and the stream
 ARGTYPES = {
     "pt_closest_hit_wbvh": [_P] * 11 + [_I, _P],
@@ -66,6 +74,10 @@ ARGTYPES = {
     "pt_scatter_lobes": [_P, _I] * 9 + [_U] * 3 + [_P, _I, _U] * 2 + [_P] * 3 + [_I, _P],
     "pt_eval_lobes": [_P, _I] * 7 + [_P] * 2 + [_I, _P],
     "pt_scatter_draw": [_P, _I] + [_U] * 3 + [_P, _I, _U] * 2 + [_P, _I, _P],
+    # csrc/lights.cu: columns and the draw as in shade.cu, then the scene's tables
+    "pt_sample_lights": [_P, _I] * 3 + [_U] * 3 + [_P, _I, _U] * 2 + _LIGHT_TABLES + [_P] * 7
+    + [_I, _P],
+    "pt_light_pdf": [_P, _I] * 5 + _LIGHT_TABLES + [_P, _I, _P],
     "pt_probe_rowprim": [_P] * 3 + [_I, _I, _P],
     "pt_probe_pop": [_I] + [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
     "pt_stamp": [_P, _P, _I, _I, _I, _I, _P],
@@ -79,6 +91,7 @@ LAUNCHES = {
     "K4": "pt_occlusion_stream", "K5": "pt_closest_hit_blockmajor",
     "S1": "pt_sweep_closest", "S2": "pt_sweep_occluded",
     "M1": "pt_scatter_lobes", "M2": "pt_eval_lobes",
+    "L1": "pt_sample_lights", "L2": "pt_light_pdf",
     "P1": "pt_probe_rowprim", "P2": "pt_probe_pop",
 }
 _TAG = {entry: tag for tag, entry in LAUNCHES.items()}
@@ -90,6 +103,7 @@ KERNELS = (
     "closest_hit_stream_kernel", "occlusion_stream_kernel", "closest_hit_blockmajor_kernel",
     "sweep_closest_kernel", "sweep_occluded_kernel",
     "scatter_lobes_kernel", "eval_lobes_kernel", "scatter_draw_kernel",
+    "sample_lights_kernel", "light_pdf_kernel",
     "p1_rowprim_kernel",
     *(f"p2_{v}_kernel" for v in (
         "loop_empty", "while_empty", "loop_and", "loop_only", "loads", "loads4", "aabb", "any1",
@@ -303,6 +317,62 @@ def device_type(t, what: str) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cpu or cuda tensors, not {t.device}")
     return t.device.type
+
+
+def lanes(what: str, col, *vecs) -> str:
+    """The device type of lanes given by (N,) column `col` and (N, 3)
+    direction columns `vecs`, their shapes checked; `what` names the
+    kernels in the message."""
+    if col.dim() != 1:
+        raise ValueError(f"a lane column must be (N,): {tuple(col.shape)}")
+    for v in vecs:
+        if v.shape != (col.shape[0], 3):
+            raise ValueError(f"directions must be (N, 3) for {col.shape[0]} lanes: "
+                             f"{tuple(v.shape)}")
+    return device_type(col, what)
+
+
+def column(t, name: str, n: int, width: int, dtype, device) -> tuple:
+    """(pointer, stride between lanes in elements) of an (n,) or (n, 3)
+    input column, checked: its card, dtype and shape, and a row's three
+    values adjacent."""
+    want = (n,) if width == 1 else (n, width)
+    if tuple(t.shape) != want:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if width > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name} must hold a lane's {width} values adjacent")
+    return t.data_ptr(), t.stride(0)
+
+
+def counter(x, name: str, n: int, device) -> tuple:
+    """(pointer, stride, immediate) of an RNG counter field: an int is an
+    immediate (null pointer); a 0-d or one-element int32 tensor is one word
+    on the card (stride 0); an (n,) int32 tensor is one word a lane."""
+    if not isinstance(x, torch.Tensor):
+        return None, 0, int(x) & _M32
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != torch.int32:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected torch.int32")
+    if x.dim() <= 1 and x.numel() == 1:
+        return x.data_ptr(), 0, 0
+    if tuple(x.shape) == (n,):
+        return x.data_ptr(), x.stride(0), 0
+    raise ValueError(f"{name} must be an int, a one-word tensor or (N,): {tuple(x.shape)}")
+
+
+def draw_args(key, iteration, depth, lane, pixel0: int) -> tuple:
+    """The draw's arguments of the C entry points, from the lane column on."""
+    n, dev = lane.shape[0], lane.device
+    if not isinstance(depth, torch.Tensor) and int(depth) > rng.MAX_DEPTH:
+        raise ValueError(f"depth {depth} does not fit the counter's 8 depth bits")
+    k0, k1 = (int(k) & _M32 for k in key)
+    return (*column(lane, "lane", n, 1, torch.int32, dev), int(pixel0) & _M32, k0, k1,
+            *counter(iteration, "iteration", n, dev), *counter(depth, "depth", n, dev))
 
 
 def check_rays(o, d) -> None:

@@ -11,6 +11,8 @@ Port of `pathtracer_tpu/ops/lights.py`, quirks included:
   nothing for them, and light_pdf returns -1 for them;
 - the shadow ray starts at viewPos + 1e-5 * dir and goes through
   ops/traverse.occlusion_test (the K2 kernel for triangles);
+- on the card, ops/lights_cuda.py runs the sampling before the shadow test
+  (L1, with its STAGE_LIGHT draw) and `light_pdf` (L2) one thread a lane;
 - occluded => pdf = -1 and emit = 0;
 - with `include_env` the environment is one more light, the last of
   L + 1: importance-sampled (`ops/envmap.py`), its light position 1e7 out
@@ -33,13 +35,24 @@ from pathtracer_tpu_torch.ops.traverse import occlusion_test
 from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
 
 
+class LightSample(NamedTuple):
+    """One light sample a lane, before the shadow test."""
+    pos: torch.Tensor     # (N, 3) the light point
+    emit: torch.Tensor    # (N, 3)
+    pdf: torch.Tensor     # (N,)  0 for a cube light, -1 when no light is sampled
+    origin: torch.Tensor  # (N, 3) the shadow ray's: view point + 1e-5 * dir
+    dir: torch.Tensor     # (N, 3) normalize(pos - view point)
+    occ_on: torch.Tensor  # (N,) bool: the lanes whose shadow ray is traced
+
+
 class LightSampleRecord(NamedTuple):
     pos: torch.Tensor   # (N, 3)
     emit: torch.Tensor  # (N, 3)
     pdf: torch.Tensor   # (N,)  (-1 = occluded / invalid)
+    dir: torch.Tensor   # (N, 3) normalize(pos - view point), the shadow ray's
 
 
-def _inv_count(n: int) -> float:
+def inv_count(n: int) -> float:
     """1/n rounded to float32, as the JAX package's 1.0 / jnp.float32(n)."""
     return float(np.float32(1.0) / np.float32(n))
 
@@ -94,29 +107,30 @@ def _emit_by_geom(flat: FlatScene, static: SceneStatic, geom_idx):
     return table[geom_idx.long()]
 
 
-def light_sample(
-    flat: FlatScene, static: SceneStatic, view_pos, rands, enabled=None,
-    include_env: bool = False, shadow_sort: bool = False, route=None, mark=None,
-) -> LightSampleRecord:
-    """Sample one light per ray, with occlusion.  `rands` is (N, 3): col 0
-    the light pick, cols 1-2 the area/cone sample; (N, 4) with
+def _light_ids(rands, num_sampled: int):
+    """Each lane's light: min(u * L_eff, L_eff - 1) of the draw's column 0."""
+    fl = float(num_sampled)
+    return torch.clamp(rands[:, 0] * fl, max=fl - 1.0).to(torch.int32)
+
+
+def light_samples(flat: FlatScene, static: SceneStatic, view_pos, rands, enabled=None,
+                  include_env: bool = False) -> LightSample:
+    """One light sample per lane, before the shadow test.  `rands` is (N, 3):
+    col 0 the light pick, cols 1-2 the area/cone sample; (N, 4) with
     `include_env`, col 3 the env texel jitter's second axis.  `enabled`
-    masks lanes whose NEE term is zero downstream: their shadow rays are not
-    traced.  `shadow_sort` sorts the shadow rays for the kernel, `route`
-    picks the triangle walk and `mark` stamps its kernel
-    (ops/traverse.occlusion_test)."""
+    masks lanes whose NEE term is zero downstream: their shadow rays are
+    not traced.  Every light's branch runs over every lane (the plain
+    version of ops/lights_cuda.py's L1)."""
     N = view_pos.shape[0]
     dev = view_pos.device
     L = static.num_lights
     L_eff = L + (1 if include_env else 0)
+    light_pos = torch.zeros((N, 3), device=dev)
     if L_eff == 0:
-        return LightSampleRecord(
-            pos=torch.zeros((N, 3), device=dev),
-            emit=torch.zeros((N, 3), device=dev),
-            pdf=torch.full((N,), -1.0, device=dev),
-        )
-    fl = float(L_eff)
-    light_id = torch.clamp(rands[:, 0] * fl, max=fl - 1.0).to(torch.int32)
+        emit = torch.zeros((N, 3), device=dev)
+        pdf = torch.full((N,), -1.0, device=dev)
+        return shadow_rays(view_pos, light_pos, emit, pdf, enabled)
+    light_id = _light_ids(rands, L_eff)
     is_env = light_id >= L
     lid = light_id.clamp(0, flat.light_geom.shape[0] - 1).long()
     geom_id = flat.light_geom[lid]
@@ -124,9 +138,7 @@ def light_sample(
     emit = _emit_by_geom(flat, static, geom_id)
 
     xi = rands[:, 1:3]
-    inv_l = _inv_count(L_eff)
-
-    light_pos = torch.zeros((N, 3), device=dev)
+    inv_l = inv_count(L_eff)
     pdf = torch.zeros((N,), device=dev)
 
     is_tri = tri_id >= 0
@@ -154,34 +166,69 @@ def light_sample(
         pdf = torch.where(sel, pdf_i * inv_l, pdf)
 
     if include_env:
-        env_dir, env_le, env_pdf_w = sample_env(flat, static, xi[:, 0], xi[:, 1], rands[:, 3])
-        em = is_env[..., None]
-        light_pos = torch.where(em, view_pos + env_dir * 1e7, light_pos)
-        pdf = torch.where(is_env, env_pdf_w * inv_l, pdf)
-        emit = torch.where(em, env_le, emit)
+        light_pos, emit, pdf = env_lights(flat, static, view_pos, rands, light_pos, emit, pdf)
+    return shadow_rays(view_pos, light_pos, emit, pdf, enabled)
 
+
+def env_lights(flat: FlatScene, static: SceneStatic, view_pos, rands, light_pos, emit, pdf):
+    """(light_pos, emit, pdf) with the environment's lanes filled in: the
+    lanes whose pick is light L of L + 1 take `sample_env`'s direction (the
+    light point 1e7 out along it), radiance and pdf."""
+    is_env = _light_ids(rands, static.num_lights + 1) >= static.num_lights
+    env_dir, env_le, env_pdf_w = sample_env(flat, static, rands[:, 1], rands[:, 2], rands[:, 3])
+    em = is_env[..., None]
+    light_pos = torch.where(em, view_pos + env_dir * 1e7, light_pos)
+    pdf = torch.where(is_env, env_pdf_w * inv_count(static.num_lights + 1), pdf)
+    emit = torch.where(em, env_le, emit)
+    return light_pos, emit, pdf
+
+
+def shadow_rays(view_pos, light_pos, emit, pdf, enabled=None) -> LightSample:
+    """The light samples with their shadow rays: from view_pos + 1e-5 * dir
+    along dir = normalize(light_pos - view_pos), traced where pdf > 0 and
+    `enabled`."""
     ray_dir = m.normalize(light_pos - view_pos)
     occ_on = pdf > 0.0 if enabled is None else (pdf > 0.0) & enabled
+    return LightSample(pos=light_pos, emit=emit, pdf=pdf, origin=view_pos + 1e-5 * ray_dir,
+                       dir=ray_dir, occ_on=occ_on)
+
+
+def occlude(flat: FlatScene, static: SceneStatic, ls: LightSample, shadow_sort: bool = False,
+            route=None, mark=None) -> LightSampleRecord:
+    """The light samples after their shadow test (ops/traverse.occlusion_test):
+    an occluded lane's pdf is -1 and its emission 0.  `shadow_sort` sorts
+    the shadow rays for the kernel, `route` picks the triangle walk and
+    `mark` stamps its kernel."""
     occ = occlusion_test(
-        flat, static, view_pos + 1e-5 * ray_dir, ray_dir, light_pos, enabled=occ_on,
+        flat, static, ls.origin, ls.dir, ls.pos, enabled=ls.occ_on,
         shadow_sort=shadow_sort, route=route, mark=mark,
     )
-    pdf = torch.where(occ, -1.0, pdf)
-    emit = torch.where(occ[..., None], 0.0, emit)
-    return LightSampleRecord(pos=light_pos, emit=emit, pdf=pdf)
+    return LightSampleRecord(pos=ls.pos, emit=torch.where(occ[..., None], 0.0, ls.emit),
+                             pdf=torch.where(occ, -1.0, ls.pdf), dir=ls.dir)
+
+
+def light_sample(
+    flat: FlatScene, static: SceneStatic, view_pos, rands, enabled=None,
+    include_env: bool = False, shadow_sort: bool = False, route=None, mark=None,
+) -> LightSampleRecord:
+    """Sample one light per ray, with occlusion: `light_samples`, then
+    `occlude`."""
+    return occlude(flat, static, light_samples(flat, static, view_pos, rands, enabled, include_env),
+                   shadow_sort=shadow_sort, route=route, mark=mark)
 
 
 def light_pdf(flat: FlatScene, static: SceneStatic, view_pos, light_pos, normal, tri_id, geom_id,
               include_env: bool = False):
     """Light pdf of a BSDF-sampled hit (the MIS weight's other term); -1 for
     geometries with no sampling branch (cube lights).  `include_env` counts
-    the environment as one more light."""
+    the environment as one more light.  One branch per sphere geom over
+    every lane (the plain version of ops/lights_cuda.py's L2)."""
     N = view_pos.shape[0]
     L = static.num_lights + (1 if include_env else 0)
     pdf = torch.full((N,), -1.0, device=view_pos.device)
     if L == 0:
         return pdf
-    inv_l = _inv_count(L)
+    inv_l = inv_count(L)
 
     is_tri = tri_id >= 0
     v0, v1, v2, *_ = _tri_light_geometry(flat, tri_id)

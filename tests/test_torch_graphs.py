@@ -283,11 +283,11 @@ def test_graph_route(route):
 
 def test_launch_table():
     """One entry point a tag, each a C entry point of the kernels; K1-K5
-    first, then S1, S2, M1, M2, P1, P2.  `launch_counts` reads K1-K5 from
-    the table in order, and the compiled iteration imports none of the
+    first, then S1, S2, M1, M2, L1, L2, P1, P2.  `launch_counts` reads K1-K5
+    from the table in order, and the compiled iteration imports none of the
     kernels' modules: their launches reach it through the table alone."""
     assert tuple(_build.LAUNCHES) == ("K1", "K2", "K3", "K4", "K5", "S1", "S2", "M1", "M2",
-                                      "P1", "P2")
+                                      "L1", "L2", "P1", "P2")
     entries = list(_build.LAUNCHES.values())
     assert len(set(entries)) == len(entries) and set(entries) <= set(_build.ARGTYPES)
     was = dict(_build.launches)
@@ -302,7 +302,8 @@ def test_launch_table():
             imported |= {node.module or ""} | {a.name for a in node.names}
         elif isinstance(node, ast.Import):
             imported |= {a.name for a in node.names}
-    kernel_modules = {"traverse_cuda", "traverse_stream_cuda", "sweep_cuda", "shade_cuda", "probes"}
+    kernel_modules = {"traverse_cuda", "traverse_stream_cuda", "sweep_cuda", "shade_cuda",
+                      "lights_cuda", "probes"}
     assert not {name.rsplit(".", 1)[-1] for name in imported} & kernel_modules
 
 

@@ -117,6 +117,7 @@ PORT_MODULES = [
     "pathtracer_tpu_torch.ops.envmap",
     "pathtracer_tpu_torch.ops.intersect",
     "pathtracer_tpu_torch.ops.lights",
+    "pathtracer_tpu_torch.ops.lights_cuda",
     "pathtracer_tpu_torch.ops.materials",
     "pathtracer_tpu_torch.ops.math",
     "pathtracer_tpu_torch.ops.probes",

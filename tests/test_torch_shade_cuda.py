@@ -141,21 +141,21 @@ def test_wrapper_arguments_are_checked(cornell):
     # what the CUDA branch refuses before a launch
     dev = lane.device
     with pytest.raises(ValueError, match="dtype"):
-        sh._col(nrm.double(), "n", 16, 3, torch.float32, dev)
+        _build.column(nrm.double(), "n", 16, 3, torch.float32, dev)
     with pytest.raises(ValueError, match="adjacent"):
-        sh._col(nrm.t().contiguous().t(), "n", 16, 3, torch.float32, dev)
+        _build.column(nrm.t().contiguous().t(), "n", 16, 3, torch.float32, dev)
     with pytest.raises(ValueError, match="shape"):
-        sh._col(p.roughness[:4], "roughness", 16, 1, torch.float32, dev)
+        _build.column(p.roughness[:4], "roughness", 16, 1, torch.float32, dev)
     with pytest.raises(ValueError, match="int32"):
-        sh._counter(torch.tensor(3), "depth", 16, dev)
+        _build.counter(torch.tensor(3), "depth", 16, dev)
     with pytest.raises(ValueError, match="one-word"):
-        sh._counter(torch.zeros(4, dtype=torch.int32), "depth", 16, dev)
-    assert sh._counter(2**32 + 5, "iteration", 16, dev) == (None, 0, 5)
+        _build.counter(torch.zeros(4, dtype=torch.int32), "depth", 16, dev)
+    assert _build.counter(2**32 + 5, "iteration", 16, dev) == (None, 0, 5)
     word = torch.tensor(9, dtype=torch.int32)
-    assert sh._counter(word, "iteration", 16, dev) == (word.data_ptr(), 0, 0)
+    assert _build.counter(word, "iteration", 16, dev) == (word.data_ptr(), 0, 0)
     # a strided column (a row of the material table) is read in place
     rows = torch.zeros((16, 6))
-    assert sh._col(rows[:, 0:3], "albedo", 16, 3, torch.float32, dev) == (rows.data_ptr(), 6)
+    assert _build.column(rows[:, 0:3], "albedo", 16, 3, torch.float32, dev) == (rows.data_ptr(), 6)
 
 
 def _marshalling(monkeypatch):
@@ -170,9 +170,9 @@ def _marshalling(monkeypatch):
     def scatter(p, n, wo, key, iteration, depth, lane, pixel0=0, present=None):
         count, dev = lane.shape[0], lane.device
         sh._material(p, count, dev, full=True)
-        sh._col(n, "n", count, 3, torch.float32, dev)
-        sh._col(wo, "wo", count, 3, torch.float32, dev)
-        sh._draw_args(key, iteration, depth, lane, pixel0)
+        _build.column(n, "n", count, 3, torch.float32, dev)
+        _build.column(wo, "wo", count, 3, torch.float32, dev)
+        _build.draw_args(key, iteration, depth, lane, pixel0)
         seen.add((form(iteration), form(depth)))
         return sh.scatter_lobes_plain(p, n, wo, key, iteration, depth, lane, pixel0, present)
 
@@ -180,7 +180,7 @@ def _marshalling(monkeypatch):
         count, dev = p.type.shape[0], p.type.device
         sh._material(p, count, dev, full=False)
         for name, v in (("n", n), ("wo", wo), ("wi", wi)):
-            sh._col(v, name, count, 3, torch.float32, dev)
+            _build.column(v, name, count, 3, torch.float32, dev)
         seen.add("eval")
         return sh.eval_lobes_plain(p, n, wo, wi, present)
 

@@ -1,14 +1,16 @@
-"""The material lobes' kernels on the card: `chip_smoke.py`'s phases 1, 2
-and 23 alone.
+"""The material lobes' and the light side's kernels on the card:
+`chip_smoke.py`'s phases 1, 2, 23 and 24 alone.
 
     python tools/shade_kernels.py
 
 Prints the card's name and power limit and builds the kernels (phases 1-2),
-then runs phase 23 on cornell_spheres (all five materials) and glasstorus
-at 800x800: M1 (csrc/shade.cu scatter_lobes) and M2 (eval_lobes) bit for bit
-against their plain versions on the main path's shading inputs, M1's draw
-word for word against utils/rng.py, and each kernel's and plain version's
-median time beside its bound.  The last line is the kernels' rows as JSON.
+then runs phases 23 and 24 on cornell_spheres (all five materials) and
+glasstorus at 800x800: M1 (csrc/shade.cu scatter_lobes) and M2 (eval_lobes)
+bit for bit against their plain versions on the main path's shading inputs,
+M1's draw word for word against utils/rng.py, L1 (csrc/lights.cu
+sample_lights) and L2 (eval_light_pdf) bit for bit against theirs on its NEE
+inputs, and each kernel's and plain version's median time beside its bound.
+The last line is the kernels' rows as JSON.
 Exits 0 when every check holds.
 """
 
@@ -34,9 +36,10 @@ def main() -> int:
     for scene, path in (("cornell_spheres", cs.SCENE_CORNELL), ("glasstorus", cs.SCENE)):
         r = cs.build_renderer(path)[0]
         got = cs.phase_shade_kernels(r, scene)
+        got.update(cs.phase_light_kernels(r, scene))
         rows.update({f"{k} {scene}": v for k, v in got.items()})
         del r
-    cs.log(f"shade_kernels: phase 23 passed on {smi}, {time.perf_counter() - t0:.1f} s in all")
+    cs.log(f"shade_kernels: phases 23 and 24 passed on {smi}, {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": [
         {"name": name, "source": src, "replaces": rep, "max_abs_err": err, "ms": ms,
          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
