@@ -19,7 +19,9 @@ between, each judged by that comparison against the float32 reference:
     python3 benchmark/control.py --workload glasstorus.mis --seeds 11 12 13 --iterations 4
     python3 benchmark/control.py --workload glasstorus.mis --variant rounded --seeds 11 --iterations 550
 
-Each seed prints one JSON line with the two compared numbers.  `--device
+Every reference here is built for the cell's mix: with its
+`env_importance`, an environment map is sampled as a light, as the program
+samples it.  Each seed prints one JSON line with the two compared numbers.  `--device
 cpu --res 32x16` runs it small (benchmark/tests).  The benchmark's own runs
 never run it.
 """
@@ -38,13 +40,23 @@ if str(ROOT) not in sys.path:
 
 
 def _setup(name, device, resolution):
+    """(reference of the cell's scene in a dtype, MIS, film, swizzle)."""
+    import torch
+
     from benchmark.lib import cells
+    from benchmark.reference.render import Reference
 
     c = cells.cell(name)
     cfg, mix = c["config"], c["traffic"]
     res = tuple(resolution or cfg["film"])
-    swizzle = int(cfg.get("devices", 1)) == 1 and mix.get("options", {}).get("swizzle", True)
-    return cells.ROOT / cfg["scene"], mix["mode"] == "mis", res, swizzle
+    opts = mix.get("options", {})
+    swizzle = int(cfg.get("devices", 1)) == 1 and opts.get("swizzle", True)
+    env = bool(opts.get("env_importance", False))
+
+    def reference(dtype=torch.float32):
+        return Reference(cells.ROOT / cfg["scene"], device, dtype=dtype, resolution=res, env_importance=env)
+
+    return reference, mix["mode"] == "mis", res, swizzle
 
 
 @contextlib.contextmanager
@@ -90,16 +102,15 @@ def rounded_numbers(name: str, seed: int, iterations: int, device: str = "cuda",
 
     from benchmark.lib import check
     from benchmark.reference import rng
-    from benchmark.reference.render import Reference
 
-    scene, mis, res, swizzle = _setup(name, device, resolution)
-    ref = Reference(scene, device, resolution=res)
+    reference, mis, res, swizzle = _setup(name, device, resolution)
+    ref = reference()
     swizzle = swizzle and ref.bvh is not None
     key = rng.base_key(seed)
     npix = res[0] * res[1]
     sample = check.film_sample(seed, npix)
     with rounded_once():
-        var = Reference(scene, device, resolution=res)
+        var = reference()
         counters = var.counters(swizzle)
         frame = check.radiance(var, key, mis, counters, torch.arange(npix, device=device),
                                iterations).float().cpu().numpy()
@@ -124,11 +135,10 @@ def control_numbers(name: str, seed: int, iterations: int, device: str = "cuda",
 
     from benchmark.lib import check
     from benchmark.reference import rng
-    from benchmark.reference.render import Reference
 
-    scene, mis, res, swizzle = _setup(name, device, resolution)
-    ref = Reference(scene, device, resolution=res)
-    low = Reference(scene, device, dtype=torch.bfloat16, resolution=res)
+    reference, mis, res, swizzle = _setup(name, device, resolution)
+    ref = reference()
+    low = reference(torch.bfloat16)
     swizzle = swizzle and ref.bvh is not None
     key = rng.base_key(seed)
     npix = res[0] * res[1]

@@ -239,7 +239,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
     walk = None
     if trace:
         t0 = time.perf_counter()
-        ref = Reference(scene, ref_dev, resolution=res)
+        ref = Reference(scene, ref_dev, resolution=res, env_importance=opts.env_importance)
         walk = _walk_roofline(r, ref, key, devs)
         del ref
         phase["walk"] = time.perf_counter() - t0
@@ -252,7 +252,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
     phase["free"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    ref = Reference(scene, ref_dev, resolution=res)
+    ref = Reference(scene, ref_dev, resolution=res, env_importance=opts.env_importance)
     m["checks"] = check.compare(ref, key, mode == SampleMode.MIS, swizzle, film, film_before,
                                 last - last_step + 1, last, check.film_sample(seed, res[0] * res[1]))
     phase["reference"] = time.perf_counter() - t0

@@ -29,6 +29,17 @@ heuristic and prevPdf -1 after a delta lobe; NaN and Inf scrubbed before
 each add; a path ends after `depth` bounces.  BSDF mode has no NEE and no
 MIS weight.
 
+An environment map (an ENV line) lights the rays that miss everything: the
+texel along the ray, bilinear with clamp to edge (x = u * (W - 1)), at
+the equirect coordinates u = atan2(z, x) / 2 pi + 1 mod 1, v =
+atan2(y, hypot(x, z)) / pi + 1/2.  With `env_importance` (the traffic's
+option of that name) MIS samples the sky as one more light, the last of
+L + 1: a texel picked with probability lum * sin(theta) through one flat
+CDF over all texels (the first entry above u), jittered within it, its pdf
+per solid angle the texel's joint pdf / (2 pi^2 cos(elevation)), its light
+point 1e7 out along the direction; a ray that escapes is then weighted by
+the power heuristic against that pdf / (L + 1).
+
 `dtype` sets the precision of every floating-point value (float32 as the
 scene states; bfloat16 is the benchmark's control).
 """
@@ -76,6 +87,22 @@ def process_nan(v):
 def power_heuristic(f, g):
     f2, g2 = f * f, g * g
     return f2 / torch.where(f2 + g2 == 0.0, 1e-38, f2 + g2)
+
+
+def hypot(a, b):
+    """max * sqrt(1 + (min / max)^2), 0 where both are 0."""
+    a, b = torch.abs(a), torch.abs(b)
+    hi, lo = torch.maximum(a, b), torch.minimum(a, b)
+    q = lo / torch.where(hi == 0.0, 1.0, hi)
+    r = torch.where(hi == 0.0, hi, hi * torch.sqrt(1.0 + q * q))
+    return torch.where(torch.isinf(a) | torch.isinf(b), torch.inf, r)
+
+
+def sphere_to_plane(d):
+    """(u, v) in [0, 1] of directions `d` on the equirect map, up at v = 1."""
+    u = torch.remainder(torch.atan2(d[..., 2], d[..., 0]) * INV_PI * 0.5 + 1.0, 1.0)
+    v = torch.clamp(torch.atan2(d[..., 1], hypot(d[..., 0], d[..., 2])) * INV_PI + 0.5, min=0.0)
+    return u, v
 
 
 def xform_point(m, p):
@@ -264,9 +291,11 @@ def pdf_eval(mtype, rough, metal, n, d, wi):
 
 
 class Reference:
-    """The scene on `device` in `dtype`, ready to trace paths."""
+    """The scene on `device` in `dtype`, ready to trace paths;
+    `env_importance` samples its environment map as a light under MIS."""
 
-    def __init__(self, scene_path, device, dtype=torch.float32, resolution=None):
+    def __init__(self, scene_path, device, dtype=torch.float32, resolution=None,
+                 env_importance: bool = False):
         sc = load(scene_path, resolution)
         self.sc, self.device, self.dtype = sc, torch.device(device), dtype
         f = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)  # noqa: E731
@@ -284,6 +313,20 @@ class Reference:
         self.cam = {k: f(v) for k, v in sc.cam.items()}
         self.analytic = [(gi, g) for gi, g in enumerate(sc.geom_type) if g in (SPHERE, CUBE)]
         self.big = torch.finfo(dtype).max
+        self.env = self.env_cdf = self.env_pdf = None
+        self.env_nee = bool(env_importance) and sc.env is not None
+        self.n_lights = len(sc.lights) + int(self.env_nee)
+        if sc.env is not None:
+            img = sc.env
+            lum = 0.2126 * img[..., 0] + 0.7152 * img[..., 1] + 0.0722 * img[..., 2]
+            h = img.shape[0]
+            wt = (lum * np.sin((0.5 + np.arange(h)) / h * np.pi)[:, None]).astype(np.float64)
+            cdf = np.zeros(wt.size + 1, np.float64)
+            np.cumsum(wt.reshape(-1), out=cdf[1:])
+            cdf /= cdf[-1] if cdf[-1] > 0 else 1.0
+            mean = wt.mean() if wt.mean() > 0 else 1.0
+            self.env, self.env_cdf = f(img), f(cdf.astype(np.float32))
+            self.env_pdf = f((wt / mean).astype(np.float32))
 
     # -- film ---------------------------------------------------------------
     def counters(self, swizzle: bool) -> torch.Tensor:
@@ -426,6 +469,49 @@ class Reference:
             occ = occ | bvh_mod.occluded(self.bvh, ori, d, min_t, enabled & ~occ)
         return occ
 
+    # -- environment ---------------------------------------------------------------
+    def env_radiance(self, u, v):
+        """(N, 3) bilinear radiance of the map at (u, v)."""
+        h, w = self.env.shape[:2]
+        x, y = u * float(w - 1), v * float(h - 1)
+        fl_x, fl_y = torch.floor(x), torch.floor(y)
+        lx, ly = fl_x.to(torch.int32), fl_y.to(torch.int32)
+        ux = torch.where(x + 1.0 >= float(w), lx, lx + 1)
+        uy = torch.where(y + 1.0 >= float(h), ly, ly + 1)
+        fx, fy = (x - fl_x)[..., None], (y - fl_y)[..., None]
+        tex = self.env.reshape(-1, 3)
+
+        def at(ix, iy):
+            return tex[torch.clamp(iy * w + ix, 0, h * w - 1).long()]
+
+        p1 = at(lx, ly) * (1.0 - fx) + at(ux, ly) * fx
+        p2 = at(lx, uy) * (1.0 - fx) + at(ux, uy) * fx
+        return p1 * (1.0 - fy) + p2 * fy
+
+    def env_sample(self, u1, u2, u3):
+        """(dir, radiance, pdf per solid angle) of the map's importance
+        sample: u1 picks the texel, u2 and u3 jitter within it."""
+        h, w = self.env_pdf.shape
+        idx = torch.clamp(torch.searchsorted(self.env_cdf, u1.contiguous(), right=True) - 1, 0, h * w - 1)
+        row, col = idx // w, idx % w
+        u = (col.to(self.dtype) + u2) / w
+        v = (row.to(self.dtype) + u3) / h
+        phi = TWO_PI * u
+        elev = PI * (v - 0.5)
+        cos_e = torch.cos(elev)
+        d = torch.stack([cos_e * torch.cos(phi), torch.sin(elev), cos_e * torch.sin(phi)], dim=-1)
+        pdf = self.env_pdf[row, col] / torch.clamp(2.0 * PI * PI * cos_e, min=1e-8)
+        return d, self.env_radiance(u, v), pdf
+
+    def env_pdf_of(self, d):
+        """The pdf per solid angle of `env_sample` for unit directions `d`."""
+        h, w = self.env_pdf.shape
+        u, v = sphere_to_plane(d)
+        col = torch.clamp((u * w).to(torch.int32), 0, w - 1).long()
+        row = torch.clamp((v * h).to(torch.int32), 0, h - 1).long()
+        cos_e = torch.sqrt(torch.clamp(1.0 - d[:, 1] * d[:, 1], min=1e-8))
+        return self.env_pdf[row, col] / torch.clamp(2.0 * PI * PI * cos_e, min=1e-8)
+
     # -- lights ------------------------------------------------------------------
     def cone_sample(self, gi, p, xi):
         """(light point, pdf) of a cone sample toward sphere light gi."""
@@ -451,11 +537,13 @@ class Reference:
         return 1.0 / (TWO_PI * (1.0 - cos_tm))
 
     def light_sample(self, p, r, enabled):
-        """(light point, emission, pdf; -1 when blocked) of one light per path."""
+        """(light point, emission, pdf; -1 when blocked) of one light per path;
+        `r` holds the pick, the sample's two numbers and with the sky as a
+        light its texel jitter's second."""
         lights = self.sc.lights
         n = p.shape[0]
-        nl = float(len(lights))
-        inv_l = float(np.float32(1.0) / np.float32(len(lights)))
+        nl = float(self.n_lights)
+        inv_l = float(np.float32(1.0) / np.float32(self.n_lights))
         lid = torch.clamp(r[:, 0] * nl, max=nl - 1.0).to(torch.int64)
         pos = torch.zeros((n, 3), dtype=self.dtype, device=self.device)
         pdf = torch.zeros((n,), dtype=self.dtype, device=self.device)
@@ -468,12 +556,18 @@ class Reference:
             lp, lpdf = self.cone_sample(gi, p, r[:, 1:3])
             pos = torch.where(sel[:, None], lp, pos)
             pdf = torch.where(sel, lpdf * inv_l, pdf)
+        if self.env_nee:
+            sel = lid == len(lights)
+            edir, ele, epdf = self.env_sample(r[:, 1], r[:, 2], r[:, 3])
+            pos = torch.where(sel[:, None], p + edir * 1e7, pos)
+            pdf = torch.where(sel, epdf * inv_l, pdf)
+            emit = torch.where(sel[:, None], ele, emit)
         wi = normalize(pos - p)
         occ = self.occluded(p + 1e-5 * wi, wi, pos, (pdf > 0.0) & enabled)
         return pos, torch.where(occ[:, None], 0.0, emit), torch.where(occ, -1.0, pdf)
 
     def light_pdf(self, o, geom):
-        inv_l = float(np.float32(1.0) / np.float32(max(len(self.sc.lights), 1)))
+        inv_l = float(np.float32(1.0) / np.float32(max(self.n_lights, 1)))
         pdf = torch.full(geom.shape, -1.0, dtype=self.dtype, device=self.device)
         for gi, gtype in self.analytic:
             if gtype == SPHERE:
@@ -512,9 +606,16 @@ class Reference:
                 light_color = light_color * torch.where(prev_pdf > 0.0, power_heuristic(prev_pdf, lp),
                                                         1.0)[..., None]
             c = c + torch.where((hit & (pdf != 0.0) & is_light)[..., None], process_nan(light_color), 0.0)
+            if self.env is not None:  # the sky along the rays that missed
+                sky = color * self.env_radiance(*sphere_to_plane(d))
+                if mis and self.env_nee:
+                    ep = self.env_pdf_of(d) / float(self.n_lights)
+                    sky = sky * torch.where(prev_pdf > 0.0, power_heuristic(prev_pdf, ep), 1.0)[..., None]
+                c = c + torch.where(~hit[..., None], process_nan(sky), 0.0)
             cont = hit & (pdf != 0.0) & ~is_light
-            if mis and self.sc.lights:
-                li_r = rng.uniforms(key, it, depth, rng.STAGE_LIGHT, counter[live], 3, self.dtype)
+            if mis and self.n_lights:
+                li_r = rng.uniforms(key, it, depth, rng.STAGE_LIGHT, counter[live], 3 + int(self.env_nee),
+                                    self.dtype)
                 on = cont & ~is_delta
                 lpos, lemit, lpdf = self.light_sample(point, li_r, on)
                 wi = normalize(lpos - point)

@@ -4,7 +4,11 @@ triangle meshes and the camera, as float32 arrays.
 Written from the scene format of the reference CUDA path tracer (the text
 format `tools/oracle.py` at commit ac61a2f8 also reads): MATERIAL blocks of
 six property lines, OBJECT blocks (`sphere`, `cube` or an OBJ path, a
-material, TRANS/ROTAT/SCALE), one CAMERA block.  Numbers are read as
+material, TRANS/ROTAT/SCALE), one CAMERA block, and at most one `ENV
+<file.hdr>` line, an equirect environment map in Radiance RGBE (flat
+scanlines, -Y H +X W, as `tools/make_texture_assets.py` writes), each texel c * 2^(e - 136) (0 where e is
+0), its rows flipped so that row 0 is the nadir, as stb_image loads it with
+the flip the reference applies.  Numbers are read as
 float32, the transform is T @ Rx @ Ry @ Rz @ S formed in float64 and
 rounded to float32, its inverse formed in float64 from the rounded matrix,
 mesh vertices and normals baked into world space in float64 and rounded, as
@@ -13,8 +17,8 @@ orbit rebuild: theta = degrees(sin(view.y)), the basis from (theta, phi),
 the pixel length from tan of the full FOVY.
 
 Only what the benchmark's scenes use is read: constant material
-properties, no textures, no environment map and no emissive mesh; anything
-else raises, so a configuration cannot use it unseen.
+properties, no textures and no emissive mesh; anything else raises, so a
+configuration cannot use it unseen.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ class Scene:
     tri_n: np.ndarray         # (T, 3, 3) float32 world-space corner normals
     tri_geom: np.ndarray      # (T,) int
     lights: list              # [(geom, type)]: analytic light objects in file order
+    env: np.ndarray | None    # (H, W, 3) float32 environment radiance, row 0 at the nadir
     width: int
     height: int
     depth: int
@@ -105,6 +110,26 @@ def _read_obj(path: Path):
     return pos, nrm
 
 
+def _read_hdr(path: Path) -> np.ndarray:
+    """(H, W, 3) float32 radiance of a Radiance RGBE file of flat scanlines,
+    file row 0 first."""
+    data = path.read_bytes()
+    if not data.startswith(b"#?"):
+        raise ValueError(f"{path}: not a Radiance file")
+    _, _, body = data.partition(b"\n\n")
+    size, _, body = body.partition(b"\n")
+    tk = size.split()
+    if len(tk) != 4 or tk[0] != b"-Y" or tk[2] != b"+X":
+        raise ValueError(f"{path}: only -Y H +X W images are read")
+    h, w = int(tk[1]), int(tk[3])
+    if len(body) != 4 * w * h:
+        raise ValueError(f"{path}: only flat scanlines are read, not run-length ones")
+    rgbe = np.frombuffer(body, np.uint8).reshape(h, w, 4)
+    e = rgbe[..., 3].astype(np.int64)
+    scale = np.where(e == 0, 0.0, np.ldexp(1.0, e - 136))
+    return (rgbe[..., :3].astype(np.float64) * scale[..., None]).astype(np.float32)
+
+
 def _camera(res, fovy, eye, lookat) -> dict:
     w, h = res
     v0 = np.asarray(lookat, np.float64) - np.asarray(eye, np.float64)
@@ -129,7 +154,7 @@ def load(path: str | Path, resolution: tuple | None = None) -> Scene:
     path = Path(path)
     lines = [ln.split("//")[0].split() if not ln.strip().startswith("//") else []
              for ln in path.read_text().splitlines()]
-    mats, mat_ids, geoms, cam = [], {}, [], {}
+    mats, mat_ids, geoms, cam, env = [], {}, [], {}, None
     i = 0
     while i < len(lines):
         tk = lines[i]
@@ -174,7 +199,9 @@ def load(path: str | Path, resolution: tuple | None = None) -> Scene:
                 cam[lines[i][0]] = lines[i][1:]
                 i += 1
         elif tk[0] == "ENV":
-            raise ValueError(f"{path}: environment maps are not read here")
+            if env is not None:
+                raise ValueError(f"{path}: one environment map is read")
+            env = np.ascontiguousarray(_read_hdr(path.parent / tk[1].replace("\\", "/"))[::-1])
 
     xf = np.stack([g[2] for g in geoms])
     inv = np.linalg.inv(xf.astype(np.float64))
@@ -209,6 +236,7 @@ def load(path: str | Path, resolution: tuple | None = None) -> Scene:
         tri_geom=np.concatenate(tri_g) if tri_g else np.zeros((0,), np.int64),
         lights=[(gi, g[0]) for gi, g in enumerate(geoms)
                 if g[0] != MESH and mats[g[1]]["type"] == LIGHT],
+        env=env,
         width=res[0], height=res[1], depth=int(cam["DEPTH"][0]),
         iterations=int(cam["ITERATIONS"][0]),
         cam=_camera(res, float(cam["FOVY"][0]), [_f(x) for x in cam["EYE"]],
