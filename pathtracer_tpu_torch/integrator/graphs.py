@@ -27,13 +27,15 @@ level, the running counters (rays, live count, lap index) and the
 contributions.  Its steps, one graph each (the key in brackets):
 
 - ("start",): camera rays into level 0's pool (`start_pool`); the rays and
-  the lap index zeroed;
+  the lap index zeroed (and, in a scene with an environment map, the count
+  of the lanes that cash its radiance, `env_lanes`);
 - ("lap", level, sort): one `lap_step` on level `level`'s pool, the sort in
   it or not; the next pool written back over it, its rays added, its live
   count stored, the lap index advanced;
 - ("down", level) and ("up", level): `level_down` into the next level's
   pool, and `merge_back` out of it;
-- ("finish",): `finish` into the contributions.
+- ("finish",): `finish` into the contributions, the env-missed lanes
+  added to `env_lanes`.
 
 Every key `schedule` can reach is captured in `prepare` (the Renderer's
 warm-up iteration, the JAX package's compile iteration), each after one
@@ -59,15 +61,16 @@ and its streaming tables' shape.
 
 Tracing (utils/profiling.py).  With tracing on, `run_lockstep` records the
 iteration's host spans, and each StaticIteration runs its traced steps:
-the same steps with stamps around each, at the lap's stage edges and
-around the triangle walks' kernels, written into its stamp table (one row
-a step, every lap in its own row from the lap counter on the card),
-captured as graphs of their own beside the untraced ones, so the
-untraced graphs keep their nodes and switching back captures nothing.
-One copy of the table an iteration goes to pinned memory behind the
-finish step; the tracer reads it later.  Each capture is recorded in
-`setup` (a `graph.capture` span with its `eager` and `instantiate`),
-tracing or not.
+the same steps with stamps around each, at the lap's stage edges, around
+the triangle walks' kernels and around the environment map's work (the
+sky's light samples in the NEE, the env resolve in the finish step),
+written into its stamp table (one row a step, every lap in its own row from
+the lap counter on the card), captured as graphs of their own beside the
+untraced ones, so the untraced graphs keep their nodes and switching back
+captures nothing.  One copy of the table an iteration goes to pinned
+memory behind the finish step; the tracer reads it later.  Each capture is
+recorded in `setup` (a `graph.capture` span with its `eager` and
+`instantiate`), tracing or not.
 
 With `graphs=False` each step runs eagerly on the same buffers: the loop
 the CPU tests hold to `render_iteration`.  There is no fallback: a capture
@@ -180,8 +183,12 @@ class StaticIteration:
         self.cam = CameraArrays(*self.inputs[:CAM_FLOATS].split((3, 3, 3, 3, 2)))
         scalars = self.inputs[CAM_FLOATS:].view(torch.int32)
         self.iteration, self.nk = scalars[0], scalars[1]
+        # the lanes that cashed the env radiance, in a scene with an env map
+        self.env_lanes = (torch.zeros((), dtype=torch.int64, device=dev)
+                          if static.env_map_id >= 0 else None)
         self.spec = lap_spec(flat, static, opts, self.cam, key, self.n, pixel_xy=pixel_xy,
-                             nk=self.nk if regen else None, pixel0=int(pixel0))
+                             nk=self.nk if regen else None, pixel0=int(pixel0),
+                             env_lanes=self.env_lanes)
         self.sizes = (self.n,) + tuple(size for size, _ in self.spec.sched.shrink)
         self.pools = [new_pool(torch.zeros((m, 3), device=dev), torch.zeros((m, 3), device=dev),
                                regen=regen) for m in self.sizes]
@@ -207,6 +214,8 @@ class StaticIteration:
         _copy_pool(self.pools[0], start_pool(self.spec, self.cam, self.iteration, self.n))
         self.rays.zero_()
         self.depth.zero_()
+        if self.env_lanes is not None:
+            self.env_lanes.zero_()
 
     def _lap(self, level: int, sort: bool, mark=None) -> None:
         s, r = lap_step(self.spec, self.pools[level], self.iteration, self.depth, sort, mark=mark)
@@ -227,7 +236,7 @@ class StaticIteration:
         _copy_pool(self.pools[level], merge_back(self.pools[level + 1], self.pools[level]))
 
     def _finish(self, mark=None) -> None:
-        self.contrib.copy_(finish(self.spec, self.pools[0]))
+        self.contrib.copy_(finish(self.spec, self.pools[0], mark=mark))
 
     def _body(self, key: tuple, traced: bool = False):
         """Step `key` as a function of no argument; `traced`, with the

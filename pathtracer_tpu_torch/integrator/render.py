@@ -97,6 +97,7 @@ class RenderStats:
     per_iter_seconds: list = field(default_factory=list)
     laps: int = 0  # bounce laps run in the booked iterations
     kernel_builds: int = 0  # kernel libraries nvcc built in the warm-up (0: loaded from the cache)
+    env_lanes: int = 0  # lanes that cashed env radiance in the booked iterations (an ENV scene)
 
     @property
     def mrays_per_sec(self) -> float:
@@ -167,6 +168,7 @@ class Renderer:
         self.traced_depth = 0  # laps of the last iteration
         self.lap_pools = []    # its pool's length at each lap
         self.graphs = None     # the CUDA graphs of the iteration (graph_route)
+        self._env_lanes = None  # a step's count of the lanes that cashed env radiance
         self.stats = RenderStats()
         self.reset()
         self.setup.close(init)
@@ -288,21 +290,30 @@ class Renderer:
     def _run_iteration(self, cam, nk: int = 1):
         """`nk` samples per pixel: one classic iteration, or a regeneration
         batch when regeneration is on; one iteration over the shards when
-        sharded."""
+        sharded.  The lanes that cashed env radiance are added to
+        `self._env_lanes`, the booked iterations' 0-d int64 count, where
+        `step` set one."""
+        env_lanes = self._env_lanes
         if self.devices > 1:
             self.img, rays, self.traced_depth = self._sharded()(
                 self.flat, self.camera.as_arrays(), self.img, self.iteration + 1, self.key)
+            if env_lanes is not None:
+                for it in self.shard_step.shards.iterations:
+                    env_lanes.add_(it.env_lanes.to(env_lanes.device))
             self.lap_pools = []
             self.iteration += 1
             return rays
         if self.graph_route:
-            contrib, rays, self.lap_pools = self._compiled().run(
+            it = self._compiled()
+            contrib, rays, self.lap_pools = it.run(
                 self.camera.as_arrays(), self.iteration + 1, nk if self.regen_k else None)
             rays = rays.clone()  # the graphs' buffer: the next iteration overwrites it
+            if env_lanes is not None:
+                env_lanes.add_(it.env_lanes)
         else:
             contrib, rays, self.lap_pools = render_iteration(
                 self.flat, self.static, self.opts, cam, self.key, self.iteration + 1,
-                pixel_xy=self.pixel_xy, nk=nk if self.regen_k else None,
+                pixel_xy=self.pixel_xy, nk=nk if self.regen_k else None, env_lanes=env_lanes,
             )
         self.img = self.img + contrib
         self.iteration += nk
@@ -331,13 +342,20 @@ class Renderer:
 
         t0 = time.perf_counter()
         rays = torch.zeros((), dtype=torch.int64, device=self.device)
+        env = torch.zeros_like(rays) if self.static.env_map_id >= 0 else None
+        self._env_lanes = env
         left, laps = num_iterations, 0
         while left > 0:
             nk = min(left, max(self.regen_k, 1))
             rays = rays + self._run_iteration(cam, nk)
             laps += self.traced_depth
             left -= nk
-        rays_traced = int(rays)  # waits for the device
+        self._env_lanes = None
+        if env is None:
+            rays_traced = int(rays)  # waits for the device
+        else:  # one read for both counters
+            rays_traced, env_lanes = torch.stack([rays, env]).tolist()
+            self.stats.env_lanes += env_lanes
         self._sync()
         dt = time.perf_counter() - t0
         booked = max(num_iterations, 0)

@@ -254,7 +254,8 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
     `mark`, if given, is called with utils/profiling.py's stamp column at
     each stage edge: the closest hit (INTERSECT), the shading after it
     (SHADE), the NEE (NEE) and the shading after that (SHADE_AFTER_NEE),
-    and around the triangle walks' kernels inside them (ops/traverse.py)."""
+    and around the triangle walks' kernels inside them (ops/traverse.py)
+    and the sky's light samples inside the NEE (ops/lights.py env_lights)."""
     note = trace.update if trace is not None else (lambda **_: None)
     present = static.material_types
     alive = s.alive
@@ -299,7 +300,8 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
                 mark(profiling.NEE)
             lrec = occlude(flat, static,
                            sample_lights(flat, static, hit.point, key, rng_it, rng_dp, s.lane,
-                                         pixel0, enabled=nee_on, include_env=env_nee),
+                                         pixel0, enabled=nee_on, include_env=env_nee,
+                                         mark=mark),
                            shadow_sort=shadow_sort, route=route, mark=mark)
             wi = lrec.dir
             bsdf, _ = eval_lobes(params, nrm, s.d, wi, present=present)
@@ -335,7 +337,8 @@ def bounce(flat: FlatScene, static: SceneStatic, mode: SampleMode, key,
                 mark(profiling.NEE)
             lrec = occlude(flat, static,
                            sample_lights(flat, static, hit.point, key, rng_it, rng_dp, s.lane,
-                                         pixel0, enabled=cont & ~is_delta, include_env=env_nee),
+                                         pixel0, enabled=cont & ~is_delta, include_env=env_nee,
+                                         mark=mark),
                            shadow_sort=shadow_sort, route=route, mark=mark)
             wi = lrec.dir
             li_bsdf, b_pdf = eval_lobes(params, nrm, s.d, wi, present=present)
@@ -411,18 +414,21 @@ class Regen(NamedTuple):
 
 
 def refill(flat: FlatScene, static: SceneStatic, mode: SampleMode, key, iteration: int,
-           s: _Pool, rg: Regen, env_nee: bool = False) -> _Pool:
+           s: _Pool, rg: Regen, env_nee: bool = False, env_lanes=None) -> _Pool:
     """Lanes whose path has ended and whose pixel has samples left start the
     next one: its camera ray (sample `iteration` + offset + 1), throughput
     1, meta (offset + 1) << 8.  An env-missed lane cashes its deferred env
     radiance first, while its direction, throughput and pdf are still its
-    path's."""
+    path's, and is counted into `env_lanes` (LapSpec.env_lanes), if given."""
     it_ofs = s.meta >> 8
     regen = ~s.alive & (it_ofs < rg.nk - 1)
     contrib, env_miss = s.contrib, s.env_miss
     if static.env_map_id >= 0:
-        contrib = contrib + _env_radiance(flat, static, mode, s, regen & env_miss, env_nee)
+        cashed = regen & env_miss
+        contrib = contrib + _env_radiance(flat, static, mode, s, cashed, env_nee)
         env_miss = env_miss & ~regen
+        if env_lanes is not None:
+            env_lanes.add_(cashed.sum())
     gid = s.lane + rg.pixel0 if rg.pixel0 else s.lane
     x, y = lane_xy(gid, rg.width, rg.height, rg.pixel_xy)
     ro, rd = _lane_rays(rg.cam, rg.width, rg.height, key, iteration + it_ofs + 1, gid, x, y)
@@ -487,12 +493,17 @@ class LapSpec(NamedTuple):
     pixel_xy: tuple | None
     pixel0: int
     rg: Regen | None      # the refill, under regeneration
+    # the lanes that cashed the env radiance (at their refill or in
+    # `finish`), added up on the device: a 0-d int64 counter, or None
+    env_lanes: torch.Tensor | None = None
 
 
 def lap_spec(flat: FlatScene, static: SceneStatic, opts: RenderOptions, cam: CameraArrays,
-             key, n: int, pixel_xy=None, nk=None, pixel0: int = 0) -> LapSpec:
+             key, n: int, pixel_xy=None, nk=None, pixel0: int = 0,
+             env_lanes=None) -> LapSpec:
     """The LapSpec of an iteration over a pool of n lanes; `nk` (an int or a
-    0-d tensor) turns regeneration on."""
+    0-d tensor) turns regeneration on; `env_lanes` counts the lanes that
+    cash the env radiance (ignored in a scene without an environment map)."""
     if static.trace_depth > rng.MAX_DEPTH:
         raise ValueError(
             f"trace depth {static.trace_depth} does not fit the RNG counter's "
@@ -505,6 +516,7 @@ def lap_spec(flat: FlatScene, static: SceneStatic, opts: RenderOptions, cam: Cam
         show_normal=bool(opts.show_normal), sched=schedule(static, opts, n),
         route=walk_route(static, opts),
         pixel_xy=pixel_xy, pixel0=pixel0, rg=rg,
+        env_lanes=env_lanes,
     )
 
 
@@ -537,7 +549,7 @@ def lap_step(spec: LapSpec, s: _Pool, iteration, depth, sort: bool,
                      mark=mark)
     if spec.rg is not None:
         s = refill(spec.flat, spec.static, spec.mode, spec.key, iteration, s, spec.rg,
-                   spec.env_nee)
+                   spec.env_nee, spec.env_lanes)
     return s, rays
 
 
@@ -562,15 +574,26 @@ def merge_back(small: _Pool, full: _Pool) -> _Pool:
                    for a, b in zip(small, full)))
 
 
-def finish(spec: LapSpec, s: _Pool) -> torch.Tensor:
+def finish(spec: LapSpec, s: _Pool, mark=None) -> torch.Tensor:
     """The iteration's contributions in lane order, with the env radiance of
-    its env-missed lanes added."""
+    its env-missed lanes added (and those lanes counted into
+    `spec.env_lanes`).  `mark`, if given, is called with utils/profiling.py's
+    ENV_RESOLVE and ENV_RESOLVE_END around the env resolve alone."""
+    env = spec.static.env_map_id >= 0
     if spec.sched.sort_rays or spec.sched.shrink:
         # the env resolve's columns too: on the CPU, atan2 rounds by position
-        env_cols = (("d", "color", "prev_pdf", "env_miss") if spec.static.env_map_id >= 0
-                    else ())
+        env_cols = ("d", "color", "prev_pdf", "env_miss") if env else ()
         s = in_lane_order(s, ("contrib",) + env_cols)
-    return resolve_env(spec.flat, spec.static, spec.mode, s, spec.env_nee)
+    if not env:
+        return s.contrib
+    if mark is not None:
+        mark(profiling.ENV_RESOLVE)
+    contrib = resolve_env(spec.flat, spec.static, spec.mode, s, spec.env_nee)
+    if mark is not None:
+        mark(profiling.ENV_RESOLVE_END)
+    if spec.env_lanes is not None:
+        spec.env_lanes.add_(s.env_miss.sum())
+    return contrib
 
 
 def lap_budget(static: SceneStatic, nk=None) -> int:
@@ -628,7 +651,7 @@ def drive_laps(sched: Schedule, n: int, budget: int, lap, down, up) -> list:
 
 def render_iteration(flat: FlatScene, static: SceneStatic, opts: RenderOptions,
                      cam: CameraArrays, key, iteration: int, pixel_xy=None, nk=None,
-                     pixel0: int = 0, local_rows: int | None = None):
+                     pixel0: int = 0, local_rows: int | None = None, env_lanes=None):
     """One sample per pixel, or with `nk` the samples iteration ..
     iteration + nk - 1 in one regeneration pool.  Returns (contrib
     (W*H, 3) in lane order, rays emitted (int64 tensor), the pool's length
@@ -640,10 +663,12 @@ def render_iteration(flat: FlatScene, static: SceneStatic, opts: RenderOptions,
     `local_rows` rows from pixel `pixel0` on make the pool instead of the
     whole film (the sharding hook of the JAX package's
     make_render_iteration): contrib is then (local_rows * W, 3), and rows
-    past the film's last (a mesh's padding) are rendered like any other."""
+    past the film's last (a mesh's padding) are rendered like any other.
+    `env_lanes`, a 0-d int64 tensor, has the lanes that cashed the env
+    radiance added to it (LapSpec.env_lanes)."""
     n = static.width * (static.height if local_rows is None else local_rows)
     spec = lap_spec(flat, static, opts, cam, key, n, pixel_xy=pixel_xy,
-                    nk=None if nk is None else int(nk), pixel0=pixel0)
+                    nk=None if nk is None else int(nk), pixel0=pixel0, env_lanes=env_lanes)
     rays = torch.zeros((), dtype=torch.int64, device=flat.device)
     pools = [start_pool(spec, cam, iteration, n)]  # one per ladder level entered
 

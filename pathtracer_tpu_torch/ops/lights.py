@@ -33,6 +33,7 @@ from pathtracer_tpu_torch.ops.envmap import sample_env
 from pathtracer_tpu_torch.ops.intersect import xform_point
 from pathtracer_tpu_torch.ops.traverse import occlusion_test
 from pathtracer_tpu_torch.scene.flatscene import FlatScene, SceneStatic
+from pathtracer_tpu_torch.utils import profiling
 
 
 class LightSample(NamedTuple):
@@ -114,13 +115,13 @@ def _light_ids(rands, num_sampled: int):
 
 
 def light_samples(flat: FlatScene, static: SceneStatic, view_pos, rands, enabled=None,
-                  include_env: bool = False) -> LightSample:
+                  include_env: bool = False, mark=None) -> LightSample:
     """One light sample per lane, before the shadow test.  `rands` is (N, 3):
     col 0 the light pick, cols 1-2 the area/cone sample; (N, 4) with
     `include_env`, col 3 the env texel jitter's second axis.  `enabled`
     masks lanes whose NEE term is zero downstream: their shadow rays are
     not traced.  Every light's branch runs over every lane (the plain
-    version of ops/lights_cuda.py's L1)."""
+    version of ops/lights_cuda.py's L1).  `mark` stamps `env_lights`."""
     N = view_pos.shape[0]
     dev = view_pos.device
     L = static.num_lights
@@ -166,20 +167,27 @@ def light_samples(flat: FlatScene, static: SceneStatic, view_pos, rands, enabled
         pdf = torch.where(sel, pdf_i * inv_l, pdf)
 
     if include_env:
-        light_pos, emit, pdf = env_lights(flat, static, view_pos, rands, light_pos, emit, pdf)
+        light_pos, emit, pdf = env_lights(flat, static, view_pos, rands, light_pos, emit, pdf,
+                                          mark=mark)
     return shadow_rays(view_pos, light_pos, emit, pdf, enabled)
 
 
-def env_lights(flat: FlatScene, static: SceneStatic, view_pos, rands, light_pos, emit, pdf):
+def env_lights(flat: FlatScene, static: SceneStatic, view_pos, rands, light_pos, emit, pdf,
+               mark=None):
     """(light_pos, emit, pdf) with the environment's lanes filled in: the
     lanes whose pick is light L of L + 1 take `sample_env`'s direction (the
-    light point 1e7 out along it), radiance and pdf."""
+    light point 1e7 out along it), radiance and pdf.  `mark`, if given, is
+    called with utils/profiling.py's ENV_LIGHT and ENV_LIGHT_END around it."""
+    if mark is not None:
+        mark(profiling.ENV_LIGHT)
     is_env = _light_ids(rands, static.num_lights + 1) >= static.num_lights
     env_dir, env_le, env_pdf_w = sample_env(flat, static, rands[:, 1], rands[:, 2], rands[:, 3])
     em = is_env[..., None]
     light_pos = torch.where(em, view_pos + env_dir * 1e7, light_pos)
     pdf = torch.where(is_env, env_pdf_w * inv_count(static.num_lights + 1), pdf)
     emit = torch.where(em, env_le, emit)
+    if mark is not None:
+        mark(profiling.ENV_LIGHT_END)
     return light_pos, emit, pdf
 
 

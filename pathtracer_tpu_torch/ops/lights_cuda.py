@@ -59,11 +59,11 @@ def light_draw_plain(key, iteration, depth, lane, pixel0: int = 0, include_env: 
 
 
 def sample_lights_plain(flat: FlatScene, static: SceneStatic, view_pos, key, iteration, depth,
-                        lane, pixel0: int = 0, enabled=None,
-                        include_env: bool = False) -> LightSample:
+                        lane, pixel0: int = 0, enabled=None, include_env: bool = False,
+                        mark=None) -> LightSample:
     """Plain L1 (any device): each lane's light draw, then `light_samples`."""
     rands = light_draw_plain(key, iteration, depth, lane, pixel0, include_env)
-    return light_samples(flat, static, view_pos, rands, enabled, include_env)
+    return light_samples(flat, static, view_pos, rands, enabled, include_env, mark=mark)
 
 
 def eval_light_pdf_plain(flat: FlatScene, static: SceneStatic, view_pos, light_pos, normal,
@@ -100,15 +100,17 @@ def _tables(flat: FlatScene, static: SceneStatic, num_sampled: int) -> tuple:
 
 
 def sample_lights(flat: FlatScene, static: SceneStatic, view_pos, key, iteration, depth, lane,
-                  pixel0: int = 0, enabled=None, include_env: bool = False) -> LightSample:
+                  pixel0: int = 0, enabled=None, include_env: bool = False,
+                  mark=None) -> LightSample:
     """L1: each lane's light sample before the shadow test, from its draw at
     (`iteration`, `depth`, STAGE_LIGHT) and counter lane + `pixel0`, as
     `sample_lights_plain` gives it.  `enabled` (N,) bool masks the lanes
     whose shadow ray is traced.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel, which runs each lane's own light."""
+    tensors launch the kernel, which runs each lane's own light.  `mark`
+    stamps `env_lights` (the span `device.env_light`)."""
     if lanes(_WHAT, lane, view_pos) == "cpu":
         return sample_lights_plain(flat, static, view_pos, key, iteration, depth, lane, pixel0,
-                                   enabled, include_env)
+                                   enabled, include_env, mark=mark)
     dev, f32, n = lane.device, torch.float32, lane.shape[0]
     num_sampled = static.num_lights + (1 if include_env else 0)
     mask = (None, 0) if enabled is None else column(enabled, "enabled", n, 1, torch.bool, dev)
@@ -120,7 +122,7 @@ def sample_lights(flat: FlatScene, static: SceneStatic, view_pos, key, iteration
     rands = torch.empty((n, 4), dtype=f32, device=dev) if include_env else None
     _build.launch("pt_sample_lights", dev, *args, pos, emit, pdf, org, d, occ_on, rands, n)
     if include_env:
-        pos, emit, pdf = env_lights(flat, static, view_pos, rands, pos, emit, pdf)
+        pos, emit, pdf = env_lights(flat, static, view_pos, rands, pos, emit, pdf, mark=mark)
         return shadow_rays(view_pos, pos, emit, pdf, enabled)
     return LightSample(pos=pos, emit=emit, pdf=pdf, origin=org, dir=d, occ_on=occ_on)
 

@@ -46,7 +46,12 @@ continuation, the refill under regeneration).  Inside `device.intersect`,
 `device.walk_closest`, and inside `device.nee`, `device.walk_shadow`: the
 triangle walk's kernel launch (K1, K3 or K5; K2 or K4), between a stamp
 just before it and one just after (ops/traverse.py), where the lap walks
-its triangles through a kernel.
+its triangles through a kernel.  In a scene with an environment map,
+`device.env_light` inside `device.nee`: the sky's lanes filled in after the
+light draw (ops/lights.py `env_lights`, under `env_importance`), and
+`device.env_resolve` inside the finish step's `device.replay`: the sky's
+radiance and MIS weight for the lanes that escaped (integrator/wavefront.py
+`resolve_env`), the un-permute before it left outside.
 
 Set-up spans (`renderer.init`, `cuda.context`, `scene.load`, `bvh.build`
 with `stream.tables` inside it on a streamed mesh, `tables.upload`,
@@ -89,10 +94,14 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # then the edges of the triangle walks, each inside its stage.
 STEP_BEGIN, SORT, INTERSECT, SHADE, NEE, SHADE_AFTER_NEE, STAGES_END, STEP_END = range(8)
 WALK_CLOSEST, WALK_CLOSEST_END, WALK_SHADOW, WALK_SHADOW_END = range(8, 12)
-STAMP_COLS = 12
-# the walks' spans: (first column, last column, the stage column they lie in)
+ENV_LIGHT, ENV_LIGHT_END, ENV_RESOLVE, ENV_RESOLVE_END = range(12, 16)
+STAMP_COLS = 16
+# the spans inside a step: (first column, last column, the stage column they
+# lie in; None: the step itself): the walks', and the environment map's
 WALK_SPANS = {"walk_closest": (WALK_CLOSEST, WALK_CLOSEST_END, INTERSECT),
               "walk_shadow": (WALK_SHADOW, WALK_SHADOW_END, NEE)}
+ENV_SPANS = {"env_light": (ENV_LIGHT, ENV_LIGHT_END, NEE),
+             "env_resolve": (ENV_RESOLVE, ENV_RESOLVE_END, None)}
 STAGE_NAMES = {SORT: "sort", INTERSECT: "intersect", SHADE: "shade", NEE: "nee",
                SHADE_AFTER_NEE: "shade"}
 STAGES = ("sort", "intersect", "nee", "shade")
@@ -348,7 +357,7 @@ def _device_spans(tr: Tracer, read: StampRead) -> None:
             stage_ids[c] = tr.add("device." + STAGE_NAMES[c], r[c] + off, r[nxt] + off,
                                   parent=did, card=read.card, key=key,
                                   iteration=read.iteration, lap=lap)
-        for name, (first, last, stage) in WALK_SPANS.items():
+        for name, (first, last, stage) in {**WALK_SPANS, **ENV_SPANS}.items():
             if r[first] and r[last]:
                 tr.add("device." + name, r[first] + off, r[last] + off,
                        parent=stage_ids.get(stage, did), card=read.card, key=key,
@@ -392,7 +401,8 @@ def summary(spans: list, samples: int | None = None) -> dict:
     by stage (`stage_ms`: sort, intersect, nee, shade; the sorts of the
     ladder's steps down included), in the triangle walks' kernels
     (`walk_ms`: walk_closest, inside intersect, and walk_shadow, inside
-    nee), the laps' time outside their stages (`lap_unstaged_ms`), the
+    nee), in the environment map's work (`env_ms`: env_light, inside nee,
+    and env_resolve, inside the finish step), the laps' time outside their stages (`lap_unstaged_ms`), the
     share of the replays' time the laps' stages and the other steps
     account for (`coverage`), the card's idle gaps between the consecutive
     replays of an iteration by the host span in flight
@@ -411,7 +421,8 @@ def summary(spans: list, samples: int | None = None) -> dict:
         steps = [s for s in dev if s.name == "device.replay"]
         n = samples or len({s.iteration for s in steps}) or 1
         ms = 1e-6 / n
-        replay, stage, walk = {}, dict.fromkeys(STAGES, 0), dict.fromkeys(WALK_SPANS, 0)
+        replay, stage = {}, dict.fromkeys(STAGES, 0)
+        walk, env = dict.fromkeys(WALK_SPANS, 0), dict.fromkeys(ENV_SPANS, 0)
         lap_stages = 0
         for s in steps:
             name = key_name(s.key)
@@ -423,6 +434,8 @@ def summary(spans: list, samples: int | None = None) -> dict:
                     lap_stages += _dur(s)
             elif s.name[7:] in walk:
                 walk[s.name[7:]] += _dur(s)
+            elif s.name[7:] in env:
+                env[s.name[7:]] += _dur(s)
         total = sum(replay.values())
         laps = sum(_dur(s) for s in steps if s.key[0] == "lap")
         gaps = {}
@@ -448,6 +461,7 @@ def summary(spans: list, samples: int | None = None) -> dict:
             "lap_ms": laps * ms,
             "stage_ms": {k: v * ms for k, v in stage.items()},
             "walk_ms": {k: v * ms for k, v in walk.items()},
+            "env_ms": {k: v * ms for k, v in env.items()},
             "lap_unstaged_ms": (laps - lap_stages) * ms,
             "coverage": (lap_stages + total - laps) / total if total else None,
             "gap_ms": {k: v * ms for k, v in sorted(gaps.items(), key=lambda kv: -kv[1])},

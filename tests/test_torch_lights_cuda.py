@@ -231,7 +231,7 @@ def _marshalling(monkeypatch):
                                                               else "per lane")
 
     def sample(flat, static, view_pos, key, iteration, depth, lane, pixel0=0, enabled=None,
-               include_env=False):
+               include_env=False, mark=None):
         n, dev = lane.shape[0], lane.device
         _build.column(view_pos, "view_pos", n, 3, torch.float32, dev)
         _build.column(enabled, "enabled", n, 1, torch.bool, dev)
@@ -239,7 +239,7 @@ def _marshalling(monkeypatch):
         lc._tables(flat, static, static.num_lights + include_env)
         seen.append(("L1", form(iteration), form(depth)))
         return lc.sample_lights_plain(flat, static, view_pos, key, iteration, depth, lane, pixel0,
-                                      enabled, include_env)
+                                      enabled, include_env, mark=mark)
 
     def pdf(flat, static, view_pos, light_pos, normal, tri_id, geom_id, include_env=False):
         n, dev = tri_id.shape[0], tri_id.device

@@ -101,8 +101,9 @@ def traced_run(it: StaticIteration, r: Renderer, iteration: int = 1):
 
 def check_nesting(spans, replays: int) -> dict:
     """Every one of the `replays` replays has one device span under it, each
-    stage span lies in its step's, a lap's stages sum to no more than the
-    lap; returns the stage spans' names by step kind."""
+    stage span lies in its step's (and, in a scene with an environment map,
+    the env resolve in the finish step's), a lap's stages sum to no more
+    than the lap; returns the stage spans' names by step kind."""
     ids = by_id(spans)
     host = [s for s in spans if s.name == "replay"]
     dev = [s for s in spans if s.name == "device.replay"]
@@ -115,6 +116,9 @@ def check_nesting(spans, replays: int) -> dict:
     kinds = {}
     for d in dev:
         stages = [s for s in spans if s.parent == d.id]
+        resolve = [s for s in stages if s.name == "device.env_resolve"]
+        assert all(d.key == ("finish",) and d.start <= s.start <= s.end <= d.end for s in resolve)
+        stages = [s for s in stages if s not in resolve]
         assert all(s.name in STAGE_SPANS and d.start <= s.start <= s.end <= d.end for s in stages)
         if d.key[0] == "lap":
             assert sum(s.end - s.start for s in stages) <= d.end - d.start
